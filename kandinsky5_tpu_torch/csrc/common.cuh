@@ -1,0 +1,124 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel here is built around the warp-level tensor-core product
+// mma.sync.m16n8k16 (bf16 x bf16 -> fp32). Its register layouts, per lane
+// (g = lane / 4, t = lane % 4):
+//   A (16x16, row-major): a[0] = (row g,   cols 2t..2t+1)
+//                         a[1] = (row g+8, cols 2t..2t+1)
+//                         a[2] = (row g,   cols 2t+8..2t+9)
+//                         a[3] = (row g+8, cols 2t+8..2t+9)
+//   B (16x8, "col"):      b[0] = (k 2t..2t+1, col g), b[1] = (k 2t+8..2t+9, col g)
+//   C (16x8, fp32):       c[0..1] = (row g, cols 2t..2t+1), c[2..3] = (row g+8, same)
+// Two adjacent C tiles of one row band therefore form one A operand, which
+// lets attention feed its softmax weights to the second product from
+// registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace k5 {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 values that are not adjacent in memory, packed low-first.
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The two floats a packed pair holds after rounding to bf16.
+__device__ __forceinline__ float2 unpack_f2(uint32_t v) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  return __bfloat1622float2(h);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// 128x128 output tile of C = A . B^T with A (M, K) and B (N, K) both
+// K-contiguous in shared memory, 32 deep per stage. 256 threads = 8 warps
+// as 2 (M) x 4 (N); each warp owns a 64x32 sub-tile = 4x4 mma tiles.
+// ---------------------------------------------------------------------------
+constexpr int GM = 128, GN = 128, GK = 32, GST = GK + 8;  // smem row stride
+
+__device__ __forceinline__ void gemm_stage(const bf16* As, const bf16* Bs,
+                                           float acc[4][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int kk = 0; kk < GK / 16; ++kk) {
+    uint32_t a[4][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const bf16* p = As + (wm * 64 + mt * 16 + g) * GST + kk * 16 + 2 * t;
+      a[mt][0] = ld32(p);
+      a[mt][1] = ld32(p + 8 * GST);
+      a[mt][2] = ld32(p + 8);
+      a[mt][3] = ld32(p + 8 * GST + 8);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const bf16* p = Bs + (wn * 32 + nt * 8 + g) * GST + kk * 16 + 2 * t;
+      b[nt][0] = ld32(p);
+      b[nt][1] = ld32(p + 8);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+  }
+}
+
+// Load the B stage (GN rows of the (N, K) matrix, GK columns from k0) into
+// registers: 128 rows x 4 uint4 = 512 uint4, two per thread.
+__device__ __forceinline__ void load_b_regs(const bf16* B, int ldb, int n0,
+                                            int k0, uint4 r[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int idx = threadIdx.x + i * 256;
+    int row = idx >> 2, c8 = (idx & 3) * 8;
+    r[i] = *reinterpret_cast<const uint4*>(B + (size_t)(n0 + row) * ldb + k0 + c8);
+  }
+}
+
+__device__ __forceinline__ void store_stage_regs(bf16* S, const uint4 r[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int idx = threadIdx.x + i * 256;
+    int row = idx >> 2, c8 = (idx & 3) * 8;
+    *reinterpret_cast<uint4*>(S + row * GST + c8) = r[i];
+  }
+}
+
+}  // namespace k5

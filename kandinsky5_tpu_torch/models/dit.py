@@ -1,0 +1,269 @@
+"""DiffusionTransformer3D — the 2B Kandinsky-5 DiT in PyTorch.
+
+Counterpart of ``kandinsky5_tpu/models/dit.py``. The module tree carries
+the released checkpoint's names (``visual_transformer_blocks.0.
+self_attention.to_query.weight``, ...), so a reference safetensors file
+loads with ``load_state_dict`` and no conversion. The blocks run as a
+Python loop (the JAX package scans stacked blocks). The stage split
+prologue / visual blocks / epilogue is kept. The NABLA sparse path and the
+fractal token order belong to the 10 s configs and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from kandinsky5_tpu_torch.config import DiTParams
+from kandinsky5_tpu_torch.models.nn import (
+    Attention,
+    FeedForward,
+    Modulation,
+    TextEmbeddings,
+    TimeEmbeddings,
+    VisualEmbeddings,
+    apply_gate_sum,
+    apply_rotary,
+    apply_scale_shift_norm,
+    linear,
+    modulated_feed_forward,
+    modulation,
+    qkv_proj,
+    rms_norm,
+    rope_1d,
+    rope_3d,
+    text_embeddings,
+    time_embeddings,
+    unpatchify,
+    visual_embeddings,
+)
+from kandinsky5_tpu_torch.ops.attention import attention
+
+
+class TransformerEncoderBlock(nn.Module):
+    """Text block: AdaLN self-attention + modulated FF."""
+
+    def __init__(self, cfg: DiTParams, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.text_modulation = Modulation(cfg.time_dim, cfg.model_dim, 6, **kw)
+        self.self_attention = Attention(cfg.model_dim, cfg.head_dim, **kw)
+        self.feed_forward = FeedForward(cfg.model_dim, cfg.ff_dim, **kw)
+
+
+class TransformerDecoderBlock(nn.Module):
+    """Visual block: AdaLN self-attention + cross-attention + modulated FF."""
+
+    def __init__(self, cfg: DiTParams, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.visual_modulation = Modulation(cfg.time_dim, cfg.model_dim, 9,
+                                            **kw)
+        self.self_attention = Attention(cfg.model_dim, cfg.head_dim, **kw)
+        self.cross_attention = Attention(cfg.model_dim, cfg.head_dim, **kw)
+        self.feed_forward = FeedForward(cfg.model_dim, cfg.ff_dim, **kw)
+
+
+class OutLayer(nn.Module):
+    def __init__(self, cfg: DiTParams, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.modulation = Modulation(cfg.time_dim, cfg.model_dim, 2, **kw)
+        self.out_layer = nn.Linear(
+            cfg.model_dim, math.prod(cfg.patch_size) * cfg.out_visual_dim, **kw)
+
+
+class DiffusionTransformer3D(nn.Module):
+    """Parameter tree of the DiT; :func:`dit_forward` runs it."""
+
+    def __init__(self, cfg: DiTParams, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.time_embeddings = TimeEmbeddings(cfg.model_dim, cfg.time_dim, **kw)
+        self.text_embeddings = TextEmbeddings(cfg.in_text_dim, cfg.model_dim,
+                                              **kw)
+        self.pooled_text_embeddings = TextEmbeddings(cfg.in_text_dim2,
+                                                     cfg.time_dim, **kw)
+        self.visual_embeddings = VisualEmbeddings(cfg.patch_dim, cfg.model_dim,
+                                                  **kw)
+        self.text_transformer_blocks = nn.ModuleList(
+            TransformerEncoderBlock(cfg, **kw)
+            for _ in range(cfg.num_text_blocks))
+        self.visual_transformer_blocks = nn.ModuleList(
+            TransformerDecoderBlock(cfg, **kw)
+            for _ in range(cfg.num_visual_blocks))
+        self.out_layer = OutLayer(cfg, **kw)
+
+    @property
+    def dtype(self):
+        return self.visual_embeddings.in_layer.weight.dtype
+
+    def forward(self, x, text_embed, pooled_text_embed, time, text_mask=None,
+                scale_factor=(1.0, 1.0, 1.0), attn_impl="auto"):
+        return dit_forward(self, x, text_embed, pooled_text_embed, time,
+                           text_mask, scale_factor, attn_impl)
+
+
+def _mod_params(mod_vec, n: int):
+    """Split (B, n*D) into n (B, 1, D) chunks."""
+    b, nd = mod_vec.shape
+    m = mod_vec.reshape(b, n, nd // n)
+    return [m[:, i][:, None, :] for i in range(n)]
+
+
+def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl):
+    b, l, d = x.shape
+    q, k, v = qkv_proj(p, x, num_heads)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+    out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
+    return linear(p.out_layer, out.reshape(b, l, d))
+
+
+def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl):
+    b, l, d = x.shape
+    bc, lc, _ = cond.shape
+    q = linear(p.to_query, x).reshape(b, l, num_heads, -1)
+    k = linear(p.to_key, cond).reshape(bc, lc, num_heads, -1)
+    v = linear(p.to_value, cond).reshape(bc, lc, num_heads, -1)
+    q = rms_norm(q, p.query_norm.weight).to(x.dtype)
+    k = rms_norm(k, p.key_norm.weight).to(x.dtype)
+    out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
+    return linear(p.out_layer, out.reshape(b, l, d))
+
+
+def text_encoder_block(p, x, time_embed, rope, kv_mask, num_heads, attn_impl):
+    mod = modulation(p.text_modulation, time_embed)
+    shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = _mod_params(mod, 6)
+    out = apply_scale_shift_norm(x, scale_sa, shift_sa)
+    out = _self_attention(p.self_attention, out, rope, num_heads, kv_mask,
+                          attn_impl)
+    x = apply_gate_sum(x, out, gate_sa)
+    return modulated_feed_forward(p.feed_forward, x, scale_ff, shift_ff,
+                                  gate_ff)
+
+
+def visual_decoder_block(p, visual, text, time_embed, rope, text_mask,
+                         num_heads, attn_impl):
+    mod = modulation(p.visual_modulation, time_embed)
+    (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
+     shift_ff, scale_ff, gate_ff) = _mod_params(mod, 9)
+    out = apply_scale_shift_norm(visual, scale_sa, shift_sa)
+    out = _self_attention(p.self_attention, out, rope, num_heads, None,
+                          attn_impl)
+    visual = apply_gate_sum(visual, out, gate_sa)
+    out = apply_scale_shift_norm(visual, scale_ca, shift_ca)
+    out = _cross_attention(p.cross_attention, out, text, num_heads, text_mask,
+                           attn_impl)
+    visual = apply_gate_sum(visual, out, gate_ca)
+    return modulated_feed_forward(p.feed_forward, visual, scale_ff, shift_ff,
+                                  gate_ff)
+
+
+def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
+                 pooled_text_embed, time, text_mask,
+                 scale_factor: Sequence[float], attn_impl: str = "auto"):
+    """Embeddings + text blocks + visual RoPE tables. Returns (visual
+    (B, S, D), text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin),
+    grid)."""
+    cfg = model.cfg
+    b, t, h, w, _ = x.shape
+    grid = (t // cfg.patch_size[0], h // cfg.patch_size[1],
+            w // cfg.patch_size[2])
+    text = text_embeddings(model.text_embeddings, text_embed)
+    time_embed = time_embeddings(model.time_embeddings, time, cfg.model_dim)
+    pooled = text_embeddings(model.pooled_text_embeddings, pooled_text_embed)
+    time_embed = time_embed + pooled.float()
+
+    visual = visual_embeddings(model.visual_embeddings, x, cfg.patch_size)
+    visual = visual.reshape(b, -1, cfg.model_dim)
+
+    dev = x.device
+    text_rope = rope_1d(torch.arange(text.shape[1], device=dev), cfg.head_dim)
+    for blk in model.text_transformer_blocks:
+        text = text_encoder_block(blk, text, time_embed, text_rope, text_mask,
+                                  cfg.num_heads, attn_impl)
+    positions = tuple(torch.arange(g, device=dev) for g in grid)
+    rope = rope_3d(grid, positions, cfg.axes_dims, scale_factor)
+    return visual, text, time_embed, rope, grid
+
+
+def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, rope,
+                      text_mask, attn_impl: str = "auto"):
+    """The visual block stack as a Python loop."""
+    for blk in model.visual_transformer_blocks:
+        visual = visual_decoder_block(blk, visual, text, time_embed, rope,
+                                      text_mask, model.cfg.num_heads, attn_impl)
+    return visual
+
+
+def dit_epilogue(model: DiffusionTransformer3D, visual, time_embed, grid):
+    """AdaLN-modulated out layer + unpatchify."""
+    cfg = model.cfg
+    p = model.out_layer
+    shift, scale = _mod_params(modulation(p.modulation, time_embed), 2)
+    visual = apply_scale_shift_norm(visual, scale, shift)
+    x = linear(p.out_layer, visual)
+    x = x.reshape(x.shape[0], *grid, x.shape[-1])
+    return unpatchify(x, cfg.patch_size, cfg.out_visual_dim)
+
+
+@torch.no_grad()
+def dit_forward(model: DiffusionTransformer3D, x, text_embed,
+                pooled_text_embed, time, text_mask=None,
+                scale_factor: Sequence[float] = (1.0, 1.0, 1.0),
+                attn_impl: str = "auto"):
+    """(B, T, H, W, C_in) -> (B, T, H, W, out_visual_dim). ``time`` is
+    (B,) already scaled by 1000."""
+    visual, text, time_embed, rope, grid = dit_prologue(
+        model, x, text_embed, pooled_text_embed, time, text_mask,
+        scale_factor, attn_impl)
+    visual = dit_visual_blocks(model, visual, text, time_embed, rope,
+                               text_mask, attn_impl)
+    return dit_epilogue(model, visual, time_embed, grid)
+
+
+# ---------------------------------------------------------------------------
+# Initialization (tests and smoke runs; real weights come via checkpoint.py)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def init_dit_params(cfg: DiTParams, device=None, dtype=torch.bfloat16,
+                    seed: int = 0) -> DiffusionTransformer3D:
+    """The JAX ``init_dit_params`` scheme: linears uniform in +-1/sqrt(in),
+    zero biases, norms at one, modulation weights at ZERO (so every block
+    starts as an identity)."""
+    model = DiffusionTransformer3D(cfg, device=device, dtype=dtype)
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Linear):
+            if "modulation" in name:
+                mod.weight.zero_()
+            else:
+                k = 1.0 / math.sqrt(mod.in_features)
+                w = torch.empty(mod.weight.shape, device=mod.weight.device,
+                                dtype=torch.float32)
+                mod.weight.copy_(w.uniform_(-k, k, generator=gen))
+            if mod.bias is not None:
+                mod.bias.zero_()
+    return model
+
+
+@torch.no_grad()
+def fast_init_dit_params(cfg: DiTParams, device=None, dtype=torch.bfloat16,
+                         seed: int = 0, scale: float = 0.02
+                         ) -> DiffusionTransformer3D:
+    """Every parameter uniform in +-scale from one seeded generator, drawn
+    on ``device`` (the JAX ``fast_init_dit_params`` scheme: modulation is
+    not zero, so every block does work)."""
+    model = DiffusionTransformer3D(cfg, device=device, dtype=dtype)
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    for prm in model.parameters():
+        prm.uniform_(-scale, scale, generator=gen)
+    return model

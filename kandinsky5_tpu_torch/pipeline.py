@@ -1,0 +1,166 @@
+"""Kandinsky5T2VPipeline — text-to-video on one GPU, in PyTorch.
+
+Counterpart of ``kandinsky5_tpu/pipeline.py``: conditioning from an
+injected text embedder -> Euler flow-matching denoise of the DiT
+(``sampling.py``) -> streaming VAE decode -> uint8 frames -> mp4 / PNG.
+The attention implementation is ``DenoiseSpec.attn_impl`` ("auto": K1 for
+self-attention, dense for the short text cross-attention), not sniffed
+from the backend. ``get_T2V_pipeline`` and the Qwen/CLIP text towers wait
+for a later slice; the embedder passed in must offer
+``encode(texts, type_of_content) -> TextEmbeddings`` (and
+``expand_prompt`` when ``expand_prompts`` is set).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, List, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from kandinsky5_tpu_torch.config import Config
+from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
+
+DEFAULT_NEGATIVE = (
+    "Static, 2D cartoon, cartoon, 2d animation, paintings, images, worst "
+    "quality, low quality, ugly, deformed, walking backwards"
+)
+
+RESOLUTIONS = {512: [(512, 512), (512, 768), (768, 512)]}
+
+
+class TextEmbeddings(NamedTuple):
+    """What a text embedder hands the DiT: (B, L, in_text_dim) embeddings,
+    (B, in_text_dim2) pooled embedding, (B, L) bool validity mask."""
+
+    text_embeds: torch.Tensor
+    pooled_embed: torch.Tensor
+    mask: torch.Tensor
+
+
+class Kandinsky5T2VPipeline:
+    def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
+                 attn_impl: str = "auto"):
+        self.dit = dit
+        self.conf = conf
+        self.text_embedder = text_embedder
+        self.vae = vae
+        self.attn_impl = attn_impl
+        self.resolution = conf.resolution
+        if self.resolution not in RESOLUTIONS:
+            raise ValueError("Resolution can be only 512")
+        # per-request timings of the last call (seconds)
+        self.timings: dict = {}
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.dit.parameters()).device
+
+    def _spec(self, num_steps, guidance_weight, scheduler_scale) -> DenoiseSpec:
+        return DenoiseSpec(
+            dit_params=self.conf.model.dit_params, num_steps=num_steps,
+            guidance_weight=guidance_weight, scheduler_scale=scheduler_scale,
+            scale_factor=tuple(self.conf.metrics.scale_factor),
+            attn_impl=self.attn_impl)
+
+    def expand_prompt(self, prompt: str) -> str:
+        return self.text_embedder.expand_prompt(prompt)
+
+    def _encode(self, texts, type_of_content) -> dict:
+        e = self.text_embedder.encode(texts, type_of_content)
+        dev = self.device
+        return {"text_embeds": e.text_embeds.to(dev),
+                "pooled_embed": e.pooled_embed.to(dev),
+                "mask": e.mask.to(dev).bool()}
+
+    def __call__(
+        self,
+        text: Union[str, List[str]],
+        time_length: int = 5,  # seconds; 0 => one image
+        width: int = 768,
+        height: int = 512,
+        seed: Optional[int] = None,
+        num_steps: Optional[int] = None,
+        guidance_weight: Optional[float] = None,
+        scheduler_scale: float = 10.0,
+        negative_caption: str = DEFAULT_NEGATIVE,
+        expand_prompts: bool = True,
+        save_path: Optional[Union[str, List[str]]] = None,
+        progress: bool = False,
+        noise: Optional[torch.Tensor] = None,
+    ) -> np.ndarray:
+        """Generate (B, T, H, W, 3) uint8 frames; T = 1 for an image, else
+        time_length * 24 // 4 + 1. ``noise`` (B, T', H/8, W/8, 16) replaces
+        the seeded noise."""
+        num_steps = self.conf.model.num_steps if num_steps is None else num_steps
+        guidance_weight = (self.conf.model.guidance_weight
+                           if guidance_weight is None else guidance_weight)
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        if (height, width) not in RESOLUTIONS[self.resolution]:
+            raise ValueError(
+                f"Wrong height, width pair. Available (height, width) are: "
+                f"{RESOLUTIONS[self.resolution]}")
+        num_frames = 1 if time_length == 0 else time_length * 24 // 4 + 1
+        type_of_content = "image" if time_length == 0 else "video"
+
+        captions = [text] if isinstance(text, str) else list(text)
+        if expand_prompts:
+            captions = [self.expand_prompt(c) for c in captions]
+        batch = len(captions)
+        cond = self._encode(captions, type_of_content)
+        uncond = self._encode([negative_caption] * batch, type_of_content)
+
+        latent_shape = (batch, num_frames, height // 8, width // 8, 16)
+        spec = self._spec(num_steps, guidance_weight, scheduler_scale)
+        on_step: Optional[Callable[[int], None]] = None
+        if progress:
+            def on_step(i):
+                print(f"denoise step {i + 1}/{num_steps}", flush=True)
+
+        _sync(self.device)
+        t0 = time.perf_counter()
+        latents = generate_latents(self.dit, spec, latent_shape, cond, uncond,
+                                   seed=seed, noise=noise, on_step=on_step)
+        finite = bool(torch.isfinite(latents).all())
+        t1 = time.perf_counter()
+        frames = self.decode_latents(latents)
+        t2 = time.perf_counter()
+        self.timings = {"denoise_s": t1 - t0, "decode_s": t2 - t1,
+                        "steps": num_steps, "cfg": spec.use_cfg,
+                        "latents_finite": finite}
+        if save_path is not None:
+            self.timings["saved"] = self.save(frames, save_path, time_length)
+        return frames
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
+        """(B, T', H', W', 16) -> (B, T, H, W, 3) uint8 by the streaming
+        decode."""
+        z = latents / self.vae.scaling_factor
+        video = self.vae.decode(z, mode="stream")
+        video = video.float().clamp(-1.0, 1.0)
+        video = ((video + 1.0) * 127.5).to(torch.uint8)
+        return video.cpu().numpy()
+
+    def save(self, frames: np.ndarray, save_path: Union[str, List[str]],
+             time_length: int) -> List[str]:
+        """Write each item: PNG for an image, mp4 (or .y4m) for a video.
+        Returns the paths written."""
+        from kandinsky5_tpu_torch.utils.io import write_image, write_video
+
+        if isinstance(save_path, str):
+            save_path = [save_path]
+        written = []
+        for path, video in zip(save_path, frames):
+            if time_length == 0:
+                written.append(write_image(path, video[0]))
+            else:
+                written.append(write_video(path, video, fps=24, crf=5))
+        return written
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

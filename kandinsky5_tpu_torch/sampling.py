@@ -1,0 +1,137 @@
+"""Flow-matching Euler sampling in PyTorch.
+
+Counterpart of ``kandinsky5_tpu/sampling.py`` for the dense-attention
+configs: the timestep grid, :class:`DenoiseSpec`, the visual-condition
+input, the Euler loop of ``denoise``/``denoise_span`` as a Python loop,
+classifier-free guidance both as one batch-2 call and as two sequential
+calls, and :func:`generate_latents` with explicit noise. MagCache and the
+NABLA path wait for later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from kandinsky5_tpu_torch.config import DiTParams
+from kandinsky5_tpu_torch.models.dit import (
+    DiffusionTransformer3D,
+    dit_epilogue,
+    dit_prologue,
+    dit_visual_blocks,
+)
+
+
+def timestep_grid(num_steps: int, scheduler_scale: float) -> np.ndarray:
+    """linspace(1 -> 0) warped by s t / (1 + (s - 1) t), fp32."""
+    t = np.linspace(1.0, 0.0, num_steps + 1, dtype=np.float32)
+    t = scheduler_scale * t / (1 + (scheduler_scale - 1) * t)
+    return t.astype(np.float32)
+
+
+@dataclass(frozen=True)
+class DenoiseSpec:
+    """What one denoise run does."""
+
+    dit_params: DiTParams
+    num_steps: int
+    guidance_weight: float
+    scheduler_scale: float
+    scale_factor: Tuple[float, float, float]
+    # "auto" (K1 self-attention, dense short-KV cross-attention), "flash"
+    # or "dense" (ops/attention.py)
+    attn_impl: str = "auto"
+    # the CFG pair as two forwards instead of one batch-2 call
+    sequential_cfg: bool = False
+
+    @property
+    def use_cfg(self) -> bool:
+        return abs(self.guidance_weight - 1.0) > 1e-6
+
+
+def _visual_cond_input(cfg: DiTParams, x, pdtype):
+    """[x, zeros, zero mask] on channels (33 channels) when visual_cond."""
+    if cfg.visual_cond:
+        zeros = torch.zeros_like(x)
+        zmask = torch.zeros((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+        x = torch.cat([x, zeros, zmask], dim=-1)
+    return x.to(pdtype)
+
+
+def _dit_call(model, spec: DenoiseSpec, model_in, text, pooled, mask, t):
+    nb = model_in.shape[0]
+    time_vec = torch.full((nb,), float(t), dtype=torch.float32,
+                          device=model_in.device) * 1000.0
+    visual, text_o, time_embed, rope, grid = dit_prologue(
+        model, model_in, text, pooled, time_vec, mask, spec.scale_factor,
+        spec.attn_impl)
+    visual = dit_visual_blocks(model, visual, text_o, time_embed, rope, mask,
+                               spec.attn_impl)
+    return dit_epilogue(model, visual, time_embed, grid).float()
+
+
+@torch.no_grad()
+def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
+                 times, dts, cond: dict, uncond: dict, on_step=None):
+    """Integrate the Euler steps ``times``/``dts`` (host arrays) from
+    ``noise`` (B, T, H, W, C) fp32. cond/uncond: {"text_embeds",
+    "pooled_embed", "mask"}. ``on_step(i)`` is called after each step."""
+    cfg = spec.dit_params
+    batch = noise.shape[0]
+    pdtype = model.dtype
+    use_cfg = spec.use_cfg
+    if use_cfg and not spec.sequential_cfg:
+        text = torch.cat([cond["text_embeds"], uncond["text_embeds"]])
+        pooled = torch.cat([cond["pooled_embed"], uncond["pooled_embed"]])
+        mask = torch.cat([cond["mask"], uncond["mask"]])
+    x = noise
+    for i, (t, dt) in enumerate(zip(times, dts)):
+        model_in = _visual_cond_input(cfg, x, pdtype)
+        if use_cfg and spec.sequential_cfg:
+            v_cond = _dit_call(model, spec, model_in, cond["text_embeds"],
+                               cond["pooled_embed"], cond["mask"], t)
+            v_uncond = _dit_call(model, spec, model_in, uncond["text_embeds"],
+                                 uncond["pooled_embed"], uncond["mask"], t)
+            velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
+        elif use_cfg:
+            pred = _dit_call(model, spec, torch.cat([model_in, model_in]),
+                             text, pooled, mask, t)
+            v_cond, v_uncond = pred[:batch], pred[batch:]
+            velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
+        else:
+            velocity = _dit_call(model, spec, model_in, cond["text_embeds"],
+                                 cond["pooled_embed"], cond["mask"], t)
+        x = x + float(dt) * velocity
+        if on_step is not None:
+            on_step(i)
+    return x
+
+
+def denoise(model, spec: DenoiseSpec, noise, cond: dict, uncond: dict,
+            on_step=None):
+    """The full Euler integration over :func:`timestep_grid`."""
+    ts = timestep_grid(spec.num_steps, spec.scheduler_scale)
+    return denoise_span(model, spec, noise, ts[:-1], np.diff(ts), cond,
+                        uncond, on_step=on_step)
+
+
+def generate_latents(model, spec: DenoiseSpec, shape, cond: dict,
+                     uncond: dict, seed: Optional[int] = None, noise=None,
+                     generator: Optional[torch.Generator] = None,
+                     on_step=None):
+    """Seed noise (or take ``noise``) and denoise. The noise is standard
+    normal fp32 from ``generator`` (or one seeded with ``seed``) on the
+    model's device; torch and JAX generators differ, so parity tests pass
+    ``noise`` explicitly."""
+    device = next(model.parameters()).device
+    if noise is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(
+                0 if seed is None else seed)
+        noise = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device)
+    return denoise(model, spec, noise.to(device=device, dtype=torch.float32),
+                   cond, uncond, on_step=on_step)

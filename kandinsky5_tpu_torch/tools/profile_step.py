@@ -1,0 +1,174 @@
+"""Where the time goes on the card: one DiT forward and one streaming VAE
+decode of the 5 s distil path, at full width with random weights.
+
+    python -m kandinsky5_tpu_torch.tools.profile_step [--seconds 1|5]
+
+For each of the two it prints the unprofiled wall time (host clock around
+a synchronized call, the minimum of a few repeats), the device time that
+``torch.profiler`` records per kernel, grouped into the port's kernels
+K1-K4, library GEMMs/convs and elementwise passes, and the device's idle
+share. The idle share comes from the profiled call's own trace: the time
+between the first device activity's start and the last one's end, less the
+union of the activities' intervals, over that span. The profiler adds host
+time per launch, so the share is an upper bound for the unprofiled call.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
+from kandinsky5_tpu_torch.models.vae import init_vae_params
+from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
+from kandinsky5_tpu_torch.tools import gpu_line
+
+# kernel-name substrings -> group (first match wins)
+GROUPS = [
+    ("K1 flash_fixed", ("flash_fixed_kernel",)),
+    ("K2 ff_kernel", ("ff_kernel",)),
+    ("K3 conv3d", ("conv3d_kernel",)),
+    ("K4 flash_online", ("flash_online_kernel",)),
+    ("library GEMM/conv (projections, 1x1, conv_in/out, dense cross)",
+     ("gemm", "nvjet", "xmma", "cutlass", "sm90", "sm80", "fprop", "cublas")),
+    ("elementwise / reduce / copy (norms, casts, gates, RoPE)",
+     ("elementwise", "reduce", "copy", "pad", "cat", "index", "softmax",
+      "memcpy", "memset", "fill")),
+]
+# profiler rows that are host-side API calls or markers, not kernels
+_NOT_KERNELS = ("Command Buffer Full", "cuLaunch", "cuda", "aten::")
+
+
+def busy_and_span(intervals) -> dict:
+    """Device occupancy of one trace from its activities' (start, end)
+    intervals (any unit): ``span`` from the first start to the last end,
+    ``busy`` the length of the intervals' union, ``summed`` their plain sum
+    (above ``busy`` only where activities overlapped) and the idle share
+    ``1 - busy / span``."""
+    spans = sorted(intervals)
+    if not spans:
+        return {"span": 0.0, "busy": 0.0, "summed": 0.0, "idle": float("nan")}
+    first, last = spans[0][0], max(e for _, e in spans)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = last - first
+    return {"span": span, "busy": busy,
+            "summed": sum(e - s for s, e in spans),
+            "idle": 1 - busy / span if span > 0 else float("nan")}
+
+
+def device_intervals(prof) -> list:
+    """(start, end) in microseconds of every device activity in a finished
+    profile: kernels, copies and fills."""
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type.name == "CUDA"
+            and not e.key.startswith(_NOT_KERNELS)
+            and e.time_range.end > e.time_range.start]
+
+
+def device_times(prof) -> dict:
+    """{kernel name: (device ms, calls)} from a finished profile."""
+    rows = {}
+    for e in prof.key_averages():
+        ms = (getattr(e, "device_time_total", 0.0) or 0.0) / 1e3
+        if ms <= 0 or e.device_type.name != "CUDA" \
+                or e.key.startswith(_NOT_KERNELS):
+            continue
+        rows[e.key] = (ms, e.count)
+    return rows
+
+
+def measure(label: str, fn, reps: int) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # first call: kernel build and allocator warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = min(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_times(prof)
+    total = sum(ms for ms, _ in rows.values())
+    occ = busy_and_span(device_intervals(prof))
+    print(f"== {label}: unprofiled wall {wall:.1f} ms (min of "
+          f"{', '.join(f'{w:.1f}' for w in walls)}); device kernel time "
+          f"{total:.1f} ms over {len(rows)} kernels; profiled trace: span "
+          f"{occ['span'] / 1e3:.1f} ms, busy {occ['busy'] / 1e3:.1f} ms, "
+          f"idle share {occ['idle']:.4f}", flush=True)
+    if occ["summed"] > occ["span"]:
+        print(f"   warning: device activities overlapped (their sum, "
+              f"{occ['summed'] / 1e3:.1f} ms, exceeds the span)", flush=True)
+    grouped: dict = {}
+    for key, (ms, n) in rows.items():
+        name = next((g for g, pats in GROUPS
+                     if any(p in key.lower() for p in pats)), "other")
+        acc = grouped.setdefault(name, [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    for name, (ms, n) in sorted(grouped.items(), key=lambda kv: -kv[1][0]):
+        print(f"   {ms:10.1f} ms {100 * ms / total:5.1f}%  x{n:<6d} {name}")
+    for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"     top: {ms:9.1f} ms x{n:<5d} {key[:100]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seconds", type=int, default=5, choices=(1, 5))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(gpu_line())
+
+    conf = load_config(os.path.join(CONFIG_DIR, "config_5s_distil.yaml"))
+    cfg = conf.model.dit_params
+    t_lat = args.seconds * 24 // 4 + 1
+    h_lat, w_lat = 512 // 8, 768 // 8
+    tokens = t_lat * (h_lat // 2) * (w_lat // 2)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    dit = fast_init_dit_params(cfg, device=dev, seed=0)
+    # conditioning at the text towers' widths, a partly padded mask
+    text = torch.randn((1, 256, cfg.in_text_dim), generator=g, device=dev)
+    pooled = torch.randn((1, cfg.in_text_dim2), generator=g, device=dev)
+    mask = (torch.arange(256, device=dev) < 100)[None]
+    x = torch.randn((1, t_lat, h_lat, w_lat, cfg.visual_embed_dim),
+                    generator=g, device=dev).bfloat16()
+    step = torch.tensor([500.0], device=dev)
+    measure(f"one {args.seconds} s DiT forward ({tokens} tokens)",
+            lambda: dit_forward(dit, x, text, pooled, step, mask,
+                                scale_factor=conf.metrics.scale_factor),
+            reps=2)
+    del dit
+    torch.cuda.empty_cache()
+
+    vae = init_vae_params(device=dev, seed=1)
+    z = torch.randn((1, t_lat, h_lat, w_lat, 16), generator=g,
+                    device=dev).bfloat16()
+    measure(f"{args.seconds} s streaming decode ({t_lat} latent -> "
+            f"{4 * (t_lat - 1) + 1} frames)", lambda: streaming_decode(vae, z),
+            reps=1)
+    print(gpu_line())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,146 @@
+"""K1-K4 on the card against their plain PyTorch versions, at small shapes
+(ragged lengths, masks) and at the shapes the 5 s distil path gives them.
+
+Needs a CUDA device and nvcc; skips without a card. Run on a GPU machine
+with ``pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py`` (the
+repository's conftest configures JAX, which the GPU machine need not have).
+
+Tolerances: the kernels and the plain versions round the same values to
+bf16 (softmax weights, hidden activations, outputs) but sum in different
+orders, so outputs may differ by an ulp of bf16 (2^-8 relative) here and
+there; the checks bound the relative L2 error at 1e-2 and the max-abs
+error at a few bf16 ulps of the output's scale. The attention inputs give
+scores of standard deviation 1, and a control shows the bound has teeth:
+uniform weights over the allowed keys (q = 0 in the plain version) fail
+it.
+"""
+
+import math
+
+import pytest
+import torch
+
+from kandinsky5_tpu_torch.ops import _kernels
+from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused, conv3d_plain
+from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
+from kandinsky5_tpu_torch.ops.flash import (
+    flash_fixed,
+    flash_fixed_plain,
+    flash_online,
+    flash_online_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _err(out, ref):
+    o, r = out.float(), ref.float()
+    assert torch.isfinite(o).all()
+    max_abs = (o - r).abs().max().item()
+    rel = ((o - r).norm() / r.norm().clamp_min(1e-30)).item()
+    return max_abs, rel
+
+
+def _fails_bound(out, ref, atol, rtol):
+    max_abs, rel = _err(out, ref)
+    return not (rel < rtol and max_abs < atol)
+
+
+def _normed(g, shape, dev):
+    x = torch.randn(shape, generator=g, device=dev)
+    return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
+
+
+@pytest.mark.parametrize("b,lq,lk,h,masked", [
+    (2, 300, 300, 3, True), (1, 256, 256, 28, True), (1, 1000, 700, 2, False),
+    (1, 47616, 47616, 28, False)])
+def test_k1_matches_plain(dev, b, lq, lk, h, masked):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = _normed(g, (b, lq, h, 64), dev)
+    k = _normed(g, (b, lk, h, 64), dev)
+    v = torch.randn((b, lk, h, 64), generator=g, device=dev).bfloat16()
+    mask = None
+    if masked:
+        n_valid = torch.tensor([lk * 2 // 3, lk // 5][:b], device=dev)
+        mask = torch.arange(lk, device=dev)[None] < n_valid[:, None]
+    out = flash_fixed(q, k, v, mask)
+    torch.cuda.synchronize()
+    ref = flash_fixed_plain(q, k, v, mask)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    assert _fails_bound(flash_fixed_plain(q * 0, k, v, mask), ref, 3e-2, 1e-2)
+
+
+@pytest.mark.parametrize("t,s,past,filled", [(2, 64, 4, 2), (1, 200, 4, 0),
+                                             (4, 6144, 4, 4)])
+def test_k4_matches_plain(dev, t, s, past, filled):
+    """The streaming mid attention's layout: `past` carried frames (the
+    newest `filled` valid) then `t` chunk frames, frame-causal ids."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    lq, lk = t * s, (past + t) * s
+    q = torch.randn((1, lq, 1, 512), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, lk, 1, 512), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, lk, 1, 512), generator=g, device=dev).bfloat16()
+    slot = torch.arange(past, device=dev)
+    kv_ids = torch.cat([slot.repeat_interleave(s),
+                        (past + torch.arange(t, device=dev)).repeat_interleave(s)])[None]
+    q_ids = kv_ids[:, past * s:]
+    mask = torch.cat([(slot >= past - filled).repeat_interleave(s),
+                      torch.ones(t * s, dtype=torch.bool, device=dev)])[None]
+    out = flash_online(q, k, v, mask, q_ids, kv_ids)
+    torch.cuda.synchronize()
+    ref = flash_online_plain(q, k, v, mask, q_ids, kv_ids)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    uniform = flash_online_plain(q * 0, k, v, mask, q_ids, kv_ids)
+    assert _fails_bound(uniform, ref, 3e-2, 1e-2)
+
+
+@pytest.mark.parametrize("b,l,d,ff", [(2, 300, 256, 512), (1, 47616, 1792, 7168)])
+def test_k2_matches_plain(dev, b, l, d, ff):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((b, l, d), generator=g, device=dev).bfloat16()
+    scale, shift, gate = (torch.randn((b, d), generator=g, device=dev) * 0.1
+                          for _ in range(3))
+    w1 = (torch.randn((ff, d), generator=g, device=dev) / math.sqrt(d)).bfloat16()
+    w2 = (torch.randn((d, ff), generator=g, device=dev) / math.sqrt(ff)).bfloat16()
+    out = fused_ff_modulated(x, scale, shift, w1, w2, gate)
+    torch.cuda.synchronize()
+    ref = ff_mod_plain(x, scale, shift, w1, w2, gate)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+
+
+@pytest.mark.parametrize("t,h,w,cin,cout,time_padded", [
+    (3, 8, 20, 128, 256, False), (5, 8, 20, 256, 128, True),
+    (2, 64, 96, 512, 512, False)])
+def test_k3_matches_plain(dev, t, h, w, cin, cout, time_padded):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, t, h, w, cin), generator=g, device=dev).bfloat16()
+    wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
+          / math.sqrt(27 * cin)).bfloat16()
+    bias = torch.randn((cout,), generator=g, device=dev).bfloat16()
+    out = causal_conv3d_fused(x, wt, bias, time_padded=time_padded)
+    torch.cuda.synchronize()
+    ref = conv3d_plain(x, wt, bias, time_padded=time_padded)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+
+
+def test_launch_counters_count_kernel_launches(dev):
+    _kernels.reset_launches()
+    x = torch.randn((1, 3, 8, 8, 128), device=dev).bfloat16()
+    wt = torch.randn((128, 128, 3, 3, 3), device=dev).bfloat16() * 0.01
+    causal_conv3d_fused(x, wt, torch.zeros(128, device=dev))
+    assert _kernels.LAUNCHES["K3_conv3d"] == 1
+    causal_conv3d_fused(x.cpu(), wt.cpu(), torch.zeros(128))
+    assert _kernels.LAUNCHES["K3_conv3d"] == 1

@@ -1,0 +1,134 @@
+"""The port's pipeline (kandinsky5_tpu_torch/pipeline.py) end to end on the
+CPU with a stub text embedder, a tiny DiT and the full-channel VAE decoder:
+image and video shapes, uint8 frames, files written. And the package's
+import contract: no jax, and CPU tensors never reach a kernel launch."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from kandinsky5_tpu_torch.config import (
+    CONFIG_DIR,
+    Config,
+    DiTParams,
+    MetricsConfig,
+    ModelConfig,
+    load_config,
+)
+from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+from kandinsky5_tpu_torch.ops import _kernels
+from kandinsky5_tpu_torch.pipeline import (
+    RESOLUTIONS,
+    Kandinsky5T2VPipeline,
+    TextEmbeddings,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class StubEmbedder:
+    """Seeded random conditioning with a partly padded mask."""
+
+    def __init__(self, text_dim, pooled_dim, length=8):
+        self.text_dim, self.pooled_dim, self.length = text_dim, pooled_dim, length
+
+    def encode(self, texts, type_of_content="video"):
+        g = torch.Generator().manual_seed(len(texts[0]))
+        mask = torch.arange(self.length)[None].repeat(len(texts), 1) < 5
+        return TextEmbeddings(
+            torch.randn(len(texts), self.length, self.text_dim, generator=g),
+            torch.randn(len(texts), self.pooled_dim, generator=g), mask)
+
+    def expand_prompt(self, prompt):
+        return prompt + " (expanded)"
+
+
+@pytest.fixture(scope="module")
+def tiny_pipe():
+    cfg = DiTParams(in_visual_dim=16, out_visual_dim=16, in_text_dim=32,
+                    in_text_dim2=16, time_dim=32, model_dim=128, ff_dim=256,
+                    num_text_blocks=1, num_visual_blocks=2,
+                    axes_dims=(16, 24, 24), visual_cond=True)
+    dit = fast_init_dit_params(cfg, dtype=torch.float32, seed=0, scale=0.05)
+    conf = Config(model=ModelConfig(dit_params=cfg, num_steps=2,
+                                    guidance_weight=1.0),
+                  metrics=MetricsConfig())
+    vae = HunyuanVideoVAE(init_vae_params(dtype=torch.float32, seed=1),
+                          dtype=torch.float32)
+    return Kandinsky5T2VPipeline(dit, conf, StubEmbedder(32, 16), vae)
+
+
+def test_pipeline_image(tiny_pipe, tmp_path, monkeypatch):
+    monkeypatch.setitem(RESOLUTIONS, 512, [(64, 64)])
+    out = str(tmp_path / "image.png")
+    frames = tiny_pipe("a test image", time_length=0, width=64, height=64,
+                       seed=3, save_path=out)
+    assert frames.shape == (1, 1, 64, 64, 3) and frames.dtype == np.uint8
+    with open(out, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    from PIL import Image
+
+    np.testing.assert_array_equal(np.asarray(Image.open(out)), frames[0, 0])
+    assert tiny_pipe.timings["latents_finite"]
+
+
+def test_pipeline_video(tiny_pipe, tmp_path, monkeypatch):
+    """1 s -> 7 latent frames -> 25 video frames; an mp4, or the raw .y4m
+    where no encoder exists."""
+    monkeypatch.setitem(RESOLUTIONS, 512, [(64, 64)])
+    out = str(tmp_path / "clip.mp4")
+    frames = tiny_pipe("a test video", time_length=1, width=64, height=64,
+                       seed=3, save_path=out, expand_prompts=False)
+    assert frames.shape == (1, 25, 64, 64, 3) and frames.dtype == np.uint8
+    written = tiny_pipe.timings["saved"][0]
+    assert written in (out, str(tmp_path / "clip.y4m"))
+    assert os.path.getsize(written) > 25 * 64 * 64
+
+
+def test_pipeline_rejects_unknown_resolution(tiny_pipe):
+    with pytest.raises(ValueError):
+        tiny_pipe("x", time_length=0, width=100, height=100)
+
+
+def test_distil_config_loads_by_path():
+    conf = load_config(os.path.join(CONFIG_DIR, "config_5s_distil.yaml"))
+    cfg = conf.model.dit_params
+    assert (cfg.model_dim, cfg.ff_dim, cfg.num_heads, cfg.head_dim) == \
+        (1792, 7168, 28, 64)
+    assert conf.model.num_steps == 16 and conf.model.guidance_weight == 1.0
+    assert tuple(conf.metrics.scale_factor) == (1.0, 2.0, 2.0)
+
+
+def test_import_leaves_jax_out_and_cpu_never_launches():
+    code = (
+        "import sys, torch\n"
+        "import kandinsky5_tpu_torch\n"
+        "import kandinsky5_tpu_torch.pipeline, kandinsky5_tpu_torch.checkpoint\n"
+        "import kandinsky5_tpu_torch.models.vae_stream\n"
+        "from kandinsky5_tpu_torch.ops import _kernels\n"
+        "from kandinsky5_tpu_torch.ops.flash import flash_attention\n"
+        "from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused\n"
+        "from kandinsky5_tpu_torch.ops.ff import fused_ff_modulated\n"
+        "q = torch.randn(1, 16, 2, 64)\n"
+        "flash_attention(q, q, q)\n"
+        "flash_attention(torch.randn(1, 8, 1, 512), torch.randn(1, 8, 1, 512),"
+        " torch.randn(1, 8, 1, 512))\n"
+        "causal_conv3d_fused(torch.randn(1, 2, 4, 4, 128),"
+        " torch.randn(128, 128, 3, 3, 3), torch.zeros(128))\n"
+        "v = torch.zeros(1, 128)\n"
+        "fused_ff_modulated(torch.randn(1, 4, 128), v, v,"
+        " torch.randn(256, 128), torch.randn(128, 256), v)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'kandinsky5_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert all(n == 0 for n in _kernels.LAUNCHES.values()), _kernels.LAUNCHES\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
