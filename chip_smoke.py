@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``kandinsky5_tpu_torch``) on one CUDA GPU.
 
-    python3 chip_smoke.py [--seconds 1|5] [--out DIR]
+    python3 chip_smoke.py [--seconds 1|5|10] [--out DIR]
 
 Phases, each of which must pass (any failure exits nonzero):
-  1. build   — compile the hand-written kernels (csrc/*.cu, nvcc sm_90a)
-               and print ptxas' register / shared-memory / spill report;
-  2. kernels — K1-K4 against their plain PyTorch versions on the card, in
-               bf16, at the shapes the 5 s distil path gives them (every
-               decoder conv class for K3, both K3 modes), with max-abs and
-               relative-L2 errors against stated tolerances and CUDA-event
-               times of kernel and plain version;
-  3. reference — a cut-depth, full-width DiT and the full-width VAE decode
-               on a small input (its first chunk large enough for K4), on
-               the card (kernels) against the same weights in fp32 on the
-               CPU (plain versions);
-  4. pipeline — ``Kandinsky5T2VPipeline`` built from config_5s_distil.yaml
-               with the full 2B DiT (uniform +-0.02 weights from a seed),
-               the full VAE decoder and a seeded stand-in text embedder
-               answers two requests: one 512x768 image and one video of
-               ``--seconds`` (1 s = 25 frames by default), 16 steps each.
-               Every kernel launch counter must be > 0 after them.
+  1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
+               source in parallel, sm_90a) and print ptxas' register /
+               shared-memory / spill report;
+  2. kernels — K1-K4 and K6 against their plain PyTorch versions on the
+               card, in bf16, at the shapes the 5 s and 10 s paths give them
+               (every decoder conv class for K3, both K3 modes; K6 at the
+               10 s shape under three masks: STA only, ~15 % and ~35 %
+               kept), with max-abs and relative-L2 errors against stated
+               tolerances, CUDA-event times of kernel, plain version and
+               (where one PyTorch call computes the same function) that
+               call, and each case's bound (bytes or bf16 operations over
+               the card's peak rates);
+  3. reference — a cut-depth, full-width DiT (dense, and NABLA on a
+               (1,4,64,96) latent) and the full-width VAE decode on a small
+               input (its first chunk large enough for K4), on the card
+               (kernels) against the same weights in fp32 on the CPU (plain
+               versions);
+  4. pipeline — ``Kandinsky5T2VPipeline`` with the full 2B DiT (uniform
+               +-0.02 weights from a seed), the full VAE decoder and a
+               seeded stand-in text embedder, 16 steps per request. The 5 s
+               path (config_5s_distil.yaml) answers a 512x768 image and a
+               video of ``--seconds`` 1 or 5 (1 s = 25 frames by default);
+               every kernel of it must launch. The 10 s path
+               (config_10s_distil.yaml, NABLA) answers a 2 s video (49
+               frames, 19,968 tokens), or the 241-frame shape with
+               ``--seconds 10``; it must launch K6 exactly 32 x 16 times and
+               K1 exactly 2 x 16 times (the text blocks). Each path's
+               launch counts are reset just before it and read just after.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -44,6 +55,8 @@ ROUTE_SOURCES = {
                   "kandinsky5_tpu/ops/conv_pallas.py:126 _kernel"),
     "K4_flash_online": ("kandinsky5_tpu_torch/csrc/flash_online.cu",
                         "kandinsky5_tpu/ops/flash_pallas.py:477 _kernel_online"),
+    "K6_sparse_nabla": ("kandinsky5_tpu_torch/csrc/sparse_nabla.cu",
+                        "kandinsky5_tpu/ops/sparse_pallas.py:67 _kernel"),
 }
 # bf16 kernel vs plain on the card: both round the same quantities to bf16
 # but sum in different orders, so an output may move by a bf16 ulp (2^-8
@@ -52,7 +65,16 @@ ROUTE_SOURCES = {
 # the plain version) must fail the same bound, or the inputs are too weak
 # to tell a right kernel from one that ignores its scores.
 TOL = {"K1_flash_fixed": (3e-2, 1e-2), "K2_ff_mod": (6e-2, 1e-2),
-       "K3_conv3d": (6e-2, 1e-2), "K4_flash_online": (3e-2, 1e-2)}
+       "K3_conv3d": (6e-2, 1e-2), "K4_flash_online": (3e-2, 1e-2),
+       "K6_sparse_nabla": (3e-2, 1e-2)}
+# published dense peaks of one H100 SXM (700 W): bf16 tensor cores and HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+CONF5 = "config_5s_distil.yaml"
+CONF10 = "config_10s_distil.yaml"
+# the case of each kernel that its JSON entry reports
+HEADLINE = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": -1,
+            "K4_flash_online": 0, "K6_sparse_nabla": 1}
 
 
 class Failure(Exception):
@@ -90,8 +112,19 @@ def _errors(out, ref):
             ((o - r).norm() / r.norm().clamp_min(1e-30)).item())
 
 
-def _compare(name, shape, kernel_fn, plain_fn, results, reps=5,
-             control_fn=None):
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
+             control_fn=None, library_fn=None, info=None):
+    """Check ``kernel_fn`` against ``plain_fn`` and time both (and
+    ``library_fn``, one PyTorch call computing the same function, if
+    given). ``work`` = (flops, bytes) of the call for its bound."""
     import torch
 
     out = kernel_fn()
@@ -111,17 +144,39 @@ def _compare(name, shape, kernel_fn, plain_fn, results, reps=5,
     del out, ref
     ms = _time_ms(kernel_fn, reps)
     plain_ms = _time_ms(plain_fn, 1)
+    lib_ms = None
+    if library_fn is not None:
+        library_fn()
+        lib_ms = _time_ms(library_fn, reps)
+    b_ms, b_by = bound_ms(*work)
+    lib_note = "" if lib_ms is None else f" library {lib_ms:.3f} ms"
     log(f"  {name} {shape}: max_abs {max_abs:.3e} (tol {atol}) rel_l2 "
         f"{rel:.3e} (tol {rtol}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
-        f"{note} {'ok' if ok else 'FAIL'}")
-    results.setdefault(name, []).append(dict(shape=shape, max_abs=max_abs,
-                                              rel=rel, ms=ms,
-                                              plain_ms=plain_ms, ok=ok))
+        f"{lib_note} bound {b_ms:.3f} ms ({b_by}){note} "
+        f"{'ok' if ok else 'FAIL'}")
+    results.setdefault(name, []).append(dict(
+        shape=shape, max_abs=max_abs, rel=rel, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ok=ok, **(info or {})))
     torch.cuda.empty_cache()
+
+
+def _sdpa(q, k, v, attn_mask=None):
+    """scaled_dot_product_attention on (B, L, H, D) inputs, transposed to
+    its (B, H, L, D) layout before the timed call."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=attn_mask)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def phase_kernels(dev, results):
     import torch
+    import torch.nn.functional as F
 
     from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused, conv3d_plain
     from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
@@ -145,11 +200,16 @@ def phase_kernels(dev, results):
         q, k = normed((1, lq, 28, 64)), normed((1, lq, 28, 64))
         v = torch.randn((1, lq, 28, 64), generator=g, device=dev).bfloat16()
         mask = (torch.arange(lq, device=dev) < 77)[None] if masked else None
+        n_keys = 77 if masked else lq
         _compare("K1_flash_fixed", f"(1,{lq},28,64){' mask' if masked else ''}",
                  lambda: flash_fixed(q, k, v, mask),
                  lambda: flash_fixed_plain(q, k, v, mask), results,
+                 work=(4.0 * lq * n_keys * 28 * 64,
+                       _nbytes(q, k, v, q, mask)),
                  reps=3 if lq > 10000 else 20,
-                 control_fn=lambda: flash_fixed_plain(q * 0, k, v, mask))
+                 control_fn=lambda: flash_fixed_plain(q * 0, k, v, mask),
+                 library_fn=_sdpa(q, k, v, None if mask is None
+                                  else mask[:, None, None, :]))
         del q, k, v
 
     # K2: the visual blocks' modulated FF at 5 s and 1 s, the text blocks'
@@ -162,12 +222,15 @@ def phase_kernels(dev, results):
         x = torch.randn((1, rows, d), generator=g, device=dev).bfloat16()
         _compare("K2_ff_mod", f"(1,{rows},{d})x{ff}",
                  lambda: fused_ff_modulated(x, sc, sh, w1, w2, gt),
-                 lambda: ff_mod_plain(x, sc, sh, w1, w2, gt), results)
+                 lambda: ff_mod_plain(x, sc, sh, w1, w2, gt), results,
+                 work=(4.0 * rows * d * ff,
+                       _nbytes(x, x, w1, w2, sc, sh, gt)))
         del x
     del w1, w2
 
     # K3: every decoder conv class (vae.py:336-385) at the streaming
-    # decode's chunk lengths, in both modes
+    # decode's chunk lengths, in both modes; the library call is cuDNN's
+    # conv3d on an input padded beforehand, channels-last like K3's
     classes = [(512, 512, 64, 96, 4), (512, 512, 128, 192, 7),
                (512, 512, 256, 384, 13), (512, 256, 256, 384, 13),
                (256, 256, 256, 384, 13), (256, 256, 512, 768, 12),
@@ -180,13 +243,19 @@ def phase_kernels(dev, results):
             tin = t + 2 if padded else t
             x = torch.randn((1, tin, hh, ww, cin), generator=g,
                             device=dev).bfloat16()
+            xp = F.pad(x.permute(0, 4, 1, 2, 3),
+                       (1, 1, 1, 1, 0 if padded else 2, 0), mode="replicate")
+            xp = xp.contiguous(memory_format=torch.channels_last_3d)
             _compare("K3_conv3d",
                      f"{cin}->{cout} {t}x{hh}x{ww}"
                      f"{' time_padded' if padded else ''}",
                      lambda: causal_conv3d_fused(x, wt, bias, padded),
                      lambda: conv3d_plain(x, wt, bias, padded), results,
-                     reps=2)
-            del x
+                     work=(2.0 * 27 * t * hh * ww * cin * cout,
+                           _nbytes(x, wt, bias)
+                           + 2 * t * hh * ww * cout),
+                     reps=2, library_fn=lambda: F.conv3d(xp, wt, bias))
+            del x, xp
 
     # K4: the streaming mid attention's first full chunk: 4 frames of
     # 64x96 latents against 4 carried + 4 chunk frames, ids and buffer mask.
@@ -202,14 +271,117 @@ def phase_kernels(dev, results):
     q_ids = kv_ids[:, past * s:]
     mask = torch.cat([(slot >= 2).repeat_interleave(s),
                       torch.ones(t * s, dtype=torch.bool, device=dev)])[None]
+    # the (query, key) pairs the ids and the mask allow: the work K4 does
+    # and the library call's boolean mask
+    allowed = (q_ids[0, :, None] >= kv_ids[0, None, :]) & mask[0, None, :]
     _compare("K4_flash_online", f"q {t * s} kv {(past + t) * s} d 512",
              lambda: flash_online(q, k, v, mask, q_ids, kv_ids),
              lambda: flash_online_plain(q, k, v, mask, q_ids, kv_ids), results,
+             work=(4.0 * int(allowed.sum()) * 512,
+                   _nbytes(q, k, v, q, mask, q_ids, kv_ids)),
              control_fn=lambda: flash_online_plain(q * 0, k, v, mask, q_ids,
-                                                   kv_ids))
+                                                   kv_ids),
+             library_fn=_sdpa(q, k, v, allowed[None, None]))
+    del q, k, v, allowed
+    phase_k6(dev, g, normed, results)
     bad = [(n, r["shape"]) for n, rs in results.items() for r in rs if not r["ok"]]
     if bad:
         raise Failure(f"kernels outside tolerance: {bad}")
+
+
+def _flex_attention(q, k, v, mask):
+    """torch's flex_attention (the reference's NABLA route), compiled once,
+    as a timed yardstick: ``make(inds, nb)`` gives a call over the blocks
+    listed there, passed as full blocks; the mask_mod (which the compiled
+    kernel skips on full blocks) reads the block mask from ``mask``, which
+    the caller refills in place. Returns (make, None), or (None, reason)
+    where flex_attention does not run here."""
+    import torch
+
+    try:
+        from torch.nn.attention.flex_attention import BlockMask, flex_attention
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            return mask[b, h, q_idx // 64, kv_idx // 64]
+
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fn = torch.compile(flex_attention, dynamic=False)
+        opts = {"BLOCK_M": 64, "BLOCK_N": 64}
+
+        def make(inds, nb):
+            bm = BlockMask.from_kv_blocks(torch.zeros_like(nb), inds, nb, inds,
+                                          BLOCK_SIZE=64, mask_mod=mask_mod)
+            return lambda: fn(qt, kt, vt, block_mask=bm, kernel_options=opts)
+
+        nb = torch.ones(mask.shape[:3], dtype=torch.int32, device=q.device)
+        inds = torch.arange(mask.shape[3], dtype=torch.int32, device=q.device)
+        make(inds.expand(*mask.shape).contiguous(), nb)()
+        torch.cuda.synchronize()
+    except Exception as e:  # a yardstick only: the port never calls it
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return make, None
+
+
+def phase_k6(dev, g, normed, results):
+    """K6 at the 10 s shape (1, 93,696, 28, 64) under three masks of the
+    (61, 4, 6) tile grid: STA only, STA plus seeded random blocks to ~15 %,
+    and to ~35 % kept. Beside it K1 at the same shape, dense (where
+    sparsity stops paying), and flex_attention as the library call."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.flash import flash_fixed
+    from kandinsky5_tpu_torch.ops.nabla import block_mask_to_kv_lists, sta_mask
+    from kandinsky5_tpu_torch.ops.sparse import (
+        sparse_attention,
+        sparse_attention_plain,
+    )
+
+    s, h = 93696, 28
+    q, k = normed((1, s, h, 64)), normed((1, s, h, 64))
+    v = torch.randn((1, s, h, 64), generator=g, device=dev).bfloat16()
+    k1_ms = _time_ms(lambda: flash_fixed(q, k, v), 2)
+    k1_bound = bound_ms(4.0 * s * s * h * 64, _nbytes(q, k, v, q))
+    log(f"  K1_flash_fixed (1,{s},{h},64) dense, for reference: {k1_ms:.3f} ms "
+        f"bound {k1_bound[0]:.3f} ms ({k1_bound[1]})")
+    sta = torch.from_numpy(sta_mask(61, 4, 6)).to(dev)
+    s1 = sta.shape[0]
+    mask = torch.zeros((1, h, s1, s1), dtype=torch.bool, device=dev)
+    t = time.perf_counter()
+    make_flex, why = _flex_attention(q, k, v, mask)
+    if make_flex is None:
+        log(f"  flex_attention does not run here ({why}): library_ms null")
+    else:
+        log(f"  flex_attention compiled in {time.perf_counter() - t:.1f} s")
+    for label, target in (("STA", None), ("STA+random", 0.15),
+                          ("STA+random", 0.35)):
+        mask.copy_(sta.expand(1, h, s1, s1))
+        if target is not None:
+            p = (target - float(sta.float().mean())) / (1 - float(sta.float().mean()))
+            mask |= torch.rand((1, h, s1, s1), generator=g, device=dev) < p
+        inds, nb = block_mask_to_kv_lists(mask)
+        density = float(mask.float().mean())
+        listed = int(nb.sum())
+        flex = None
+        if make_flex is not None:
+            flex = make_flex(inds, nb)
+            e_abs, e_rel = _errors(flex().transpose(1, 2),
+                                   sparse_attention_plain(q, k, v, inds, nb))
+            log(f"  flex_attention against K6's plain version: max_abs "
+                f"{e_abs:.3e} rel_l2 {e_rel:.3e} (exact softmax vs fixed shift)")
+        _compare("K6_sparse_nabla",
+                 f"(1,{s},{h},64) {label} {100 * density:.2f}% kept",
+                 lambda: sparse_attention(q, k, v, inds, nb),
+                 lambda: sparse_attention_plain(q, k, v, inds, nb), results,
+                 work=(4.0 * 64 * 64 * 64 * listed,
+                       _nbytes(q, k, v, q, nb) + 4 * listed),
+                 reps=3,
+                 control_fn=lambda: sparse_attention_plain(q * 0, k, v, inds, nb),
+                 library_fn=flex,
+                 info=dict(density=density, k1_dense_ms=k1_ms,
+                           k1_dense_bound_ms=k1_bound[0]))
+        del inds, nb, flex
+    del q, k, v, mask
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -249,10 +421,19 @@ def _rel(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
+def _density(kept) -> float:
+    """Mean kept fraction of the masks ``nabla.record_density`` saw."""
+    import torch
+
+    return float(torch.stack(kept).float().mean()) if kept else float("nan")
+
+
 def phase_reference(dev, conf):
     """DiT (full width, 2 text + 2 visual blocks) and the VAE decoder on a
     small input: bf16 kernels on the card vs the same bf16 weights in fp32
-    through the plain versions on the CPU. The VAE latent (1, 5, 16, 32)
+    through the plain versions on the CPU. The DiT runs dense on a (2, 32,
+    48) latent and NABLA on a (4, 64, 96) one (a (4, 4, 6) tile grid of 96
+    blocks, STA alone keeps 27.8 %). The VAE latent (1, 5, 16, 32)
     decodes in a 4-frame chunk of 4 * 512 = 2048 tokens, the size at which
     mid attention goes to K4, then a 1-frame chunk that carries the K/V
     buffer. bf16 activations through a few blocks keep about 2-3
@@ -262,10 +443,15 @@ def phase_reference(dev, conf):
 
     import torch
 
-    from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
+    from kandinsky5_tpu_torch.models.dit import (
+        SparseParams,
+        dit_forward,
+        fast_init_dit_params,
+    )
     from kandinsky5_tpu_torch.models.vae import init_vae_params
     from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
     from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.ops.nabla import record_density, sta_mask
 
     cfg = dataclasses.replace(conf.model.dit_params, num_text_blocks=2,
                               num_visual_blocks=2)
@@ -284,6 +470,23 @@ def phase_reference(dev, conf):
     e_dit = _rel(out, ref)
     log(f"  DiT 2+2 blocks, full width, (1,2,32,48): rel_l2 {e_dit:.3e} "
         f"(tol 5e-2), kernel launches {launched}")
+
+    x = torch.randn((1, 4, 64, 96, 33), generator=g)
+    sta = torch.from_numpy(sta_mask(4, 4, 6))
+    _kernels.reset_launches()
+    with record_density() as kept:
+        out = dit_forward(dit, x.to(dev).bfloat16(), *[a.to(dev) for a in args],
+                          scale_factor=(1.0, 2.0, 2.0),
+                          sparse=SparseParams(sta.to(dev), 0.9))
+        launched_n = dict(_kernels.LAUNCHES)
+    with record_density() as kept_cpu:
+        ref = dit_forward(dit_cpu, x, *args, scale_factor=(1.0, 2.0, 2.0),
+                          sparse=SparseParams(sta, 0.9))
+    e_nabla = _rel(out, ref)
+    log(f"  DiT 2+2 blocks, full width, NABLA (1,4,64,96): rel_l2 "
+        f"{e_nabla:.3e} (tol 5e-2); mask density card {_density(kept):.4f} "
+        f"cpu {_density(kept_cpu):.4f} (STA alone {float(sta.float().mean()):.4f});"
+        f" kernel launches {launched_n}")
     del dit, dit_cpu
 
     vp = init_vae_params(device=dev, dtype=torch.bfloat16, seed=3)
@@ -300,53 +503,39 @@ def phase_reference(dev, conf):
     e_vae = _rel(out_v, ref_v)
     log(f"  VAE stream decode (1,5,16,32,16) -> {tuple(out_v.shape)}: rel_l2 "
         f"{e_vae:.3e} (tol 5e-2), kernel launches {launched_v}")
-    if not (e_dit < 5e-2 and e_vae < 5e-2):
+    if not (e_dit < 5e-2 and e_nabla < 5e-2 and e_vae < 5e-2):
         raise Failure(f"path disagrees with its CPU reference: DiT {e_dit}, "
-                      f"VAE {e_vae}")
+                      f"NABLA DiT {e_nabla}, VAE {e_vae}")
     if min(launched["K1_flash_fixed"], launched["K2_ff_mod"],
            launched_v["K3_conv3d"], launched_v["K4_flash_online"]) == 0:
         raise Failure("the reference run missed a kernel: DiT "
                       f"{launched}, VAE {launched_v}")
-    return {"dit_rel_l2": e_dit, "vae_rel_l2": e_vae}
+    if launched_n["K6_sparse_nabla"] != 2:
+        raise Failure(f"the NABLA DiT launched K6 {launched_n} times, not 2")
+    return {"dit_rel_l2": e_dit, "nabla_dit_rel_l2": e_nabla,
+            "vae_rel_l2": e_vae}
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the pipeline at full width
 # ---------------------------------------------------------------------------
 
-def phase_pipeline(dev, conf, seconds: int, out_dir: str):
+def _answer(pipe, requests, out_dir):
+    """Run each (name, seconds, frame shape, file) request through ``pipe``
+    and check what comes out; returns one report per request."""
     import numpy as np
     import torch
 
-    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
-    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
-    from kandinsky5_tpu_torch.ops import _kernels
-    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+    from kandinsky5_tpu_torch.ops.nabla import record_density
 
-    t0 = time.perf_counter()
-    dit = fast_init_dit_params(conf.model.dit_params, device=dev,
-                               dtype=torch.bfloat16, seed=0)
-    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
-                                          seed=1))
-    pipe = Kandinsky5T2VPipeline(dit, conf, SeededEmbedder(), vae)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in dit.parameters())
-    log(f"  built: DiT {n_params} params, VAE decoder; "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    os.makedirs(out_dir, exist_ok=True)
-    requests = [("image", 0, (1, 1, 512, 768, 3), "image.png"),
-                (f"video {seconds}s", seconds,
-                 (1, 4 * (seconds * 24 // 4) + 1, 512, 768, 3),
-                 f"video_{seconds}s.mp4")]
-    _kernels.reset_launches()
     report = []
     for name, tl, shape, fname in requests:
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        frames = pipe(f"a smoke-test {name}", time_length=tl, width=768,
-                      height=512, seed=42, expand_prompts=False,
-                      save_path=os.path.join(out_dir, fname))
+        with record_density() as kept:
+            frames = pipe(f"a smoke-test {name}", time_length=tl, width=768,
+                          height=512, seed=42, expand_prompts=False,
+                          save_path=os.path.join(out_dir, fname))
         wall = time.perf_counter() - t
         tm = dict(pipe.timings)
         peak = torch.cuda.max_memory_allocated()
@@ -354,11 +543,14 @@ def phase_pipeline(dev, conf, seconds: int, out_dir: str):
         saved = tm["saved"][0]
         if not os.path.isfile(saved) or os.path.getsize(saved) == 0:
             raise Failure(f"{name}: nothing written at {saved}")
+        density = _density(kept)
         log(f"  {name}: frames {frames.shape} {frames.dtype}; denoise "
             f"{tm['denoise_s']:.3f} s ({tm['denoise_s'] / steps:.4f} s/step, "
             f"{steps} steps, cfg {tm['cfg']}); decode {tm['decode_s']:.3f} s; "
             f"wall {wall:.3f} s; peak memory {peak / 2**30:.2f} GiB; "
-            f"wrote {saved} ({os.path.getsize(saved)} bytes)")
+            + (f"{len(kept)} NABLA masks, mean density {density:.4f}; "
+               if kept else "")
+            + f"wrote {saved} ({os.path.getsize(saved)} bytes)")
         if frames.shape != shape or frames.dtype != np.uint8:
             raise Failure(f"{name}: frames {frames.shape} {frames.dtype}, "
                           f"expected {shape} uint8")
@@ -368,22 +560,88 @@ def phase_pipeline(dev, conf, seconds: int, out_dir: str):
             raise Failure(f"{name}: constant frames")
         report.append(dict(request=name, s_per_step=tm["denoise_s"] / steps,
                            denoise_s=tm["denoise_s"], decode_s=tm["decode_s"],
-                           peak_gib=peak / 2**30))
-    launches = dict(_kernels.LAUNCHES)
-    log(f"  kernel launches over the two requests: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+                           peak_gib=peak / 2**30,
+                           nabla_density=density if kept else None))
+    return report
+
+
+def _video(tag, seconds):
+    frames = 4 * (seconds * 24 // 4) + 1
+    return (f"{tag} video {seconds}s", seconds, (1, frames, 512, 768, 3),
+            f"{tag}_video_{seconds}s.mp4")
+
+
+def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
+                   out_dir: str):
+    """The 5 s path (image + video) and the 10 s path (one video), each
+    with the launch counts reset just before it and read just after."""
+    import torch
+
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    if conf10.model.dit_params != conf5.model.dit_params:
+        raise Failure("the 5 s and 10 s configs name different DiTs")
+    t0 = time.perf_counter()
+    dit = fast_init_dit_params(conf5.model.dit_params, device=dev,
+                               dtype=torch.bfloat16, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                          seed=1))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in dit.parameters())
+    log(f"  built: DiT {n_params} params, VAE decoder; "
+        f"{time.perf_counter() - t0:.1f} s")
+    os.makedirs(out_dir, exist_ok=True)
+
+    log(f"  5 s path ({os.path.basename(CONF5)}: {conf5.model.num_steps} "
+        f"steps, guidance {conf5.model.guidance_weight}, dense attention)")
+    pipe5 = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae)
+    _kernels.reset_launches()
+    report = _answer(pipe5, [("image", 0, (1, 1, 512, 768, 3), "image.png"),
+                             _video("5s-path", seconds5)], out_dir)
+    launches5 = dict(_kernels.LAUNCHES)
+    log(f"  kernel launches on the 5 s path: {launches5}")
+    missing = [k for k in ("K1_flash_fixed", "K2_ff_mod", "K3_conv3d",
+                           "K4_flash_online") if launches5[k] == 0]
     if missing:
-        raise Failure(f"main path never launched {missing}")
-    return launches, report
+        raise Failure(f"the 5 s path never launched {missing}")
+
+    m10 = conf10.model
+    log(f"  10 s path ({os.path.basename(CONF10)}: {m10.num_steps} steps, "
+        f"guidance {m10.guidance_weight}, attention {m10.attention.type} "
+        f"P {m10.attention.P} window ({m10.attention.wT}, {m10.attention.wH},"
+        f" {m10.attention.wW}))")
+    pipe10 = Kandinsky5T2VPipeline(dit, conf10, SeededEmbedder(), vae)
+    _kernels.reset_launches()
+    report += _answer(pipe10, [_video("10s-path", seconds10)], out_dir)
+    launches10 = dict(_kernels.LAUNCHES)
+    log(f"  kernel launches on the 10 s path: {launches10}")
+    cfg = m10.dit_params
+    want = {"K6_sparse_nabla": cfg.num_visual_blocks * m10.num_steps,
+            "K1_flash_fixed": cfg.num_text_blocks * m10.num_steps}
+    wrong = {k: (launches10[k], n) for k, n in want.items()
+             if launches10[k] != n}
+    missing = [k for k in ("K2_ff_mod", "K3_conv3d", "K4_flash_online")
+               if launches10[k] == 0]
+    if wrong or missing:
+        raise Failure(f"the 10 s path launched (got, want) {wrong}, never "
+                      f"launched {missing}")
+    return {"5s": launches5, "10s": launches10}, report
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seconds", type=int, default=1, choices=(1, 5),
-                    help="length of the video request")
+    ap.add_argument("--seconds", type=int, default=1, choices=(1, 5, 10),
+                    help="1 or 5: the 5 s path's video length (the 10 s path "
+                    "answers 2 s); 10: the 10 s path answers 10 s (the 5 s "
+                    "path 1 s)")
     ap.add_argument("--out", default="smoke_out",
-                    help="directory for the written image and video")
+                    help="directory for the written image and videos")
     args = ap.parse_args()
+    seconds5 = 1 if args.seconds == 10 else args.seconds
+    seconds10 = 10 if args.seconds == 10 else 2
 
     import torch
 
@@ -418,32 +676,43 @@ def main() -> int:
         _kernels.library()
 
         log("phase 2: kernels vs plain versions (bf16, main-path shapes)")
+        t = time.perf_counter()
         results = {}
         phase_kernels(dev, results)
+        log(f"  phase 2 {time.perf_counter() - t:.1f} s")
 
-        conf = load_config(os.path.join(CONFIG_DIR, "config_5s_distil.yaml"))
+        conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+        conf10 = load_config(os.path.join(CONFIG_DIR, CONF10))
         log("phase 3: small-input reference (card kernels vs CPU plain, fp32)")
-        phase_reference(dev, conf)
+        t = time.perf_counter()
+        phase_reference(dev, conf5)
+        log(f"  phase 3 {time.perf_counter() - t:.1f} s")
 
-        log(f"phase 4: pipeline at full width ({conf.model.num_steps} steps,"
-            f" guidance {conf.model.guidance_weight})")
-        launches, report = phase_pipeline(dev, conf, args.seconds, args.out)
+        log("phase 4: pipeline at full width")
+        launches, report = phase_pipeline(dev, conf5, conf10, seconds5,
+                                          seconds10, args.out)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
-    headline = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": -1,
-                "K4_flash_online": 0}
     kernels = []
     for name, (source, replaces) in ROUTE_SOURCES.items():
         rs = results[name]
-        h = rs[headline[name]]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(r["max_abs"] for r in rs),
-                        "ms": h["ms"], "plain_ms": h["plain_ms"],
-                        "shape": h["shape"]})
+        h = rs[HEADLINE[name]]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": launches["5s"][name] + launches["10s"][name],
+                 "launches_by_path": {p: n[name] for p, n in launches.items()},
+                 "max_abs_err": max(r["max_abs"] for r in rs),
+                 "ms": h["ms"], "plain_ms": h["plain_ms"],
+                 "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                 "library_ms": h["library_ms"], "shape": h["shape"]}
+        if name == "K6_sparse_nabla":
+            entry["cases"] = [{k: r[k] for k in (
+                "shape", "density", "ms", "plain_ms", "bound_ms",
+                "library_ms", "k1_dense_ms")} for r in rs]
+        kernels.append(entry)
     log(gpu_line())
     log(json.dumps({"kernels": kernels, "requests": report}))
     print(json.dumps({"ok": True, "device": {

@@ -64,6 +64,24 @@ __device__ __forceinline__ float quad_max(float v) {
   return v;
 }
 
+// 16-byte asynchronous copy global -> shared (bypassing L1), and the
+// commit / wait of a group of such copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // 128x128 output tile of C = A . B^T with A (M, K) and B (N, K) both
 // K-contiguous in shared memory, 32 deep per stage. 256 threads = 8 warps

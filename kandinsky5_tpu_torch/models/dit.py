@@ -5,14 +5,17 @@ the released checkpoint's names (``visual_transformer_blocks.0.
 self_attention.to_query.weight``, ...), so a reference safetensors file
 loads with ``load_state_dict`` and no conversion. The blocks run as a
 Python loop (the JAX package scans stacked blocks). The stage split
-prologue / visual blocks / epilogue is kept. The NABLA sparse path and the
-fractal token order belong to the 10 s configs and are not ported yet.
+prologue / visual blocks / epilogue is kept. With :class:`SparseParams`
+(the 10 s configs) the visual tokens and their RoPE tables go into fractal
+order in the prologue, every visual self-attention runs NABLA
+(``ops/nabla.py``, kernel K6) and the epilogue restores the order; text
+blocks and cross-attention stay dense.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,6 +44,17 @@ from kandinsky5_tpu_torch.models.nn import (
     visual_embeddings,
 )
 from kandinsky5_tpu_torch.ops.attention import attention
+from kandinsky5_tpu_torch.ops.fractal import fractal_flatten, fractal_unflatten
+from kandinsky5_tpu_torch.ops.nabla import nabla_attention
+
+
+class SparseParams(NamedTuple):
+    """NABLA parameters of one generation, faithful mode: the sliding-tile
+    block mask (S/64, S/64) bool on the model's device and the top-CDF mass
+    threshold P."""
+
+    sta: torch.Tensor
+    P: float
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -103,9 +117,9 @@ class DiffusionTransformer3D(nn.Module):
         return self.visual_embeddings.in_layer.weight.dtype
 
     def forward(self, x, text_embed, pooled_text_embed, time, text_mask=None,
-                scale_factor=(1.0, 1.0, 1.0), attn_impl="auto"):
+                scale_factor=(1.0, 1.0, 1.0), attn_impl="auto", sparse=None):
         return dit_forward(self, x, text_embed, pooled_text_embed, time,
-                           text_mask, scale_factor, attn_impl)
+                           text_mask, scale_factor, attn_impl, sparse)
 
 
 def _mod_params(mod_vec, n: int):
@@ -115,14 +129,18 @@ def _mod_params(mod_vec, n: int):
     return [m[:, i][:, None, :] for i in range(n)]
 
 
-def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl):
+def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl,
+                    sparse: Optional[SparseParams] = None):
     b, l, d = x.shape
     q, k, v = qkv_proj(p, x, num_heads)
     if rope is not None:
         cos, sin = rope
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
+    if sparse is not None:
+        out = nabla_attention(q, k, v, sparse.sta, thr=sparse.P)
+    else:
+        out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
     return linear(p.out_layer, out.reshape(b, l, d))
 
 
@@ -150,13 +168,14 @@ def text_encoder_block(p, x, time_embed, rope, kv_mask, num_heads, attn_impl):
 
 
 def visual_decoder_block(p, visual, text, time_embed, rope, text_mask,
-                         num_heads, attn_impl):
+                         num_heads, attn_impl,
+                         sparse: Optional[SparseParams] = None):
     mod = modulation(p.visual_modulation, time_embed)
     (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
      shift_ff, scale_ff, gate_ff) = _mod_params(mod, 9)
     out = apply_scale_shift_norm(visual, scale_sa, shift_sa)
     out = _self_attention(p.self_attention, out, rope, num_heads, None,
-                          attn_impl)
+                          attn_impl, sparse)
     visual = apply_gate_sum(visual, out, gate_sa)
     out = apply_scale_shift_norm(visual, scale_ca, shift_ca)
     out = _cross_attention(p.cross_attention, out, text, num_heads, text_mask,
@@ -168,10 +187,11 @@ def visual_decoder_block(p, visual, text, time_embed, rope, text_mask,
 
 def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
                  pooled_text_embed, time, text_mask,
-                 scale_factor: Sequence[float], attn_impl: str = "auto"):
-    """Embeddings + text blocks + visual RoPE tables. Returns (visual
-    (B, S, D), text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin),
-    grid)."""
+                 scale_factor: Sequence[float], attn_impl: str = "auto",
+                 to_fractal: bool = False):
+    """Embeddings + text blocks + visual RoPE tables, the visual tokens and
+    tables in fractal order when ``to_fractal``. Returns (visual (B, S, D),
+    text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin), grid)."""
     cfg = model.cfg
     b, t, h, w, _ = x.shape
     grid = (t // cfg.patch_size[0], h // cfg.patch_size[1],
@@ -190,22 +210,31 @@ def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
         text = text_encoder_block(blk, text, time_embed, text_rope, text_mask,
                                   cfg.num_heads, attn_impl)
     positions = tuple(torch.arange(g, device=dev) for g in grid)
-    rope = rope_3d(grid, positions, cfg.axes_dims, scale_factor)
-    return visual, text, time_embed, rope, grid
+    cos, sin = rope_3d(grid, positions, cfg.axes_dims, scale_factor)
+    if to_fractal:
+        visual = fractal_flatten(visual, grid)
+        cos = fractal_flatten(cos[None], grid)[0]
+        sin = fractal_flatten(sin[None], grid)[0]
+    return visual, text, time_embed, (cos, sin), grid
 
 
 def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, rope,
-                      text_mask, attn_impl: str = "auto"):
+                      text_mask, attn_impl: str = "auto",
+                      sparse: Optional[SparseParams] = None):
     """The visual block stack as a Python loop."""
     for blk in model.visual_transformer_blocks:
         visual = visual_decoder_block(blk, visual, text, time_embed, rope,
-                                      text_mask, model.cfg.num_heads, attn_impl)
+                                      text_mask, model.cfg.num_heads, attn_impl,
+                                      sparse)
     return visual
 
 
-def dit_epilogue(model: DiffusionTransformer3D, visual, time_embed, grid):
-    """AdaLN-modulated out layer + unpatchify."""
+def dit_epilogue(model: DiffusionTransformer3D, visual, time_embed, grid,
+                 to_fractal: bool = False):
+    """Back to row-major token order (when ``to_fractal``), AdaLN-modulated
+    out layer, unpatchify."""
     cfg = model.cfg
+    visual = fractal_unflatten(visual, grid, block_mask=to_fractal)
     p = model.out_layer
     shift, scale = _mod_params(modulation(p.modulation, time_embed), 2)
     visual = apply_scale_shift_norm(visual, scale, shift)
@@ -218,15 +247,17 @@ def dit_epilogue(model: DiffusionTransformer3D, visual, time_embed, grid):
 def dit_forward(model: DiffusionTransformer3D, x, text_embed,
                 pooled_text_embed, time, text_mask=None,
                 scale_factor: Sequence[float] = (1.0, 1.0, 1.0),
-                attn_impl: str = "auto"):
+                attn_impl: str = "auto",
+                sparse: Optional[SparseParams] = None):
     """(B, T, H, W, C_in) -> (B, T, H, W, out_visual_dim). ``time`` is
-    (B,) already scaled by 1000."""
+    (B,) already scaled by 1000; ``sparse`` selects the NABLA path."""
+    to_fractal = sparse is not None
     visual, text, time_embed, rope, grid = dit_prologue(
         model, x, text_embed, pooled_text_embed, time, text_mask,
-        scale_factor, attn_impl)
+        scale_factor, attn_impl, to_fractal)
     visual = dit_visual_blocks(model, visual, text, time_embed, rope,
-                               text_mask, attn_impl)
-    return dit_epilogue(model, visual, time_embed, grid)
+                               text_mask, attn_impl, sparse)
+    return dit_epilogue(model, visual, time_embed, grid, to_fractal)
 
 
 # ---------------------------------------------------------------------------

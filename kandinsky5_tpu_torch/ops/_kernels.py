@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded through ``ctypes``; no PyTorch header is
-compiled, so a build takes seconds. The library lands in
+The sources compile with ``nvcc`` for ``sm_90a``, one process per source
+running in parallel, and link into one shared library with a plain C
+interface, loaded through ``ctypes``; no PyTorch header is compiled, so a
+build takes seconds. The library lands in
 ``kandinsky5_tpu_torch/_build/<source hash>/`` at first use and is rebuilt
 whenever a source changes. Nothing here runs at import time: the CPU tests
 import every module of the port on a machine with no CUDA toolkit.
@@ -31,7 +32,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": 0,
-            "K4_flash_online": 0}
+            "K4_flash_online": 0, "K6_sparse_nabla": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "k5_flash_online": [_P] * 7 + [_I] * 4 + [_P],
     "k5_ff_mod": [_P] * 8 + [_I] * 4 + [_P],
     "k5_conv3d": [_P] * 4 + [_I] * 6 + [_P],
+    "k5_sparse_nabla": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -77,7 +79,8 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> str:
     """Compile ``csrc/*.cu`` into the hashed build directory (if not already
-    there) and return the library path. ``BUILD_INFO`` records the seconds
+    there) and return the library path: one ``nvcc -c`` per source, all
+    started together, then one link. ``BUILD_INFO`` records the seconds
     taken and the ptxas resource report (registers, shared memory,
     spills) of the build that ran."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
@@ -85,16 +88,39 @@ def build(force: bool = False) -> str:
     if os.path.exists(lib) and not force:
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-lineinfo", "-o", tmp]
-    cmd += [p for p in _sources() if p.endswith(".cu")]
+    tag = str(os.getpid())
+    nvcc = _nvcc()
+    compile_cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-lineinfo", "-c"]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO.update(seconds=time.time() - t0, log=res.stdout + res.stderr,
-                      cmd=" ".join(cmd))
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = compile_cmd + [src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, errors = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)} ({proc.returncode}):\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = f"{lib}.{tag}.tmp"
+    link_cmd = [nvcc, ARCH, "-shared", "-o", tmp] + objs
+    if not errors:
+        res = subprocess.run(link_cmd, capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    BUILD_INFO.update(seconds=time.time() - t0, log="".join(log),
+                      cmd=" ".join(compile_cmd + ["<source>"]) + " && "
+                      + " ".join(link_cmd))
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, lib)
     return lib
 

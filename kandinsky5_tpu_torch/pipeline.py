@@ -5,7 +5,8 @@ injected text embedder -> Euler flow-matching denoise of the DiT
 (``sampling.py``) -> streaming VAE decode -> uint8 frames -> mp4 / PNG.
 The attention implementation is ``DenoiseSpec.attn_impl`` ("auto": K1 for
 self-attention, dense for the short text cross-attention), not sniffed
-from the backend. ``get_T2V_pipeline`` and the Qwen/CLIP text towers wait
+from the backend; a config with ``attention.type: nabla`` (the 10 s
+configs) runs the visual self-attention through NABLA and K6 instead. ``get_T2V_pipeline`` and the Qwen/CLIP text towers wait
 for a later slice; the embedder passed in must offer
 ``encode(texts, type_of_content) -> TextEmbeddings`` (and
 ``expand_prompt`` when ``expand_prompts`` is set).
@@ -58,11 +59,23 @@ class Kandinsky5T2VPipeline:
         return next(self.dit.parameters()).device
 
     def _spec(self, num_steps, guidance_weight, scheduler_scale) -> DenoiseSpec:
+        att = self.conf.model.attention
+        nabla = att.type == "nabla"
+        if nabla and (att.q_rows != 1 or att.threshold_method != "sort"
+                      or att.max_density is not None or att.shared_mask):
+            raise ValueError(
+                "the port runs NABLA in its faithful mode only (q_rows 1, "
+                "threshold_method sort, no max_density, no shared_mask); "
+                f"got {att}")
+        # a 10 s CFG pair runs as two sequential forwards on one device, as
+        # in the JAX package (half the activation memory)
         return DenoiseSpec(
             dit_params=self.conf.model.dit_params, num_steps=num_steps,
             guidance_weight=guidance_weight, scheduler_scale=scheduler_scale,
             scale_factor=tuple(self.conf.metrics.scale_factor),
-            attn_impl=self.attn_impl)
+            attn_impl=self.attn_impl, sequential_cfg=nabla,
+            attention_type=att.type, nabla_P=att.P, nabla_wT=att.wT,
+            nabla_wH=att.wH, nabla_wW=att.wW)
 
     def expand_prompt(self, prompt: str) -> str:
         return self.text_embedder.expand_prompt(prompt)

@@ -1,11 +1,12 @@
 """Flow-matching Euler sampling in PyTorch.
 
-Counterpart of ``kandinsky5_tpu/sampling.py`` for the dense-attention
-configs: the timestep grid, :class:`DenoiseSpec`, the visual-condition
-input, the Euler loop of ``denoise``/``denoise_span`` as a Python loop,
-classifier-free guidance both as one batch-2 call and as two sequential
-calls, and :func:`generate_latents` with explicit noise. MagCache and the
-NABLA path wait for later slices.
+Counterpart of ``kandinsky5_tpu/sampling.py``: the timestep grid,
+:class:`DenoiseSpec`, the visual-condition input, the Euler loop of
+``denoise``/``denoise_span`` as a Python loop, classifier-free guidance
+both as one batch-2 call and as two sequential calls, the NABLA sparse
+path of the 10 s configs (``attention_type="nabla"``, faithful mode) and
+:func:`generate_latents` with explicit noise. MagCache waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ import torch
 from kandinsky5_tpu_torch.config import DiTParams
 from kandinsky5_tpu_torch.models.dit import (
     DiffusionTransformer3D,
+    SparseParams,
     dit_epilogue,
     dit_prologue,
     dit_visual_blocks,
 )
+from kandinsky5_tpu_torch.ops.nabla import sta_mask
 
 
 def timestep_grid(num_steps: int, scheduler_scale: float) -> np.ndarray:
@@ -46,10 +49,34 @@ class DenoiseSpec:
     attn_impl: str = "auto"
     # the CFG pair as two forwards instead of one batch-2 call
     sequential_cfg: bool = False
+    # "flash" (dense self-attention) or "nabla" (block-sparse, K6)
+    attention_type: str = "flash"
+    nabla_P: float = 0.9
+    nabla_wT: int = 11
+    nabla_wH: int = 3
+    nabla_wW: int = 3
 
     @property
     def use_cfg(self) -> bool:
         return abs(self.guidance_weight - 1.0) > 1e-6
+
+
+def _build_sparse(spec: DenoiseSpec, grid, device) -> Optional[SparseParams]:
+    """The STA mask of the token grid (T, H, W) for a nabla spec, else
+    None."""
+    if spec.attention_type != "nabla":
+        return None
+    t, h, w = grid
+    if h % 8 or w % 8:
+        raise ValueError(f"NABLA needs an 8-divisible token grid, got {grid}")
+    sta = sta_mask(t, h // 8, w // 8, spec.nabla_wT, spec.nabla_wH,
+                   spec.nabla_wW)
+    return SparseParams(sta=torch.from_numpy(sta).to(device), P=spec.nabla_P)
+
+
+def token_grid(cfg: DiTParams, latent_shape) -> Tuple[int, int, int]:
+    """(T, H, W) token grid of a (B, T, H, W, C) latent after patching."""
+    return tuple(n // p for n, p in zip(latent_shape[1:4], cfg.patch_size))
 
 
 def _visual_cond_input(cfg: DiTParams, x, pdtype):
@@ -61,16 +88,18 @@ def _visual_cond_input(cfg: DiTParams, x, pdtype):
     return x.to(pdtype)
 
 
-def _dit_call(model, spec: DenoiseSpec, model_in, text, pooled, mask, t):
+def _dit_call(model, spec: DenoiseSpec, sparse, model_in, text, pooled, mask,
+              t):
     nb = model_in.shape[0]
+    to_fractal = sparse is not None
     time_vec = torch.full((nb,), float(t), dtype=torch.float32,
                           device=model_in.device) * 1000.0
     visual, text_o, time_embed, rope, grid = dit_prologue(
         model, model_in, text, pooled, time_vec, mask, spec.scale_factor,
-        spec.attn_impl)
+        spec.attn_impl, to_fractal)
     visual = dit_visual_blocks(model, visual, text_o, time_embed, rope, mask,
-                               spec.attn_impl)
-    return dit_epilogue(model, visual, time_embed, grid).float()
+                               spec.attn_impl, sparse)
+    return dit_epilogue(model, visual, time_embed, grid, to_fractal).float()
 
 
 @torch.no_grad()
@@ -83,6 +112,7 @@ def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
     batch = noise.shape[0]
     pdtype = model.dtype
     use_cfg = spec.use_cfg
+    sparse = _build_sparse(spec, token_grid(cfg, noise.shape), noise.device)
     if use_cfg and not spec.sequential_cfg:
         text = torch.cat([cond["text_embeds"], uncond["text_embeds"]])
         pooled = torch.cat([cond["pooled_embed"], uncond["pooled_embed"]])
@@ -91,19 +121,23 @@ def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
     for i, (t, dt) in enumerate(zip(times, dts)):
         model_in = _visual_cond_input(cfg, x, pdtype)
         if use_cfg and spec.sequential_cfg:
-            v_cond = _dit_call(model, spec, model_in, cond["text_embeds"],
-                               cond["pooled_embed"], cond["mask"], t)
-            v_uncond = _dit_call(model, spec, model_in, uncond["text_embeds"],
-                                 uncond["pooled_embed"], uncond["mask"], t)
+            v_cond = _dit_call(model, spec, sparse, model_in,
+                               cond["text_embeds"], cond["pooled_embed"],
+                               cond["mask"], t)
+            v_uncond = _dit_call(model, spec, sparse, model_in,
+                                 uncond["text_embeds"], uncond["pooled_embed"],
+                                 uncond["mask"], t)
             velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
         elif use_cfg:
-            pred = _dit_call(model, spec, torch.cat([model_in, model_in]),
-                             text, pooled, mask, t)
+            pred = _dit_call(model, spec, sparse,
+                             torch.cat([model_in, model_in]), text, pooled,
+                             mask, t)
             v_cond, v_uncond = pred[:batch], pred[batch:]
             velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
         else:
-            velocity = _dit_call(model, spec, model_in, cond["text_embeds"],
-                                 cond["pooled_embed"], cond["mask"], t)
+            velocity = _dit_call(model, spec, sparse, model_in,
+                                 cond["text_embeds"], cond["pooled_embed"],
+                                 cond["mask"], t)
         x = x + float(dt) * velocity
         if on_step is not None:
             on_step(i)

@@ -1,22 +1,30 @@
 """Where the time goes on the card: one DiT forward and one streaming VAE
-decode of the 5 s distil path, at full width with random weights.
+decode, at full width with random weights: the 5 s distil path (dense
+attention) for ``--seconds 1|5``, the 10 s NABLA path
+(``config_10s_distil.yaml``: 93,696 tokens, 241 frames) for ``--seconds
+10``.
 
-    python -m kandinsky5_tpu_torch.tools.profile_step [--seconds 1|5]
+    python -m kandinsky5_tpu_torch.tools.profile_step [--seconds 1|5|10]
 
 For each of the two it prints the unprofiled wall time (host clock around
 a synchronized call, the minimum of a few repeats), the device time that
 ``torch.profiler`` records per kernel, grouped into the port's kernels
-K1-K4, library GEMMs/convs and elementwise passes, and the device's idle
-share. The idle share comes from the profiled call's own trace: the time
-between the first device activity's start and the last one's end, less the
-union of the activities' intervals, over that span. The profiler adds host
-time per launch, so the share is an upper bound for the unprofiled call.
-Needs a CUDA device.
+K1-K4 and K6, library GEMMs/convs and elementwise passes, and the device's
+idle share. On the NABLA path it also prints the device time under each
+stage of the mask build (the ``nabla_mask.*`` ranges of ``ops/nabla.py``:
+pooled map and softmax, sort, cumsum and scatter, kv lists), whose kernels
+the groups above also count, and the masks' mean kept fraction. The idle
+share comes from the profiled call's own trace: the time between the
+first device activity's start and the last one's end, less the union of
+the activities' intervals, over that span. The profiler adds host time per
+launch, so the share is an upper bound for the unprofiled call. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -26,20 +34,28 @@ from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
 from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
 from kandinsky5_tpu_torch.models.vae import init_vae_params
 from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
+from kandinsky5_tpu_torch.ops.nabla import record_density
+from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+from kandinsky5_tpu_torch.sampling import _build_sparse, token_grid
 from kandinsky5_tpu_torch.tools import gpu_line
 
 # kernel-name substrings -> group (first match wins)
 GROUPS = [
+    ("K6 sparse_nabla", ("sparse_nabla_kernel",)),
     ("K1 flash_fixed", ("flash_fixed_kernel",)),
     ("K2 ff_kernel", ("ff_kernel",)),
     ("K3 conv3d", ("conv3d_kernel",)),
     ("K4 flash_online", ("flash_online_kernel",)),
     ("library GEMM/conv (projections, 1x1, conv_in/out, dense cross)",
      ("gemm", "nvjet", "xmma", "cutlass", "sm90", "sm80", "fprop", "cublas")),
+    ("sort / scan (NABLA mask: row sort, cumsum, kv-list sort)",
+     ("sort", "scan")),
     ("elementwise / reduce / copy (norms, casts, gates, RoPE)",
      ("elementwise", "reduce", "copy", "pad", "cat", "index", "softmax",
-      "memcpy", "memset", "fill")),
+      "memcpy", "memset", "fill", "scatter")),
 ]
+# profiler ranges (record_function) whose device time is printed apart
+RANGES = "nabla_mask."
 # profiler rows that are host-side API calls or markers, not kernels
 _NOT_KERNELS = ("Command Buffer Full", "cuLaunch", "cuda", "aten::")
 
@@ -89,6 +105,17 @@ def device_times(prof) -> dict:
     return rows
 
 
+def range_times(prof, prefix: str) -> dict:
+    """{range name: (device ms of the kernels launched inside, calls)} for
+    the record_function ranges whose name starts with ``prefix``."""
+    rows = {}
+    for e in prof.key_averages():
+        ms = (getattr(e, "device_time_total", 0.0) or 0.0) / 1e3
+        if e.key.startswith(prefix):
+            rows[e.key] = (ms, e.count)
+    return rows
+
+
 def measure(label: str, fn, reps: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,11 +153,19 @@ def measure(label: str, fn, reps: int) -> None:
         print(f"   {ms:10.1f} ms {100 * ms / total:5.1f}%  x{n:<6d} {name}")
     for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"     top: {ms:9.1f} ms x{n:<5d} {key[:100]}")
+    ranges = range_times(prof, RANGES)
+    if ranges:
+        in_ranges = sum(ms for ms, _ in ranges.values())
+        print(f"   NABLA mask build (device time under the {RANGES}* ranges, "
+              f"counted in the groups above): {in_ranges:.1f} ms, "
+              f"{100 * in_ranges / total:.1f}% of the kernel time")
+        for key, (ms, n) in sorted(ranges.items()):
+            print(f"     {ms:10.1f} ms x{n:<5d} {key}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seconds", type=int, default=5, choices=(1, 5))
+    ap.add_argument("--seconds", type=int, default=5, choices=(1, 5, 10))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -139,11 +174,18 @@ def main() -> None:
     dev = torch.device("cuda")
     print(gpu_line())
 
-    conf = load_config(os.path.join(CONFIG_DIR, "config_5s_distil.yaml"))
+    name = "config_10s_distil.yaml" if args.seconds == 10 \
+        else "config_5s_distil.yaml"
+    conf = load_config(os.path.join(CONFIG_DIR, name))
     cfg = conf.model.dit_params
     t_lat = args.seconds * 24 // 4 + 1
     h_lat, w_lat = 512 // 8, 768 // 8
-    tokens = t_lat * (h_lat // 2) * (w_lat // 2)
+    latent = (1, t_lat, h_lat, w_lat, cfg.visual_embed_dim)
+    tokens = math.prod(token_grid(cfg, latent))
+    # the sampler's own spec and sparse parameters for this config
+    spec = Kandinsky5T2VPipeline(None, conf)._spec(conf.model.num_steps,
+                                                   1.0, 5.0)
+    sparse = _build_sparse(spec, token_grid(cfg, latent), dev)
     g = torch.Generator(device=dev).manual_seed(0)
 
     dit = fast_init_dit_params(cfg, device=dev, seed=0)
@@ -151,22 +193,30 @@ def main() -> None:
     text = torch.randn((1, 256, cfg.in_text_dim), generator=g, device=dev)
     pooled = torch.randn((1, cfg.in_text_dim2), generator=g, device=dev)
     mask = (torch.arange(256, device=dev) < 100)[None]
-    x = torch.randn((1, t_lat, h_lat, w_lat, cfg.visual_embed_dim),
-                    generator=g, device=dev).bfloat16()
+    x = torch.randn(latent, generator=g, device=dev).bfloat16()
     step = torch.tensor([500.0], device=dev)
-    measure(f"one {args.seconds} s DiT forward ({tokens} tokens)",
-            lambda: dit_forward(dit, x, text, pooled, step, mask,
-                                scale_factor=conf.metrics.scale_factor),
-            reps=2)
+    with record_density() as kept:
+        measure(f"one {args.seconds} s DiT forward ({tokens} tokens, "
+                f"{spec.attention_type} attention, {name})",
+                lambda: dit_forward(dit, x, text, pooled, step, mask,
+                                    scale_factor=conf.metrics.scale_factor,
+                                    sparse=sparse),
+                reps=2)
+    if kept:
+        print(f"   NABLA masks: {len(kept)} built, mean kept fraction "
+              f"{float(torch.stack(kept).mean()):.4f}")
     del dit
     torch.cuda.empty_cache()
 
     vae = init_vae_params(device=dev, seed=1)
     z = torch.randn((1, t_lat, h_lat, w_lat, 16), generator=g,
                     device=dev).bfloat16()
+    torch.cuda.reset_peak_memory_stats()
     measure(f"{args.seconds} s streaming decode ({t_lat} latent -> "
             f"{4 * (t_lat - 1) + 1} frames)", lambda: streaming_decode(vae, z),
             reps=1)
+    print(f"   decode peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
     print(gpu_line())
 
 

@@ -15,14 +15,21 @@ import jax.numpy as jnp
 
 from kandinsky5_tpu.checkpoint import convert_dit_state_dict
 from kandinsky5_tpu.checkpoint import dit_params_to_state_dict
+from kandinsky5_tpu.models.dit import SparseParams as JaxSparseParams
 from kandinsky5_tpu.models.dit import dit_forward as jax_dit_forward
 from kandinsky5_tpu.models.dit import init_dit_params as jax_init_dit
+from kandinsky5_tpu.ops.nabla import sta_mask as jax_sta_mask
 from kandinsky5_tpu_torch.checkpoint import (
     dit_from_state_dict,
     dit_state_dict_from_jax,
     load_state_dict_file,
 )
-from kandinsky5_tpu_torch.models.dit import dit_forward, init_dit_params
+from kandinsky5_tpu_torch.models.dit import (
+    SparseParams,
+    dit_forward,
+    init_dit_params,
+)
+from kandinsky5_tpu_torch.ops import nabla
 
 from .ref import TINY_COND
 from ._torch_parity import both_cfgs, rand, random_dit_pair, to_np
@@ -138,3 +145,41 @@ def test_padded_text_does_not_leak():
     a = dit_forward(model, x, text, *args, text_mask=mask)
     b = dit_forward(model, x, noisy, *args, text_mask=mask)
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_dit_forward_nabla_matches_jax():
+    """The NABLA path: a latent of 2x2 tiles per frame over 4 frames (1,024
+    tokens, 16 blocks) with a narrow STA window (wT 3, wH 1, wW 1: 15.6 %
+    of blocks), so the adaptive mask is truly sparse; the JAX DiT in its
+    faithful mode (sort, q_rows 1, no cap)."""
+    jcfg, pcfg = both_cfgs(**_cfg_kw(TINY_D64))
+    jparams, model = random_dit_pair(jcfg, pcfg, seed=8)
+    rng = np.random.default_rng(9)
+    x = rand(rng, 1, 4, 32, 32, jcfg.visual_embed_dim)
+    text = rand(rng, 1, 8, jcfg.in_text_dim)
+    pooled = rand(rng, 1, jcfg.in_text_dim2)
+    time = np.array([700.0], np.float32)
+    mask = np.arange(8)[None] < 5
+    sta = jax_sta_mask(4, 2, 2, 3, 1, 1)
+    want = jax_dit_forward(
+        jparams, jcfg, jnp.asarray(x), jnp.asarray(text), jnp.asarray(pooled),
+        jnp.asarray(time), text_mask=jnp.asarray(mask),
+        scale_factor=(1.0, 2.0, 2.0),
+        sparse=JaxSparseParams(sta=jnp.asarray(sta), P=0.9, max_density=None,
+                               q_rows=1, method="sort"))
+    with nabla.record_density() as kept:
+        got = dit_forward(model, torch.from_numpy(x), torch.from_numpy(text),
+                          torch.from_numpy(pooled), torch.from_numpy(time),
+                          text_mask=torch.from_numpy(mask),
+                          scale_factor=(1.0, 2.0, 2.0),
+                          sparse=SparseParams(torch.from_numpy(sta), 0.9))
+    densities = [float(d) for d in kept]
+    assert got.shape == (1, 4, 32, 32, jcfg.out_visual_dim)
+    assert len(densities) == pcfg.num_visual_blocks
+    assert all(sta.mean() <= d < 1.0 for d in densities), densities
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=2e-4, atol=2e-4)
+    dense = dit_forward(model, torch.from_numpy(x), torch.from_numpy(text),
+                        torch.from_numpy(pooled), torch.from_numpy(time),
+                        text_mask=torch.from_numpy(mask),
+                        scale_factor=(1.0, 2.0, 2.0))
+    assert np.abs(to_np(dense) - to_np(want)).max() > 1e-3

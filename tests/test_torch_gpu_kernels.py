@@ -1,5 +1,6 @@
-"""K1-K4 on the card against their plain PyTorch versions, at small shapes
-(ragged lengths, masks) and at the shapes the 5 s distil path gives them.
+"""K1-K4 and K6 on the card against their plain PyTorch versions, at small
+shapes (ragged lengths, masks, kv lists) and at the shapes the 5 s distil
+and 10 s NABLA paths give them.
 
 Needs a CUDA device and nvcc; skips without a card. Run on a GPU machine
 with ``pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py`` (the
@@ -28,6 +29,11 @@ from kandinsky5_tpu_torch.ops.flash import (
     flash_fixed_plain,
     flash_online,
     flash_online_plain,
+)
+from kandinsky5_tpu_torch.ops.nabla import block_mask_to_kv_lists, sta_mask
+from kandinsky5_tpu_torch.ops.sparse import (
+    sparse_attention,
+    sparse_attention_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -78,6 +84,31 @@ def test_k1_matches_plain(dev, b, lq, lk, h, masked):
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
     assert _fails_bound(flash_fixed_plain(q * 0, k, v, mask), ref, 3e-2, 1e-2)
+
+
+@pytest.mark.parametrize("b,grid,h,extra", [
+    (1, (4, 4, 6), 4, 0.0), (2, (3, 2, 2), 3, 0.3), (1, (13, 4, 6), 28, 0.0)])
+def test_k6_matches_plain(dev, b, grid, h, extra):
+    """K6 under the STA mask of a tile grid (plus seeded random blocks),
+    one empty row, batches with lists of their own."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    s1 = grid[0] * grid[1] * grid[2]
+    s = s1 * 64
+    q = _normed(g, (b, s, h, 64), dev)
+    k = _normed(g, (b, s, h, 64), dev)
+    v = torch.randn((b, s, h, 64), generator=g, device=dev).bfloat16()
+    mask = torch.from_numpy(sta_mask(*grid)).to(dev).expand(b, h, s1, s1).clone()
+    mask |= torch.rand((b, h, s1, s1), generator=g, device=dev) < extra
+    mask[0, 0, 1] = False
+    inds, nb = block_mask_to_kv_lists(mask)
+    out = sparse_attention(q, k, v, inds, nb)
+    torch.cuda.synchronize()
+    ref = sparse_attention_plain(q, k, v, inds, nb)
+    assert torch.all(out[0, 64:128, 0] == 0)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    assert _fails_bound(sparse_attention_plain(q * 0, k, v, inds, nb), ref,
+                        3e-2, 1e-2)
 
 
 @pytest.mark.parametrize("t,s,past,filled", [(2, 64, 4, 2), (1, 200, 4, 0),

@@ -132,3 +132,39 @@ def test_import_leaves_jax_out_and_cpu_never_launches():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["config_10s_distil.yaml",
+                                  "config_10s_nocfg.yaml",
+                                  "config_10s_sft.yaml",
+                                  "config_10s_pretrain.yaml"])
+def test_10s_configs_build_a_nabla_spec(name):
+    """Every 10 s config runs NABLA in its faithful mode, its CFG pair (if
+    any) as two sequential forwards; no 10 s spec leaves the visual
+    self-attention dense."""
+    conf = load_config(os.path.join(CONFIG_DIR, name))
+    att = conf.model.attention
+    assert (att.type, att.q_rows, att.max_density, att.threshold_method) == \
+        ("nabla", 1, None, "sort")
+    pipe = Kandinsky5T2VPipeline(None, conf)
+    spec = pipe._spec(conf.model.num_steps, conf.model.guidance_weight, 5.0)
+    assert spec.attention_type == "nabla" and spec.sequential_cfg
+    assert (spec.nabla_P, spec.nabla_wT, spec.nabla_wH, spec.nabla_wW) == \
+        (att.P, att.wT, att.wH, att.wW) == (0.9, 11, 3, 3)
+    assert spec.use_cfg == (name not in ("config_10s_distil.yaml",
+                                         "config_10s_nocfg.yaml"))
+    conf5 = load_config(os.path.join(CONFIG_DIR, "config_5s_distil.yaml"))
+    spec5 = Kandinsky5T2VPipeline(None, conf5)._spec(16, 1.0, 5.0)
+    assert spec5.attention_type == "flash" and not spec5.sequential_cfg
+
+
+def test_nabla_config_rejects_tpu_modes():
+    import dataclasses
+
+    conf = load_config(os.path.join(CONFIG_DIR, "config_10s_distil.yaml"))
+    att = dataclasses.replace(conf.model.attention, q_rows=8,
+                              threshold_method="bisect", max_density=0.75)
+    conf = dataclasses.replace(
+        conf, model=dataclasses.replace(conf.model, attention=att))
+    with pytest.raises(ValueError, match="faithful"):
+        Kandinsky5T2VPipeline(None, conf)._spec(16, 1.0, 5.0)

@@ -64,3 +64,36 @@ def test_generate_latents_matches_jax(guidance, sequential):
                            noise=torch.from_numpy(noise))
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("guidance", [1.0, 3.5], ids=["nocfg", "cfg_sequential"])
+def test_denoise_nabla_matches_jax(guidance):
+    """Two Euler steps of the NABLA path (fractal order, faithful adaptive
+    mask, K6's plain version) against the JAX denoise from the same noise,
+    on a (4, 16, 16) token grid of 2x2 tiles per frame with a narrow STA
+    window (wT 3, wH 1, wW 1)."""
+    jcfg, pcfg = both_cfgs(**TINY_D64)
+    jparams, model = random_dit_pair(jcfg, pcfg, seed=11)
+    rng = np.random.default_rng(12)
+    shape = (1, 4, 32, 32, jcfg.in_visual_dim)
+    noise = rand(rng, *shape)
+    cond = _cond(rng, 1, jcfg, [6])
+    uncond = _cond(rng, 1, jcfg, [4])
+    kw = dict(num_steps=2, guidance_weight=guidance, scheduler_scale=5.0,
+              scale_factor=(1.0, 2.0, 2.0), sequential_cfg=guidance != 1.0,
+              attention_type="nabla", nabla_P=0.9, nabla_wT=3, nabla_wH=1,
+              nabla_wW=1, attn_impl="auto")
+    jspec = JaxSpec(dit_params=jcfg, nabla_q_rows=1, nabla_method="sort",
+                    nabla_max_density=None, **kw)
+    pspec = DenoiseSpec(dit_params=pcfg, **kw)
+    names = ("text_embeds", "pooled_embed", "mask")
+    want = jax_generate(jparams, jspec, shape,
+                        dict(zip(names, map(jnp.asarray, cond))),
+                        dict(zip(names, map(jnp.asarray, uncond))),
+                        seed=0, noise=jnp.asarray(noise))
+    got = generate_latents(model, pspec, shape,
+                           dict(zip(names, map(torch.from_numpy, cond))),
+                           dict(zip(names, map(torch.from_numpy, uncond))),
+                           noise=torch.from_numpy(noise))
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=2e-4, atol=2e-4)
