@@ -7,20 +7,25 @@ Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
                source in parallel, sm_90a) and print ptxas' register /
                shared-memory / spill report;
-  2. kernels — K1-K4 and K6 against their plain PyTorch versions on the
-               card, in bf16, at the shapes the 5 s and 10 s paths give them
-               (every decoder conv class for K3, both K3 modes; K6 at the
-               10 s shape under three masks: STA only, ~15 % and ~35 %
-               kept), with max-abs and relative-L2 errors against stated
-               tolerances, CUDA-event times of kernel, plain version and
-               (where one PyTorch call computes the same function) that
-               call, and each case's bound (bytes or bf16 operations over
-               the card's peak rates);
-  3. reference — a cut-depth, full-width DiT (dense, and NABLA on a
-               (1,4,64,96) latent) and the full-width VAE decode on a small
-               input (its first chunk large enough for K4), on the card
-               (kernels) against the same weights in fp32 on the CPU (plain
-               versions);
+  2. kernels — K1-K7 against their plain PyTorch versions on the card, in
+               bf16, at the shapes the 5 s and 10 s paths give them (every
+               decoder conv class for K3, both K3 modes; K6 at the 10 s
+               shape under three masks: STA only, ~15 % and ~35 % kept; K5
+               and K7 at K1's four shapes on one shared pack_int8 call, K7
+               bit-equal to K5, K5's error against K1 printed as the
+               quantization error), the tools kernels T5 (its four modes at
+               the 5 s shape) and T1 (int8 exact, bf16, at 8192^3 and the
+               DiT's projection shapes), with max-abs and relative-L2
+               errors against stated tolerances, CUDA-event times of
+               kernel, plain version and (where one PyTorch call computes
+               the same function) that call, and each case's bound (bytes,
+               or bf16 and int8 operations over the card's peak rates);
+  3. reference — a cut-depth, full-width DiT (dense; NABLA on a
+               (1,4,64,96) latent; int8, i.e. flash_int8 attention and W8A8
+               projections, on a (1,2,48,64) latent, launching K5 4 times)
+               and the full-width VAE decode on a small input (its first
+               chunk large enough for K4), on the card (kernels) against
+               the same weights in fp32 on the CPU (plain versions);
   4. pipeline — ``Kandinsky5T2VPipeline`` with the full 2B DiT (uniform
                +-0.02 weights from a seed), the full VAE decoder and a
                seeded stand-in text embedder, 16 steps per request. The 5 s
@@ -30,8 +35,15 @@ Phases, each of which must pass (any failure exits nonzero):
                (config_10s_distil.yaml, NABLA) answers a 2 s video (49
                frames, 19,968 tokens), or the 241-frame shape with
                ``--seconds 10``; it must launch K6 exactly 32 x 16 times and
-               K1 exactly 2 x 16 times (the text blocks). Each path's
-               launch counts are reset just before it and read just after.
+               K1 exactly 2 x 16 times (the text blocks). The 5 s int8
+               path answers two videos of the 5 s path's length with the
+               bf16 video's prompt and seed: (a) attn_impl "flash_int8",
+               K5 exactly (2 + 32) x 16 launches and K1 none; (b)
+               "flash_int8_pipe" with W8A8 projections, K7 544, K5 and K1
+               none, K2 2 x 16 (the text blocks); each frame PSNR against
+               the bf16 video is printed (random weights: not gated). Each
+               path's launch counts are reset just before it and read just
+               after.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -55,26 +67,51 @@ ROUTE_SOURCES = {
                   "kandinsky5_tpu/ops/conv_pallas.py:126 _kernel"),
     "K4_flash_online": ("kandinsky5_tpu_torch/csrc/flash_online.cu",
                         "kandinsky5_tpu/ops/flash_pallas.py:477 _kernel_online"),
+    "K5_flash_int8": ("kandinsky5_tpu_torch/csrc/flash_int8.cu",
+                      "kandinsky5_tpu/ops/flash_pallas.py:267 _kernel_fixed_i8"),
     "K6_sparse_nabla": ("kandinsky5_tpu_torch/csrc/sparse_nabla.cu",
                         "kandinsky5_tpu/ops/sparse_pallas.py:67 _kernel"),
+    "K7_flash_int8_pipe": ("kandinsky5_tpu_torch/csrc/flash_int8.cu",
+                           "kandinsky5_tpu/ops/flash_pallas.py:390 "
+                           "_kernel_fixed_i8_pipe"),
+    "T1_gemm_i8": ("kandinsky5_tpu_torch/csrc/gemm_i8.cu",
+                   "tools/bench_int8mm.py:22 _mm_kernel"),
+    "T1_gemm_bf16": ("kandinsky5_tpu_torch/csrc/gemm_i8.cu",
+                     "tools/bench_int8mm.py:22 _mm_kernel"),
+    "T5_i8_decomp": ("kandinsky5_tpu_torch/csrc/flash_int8.cu",
+                     "tools/bench_i8_decomp.py:37 _kernel"),
 }
+# the tools kernels run in phase 2 only: no path of the system launches them
+TOOLS = ("T1_gemm_i8", "T1_gemm_bf16", "T5_i8_decomp")
 # bf16 kernel vs plain on the card: both round the same quantities to bf16
 # but sum in different orders, so an output may move by a bf16 ulp (2^-8
 # relative); bounds are a few ulps at the outputs' scale. The attention
 # checks carry a control: uniform weights over the allowed keys (q = 0 in
 # the plain version) must fail the same bound, or the inputs are too weak
 # to tell a right kernel from one that ignores its scores.
+# K5/K7 and their plain version share the packed inputs and differ only in
+# exp2's last bits and the order of sums, so K1's bounds hold. T1's int8
+# instance must equal the exact product. T5's outputs are garbage of any
+# scale: its max-abs bound is relative to the plain output's largest value.
 TOL = {"K1_flash_fixed": (3e-2, 1e-2), "K2_ff_mod": (6e-2, 1e-2),
        "K3_conv3d": (6e-2, 1e-2), "K4_flash_online": (3e-2, 1e-2),
-       "K6_sparse_nabla": (3e-2, 1e-2)}
-# published dense peaks of one H100 SXM (700 W): bf16 tensor cores and HBM3
+       "K5_flash_int8": (3e-2, 1e-2), "K6_sparse_nabla": (3e-2, 1e-2),
+       "K7_flash_int8_pipe": (3e-2, 1e-2), "T1_gemm_i8": (0.0, 0.0),
+       "T1_gemm_bf16": (6e-2, 1e-2), "T5_i8_decomp": (1e-2, 1e-2)}
+# published dense peaks of one H100 SXM (700 W): bf16 and int8 tensor cores
+# and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 CONF5 = "config_5s_distil.yaml"
 CONF10 = "config_10s_distil.yaml"
 # the case of each kernel that its JSON entry reports
 HEADLINE = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": -1,
-            "K4_flash_online": 0, "K6_sparse_nabla": 1}
+            "K4_flash_online": 0, "K5_flash_int8": 0, "K6_sparse_nabla": 1,
+            "K7_flash_int8_pipe": 0, "T1_gemm_i8": 0, "T1_gemm_bf16": 0,
+            "T5_i8_decomp": 0}
+# the prompt of the 5 s path's bf16 video and of both int8 videos
+VIDEO_PROMPT = "a smoke-test video"
 
 
 class Failure(Exception):
@@ -112,19 +149,22 @@ def _errors(out, ref):
             ((o - r).norm() / r.norm().clamp_min(1e-30)).item())
 
 
-def bound_ms(flops: float, nbytes: float):
+def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
     """The least time the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    (bf16 ones over the bf16 tensor-core peak plus int8 ones over the int8
+    peak) and the bytes over the memory rate."""
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
 def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
-             control_fn=None, library_fn=None, info=None):
+             control_fn=None, library_fn=None, info=None, yardstick_fn=None):
     """Check ``kernel_fn`` against ``plain_fn`` and time both (and
     ``library_fn``, one PyTorch call computing the same function, if
-    given). ``work`` = (flops, bytes) of the call for its bound."""
+    given; ``yardstick_fn``, a call that computes a different function,
+    is timed and labelled as such). ``work`` = (bf16 flops, bytes[, int8
+    ops]) of the call for its bound."""
     import torch
 
     out = kernel_fn()
@@ -133,7 +173,13 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     torch.cuda.synchronize()
     max_abs, rel = _errors(out, ref)
     atol, rtol = TOL[name]
-    ok = max_abs <= atol and rel <= rtol
+    if name == "T1_gemm_i8":
+        ok = bool(torch.equal(out, ref))
+    else:
+        if name == "T5_i8_decomp":
+            info = dict(info or {}, scale=ref.float().abs().max().item())
+            atol *= info["scale"]
+        ok = max_abs <= atol and rel <= rtol
     note = ""
     if control_fn is not None:
         c_abs, c_rel = _errors(control_fn(), ref)
@@ -144,19 +190,27 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     del out, ref
     ms = _time_ms(kernel_fn, reps)
     plain_ms = _time_ms(plain_fn, 1)
-    lib_ms = None
+    lib_ms = yard_ms = None
     if library_fn is not None:
         library_fn()
         lib_ms = _time_ms(library_fn, reps)
+    if yardstick_fn is not None:
+        yardstick_fn()
+        yard_ms = _time_ms(yardstick_fn, reps)
     b_ms, b_by = bound_ms(*work)
     lib_note = "" if lib_ms is None else f" library {lib_ms:.3f} ms"
-    log(f"  {name} {shape}: max_abs {max_abs:.3e} (tol {atol}) rel_l2 "
+    if yard_ms is not None:
+        lib_note += (f" yardstick {yard_ms:.3f} ms (bf16 SDPA: not the same "
+                     "function)")
+    tol_note = "exact" if name == "T1_gemm_i8" else f"tol {atol:.3g}"
+    log(f"  {name} {shape}: max_abs {max_abs:.3e} ({tol_note}) rel_l2 "
         f"{rel:.3e} (tol {rtol}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
         f"{lib_note} bound {b_ms:.3f} ms ({b_by}){note} "
         f"{'ok' if ok else 'FAIL'}")
     results.setdefault(name, []).append(dict(
         shape=shape, max_abs=max_abs, rel=rel, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ok=ok, **(info or {})))
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, yardstick_ms=yard_ms,
+        ok=ok, **(info or {})))
     torch.cuda.empty_cache()
 
 
@@ -284,6 +338,7 @@ def phase_kernels(dev, results):
              library_fn=_sdpa(q, k, v, allowed[None, None]))
     del q, k, v, allowed
     phase_k6(dev, g, normed, results)
+    phase_int8(dev, g, normed, results)
     bad = [(n, r["shape"]) for n, rs in results.items() for r in rs if not r["ok"]]
     if bad:
         raise Failure(f"kernels outside tolerance: {bad}")
@@ -384,6 +439,104 @@ def phase_k6(dev, g, normed, results):
     torch.cuda.empty_cache()
 
 
+def phase_int8(dev, g, normed, results):
+    """K5 and K7 at K1's four shapes, on one pack_int8 call shared with
+    their plain version (the sides differ only in exp2's last bits and sum
+    order), K7 held bit-equal to K5 and K5 against K1 (the quantization
+    error on this card); T5's four modes at the 5 s shape; T1's two
+    instances at the JAX tool's 8192^3 and the DiT's projection shapes."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.flash import (
+        flash_fixed,
+        flash_int8_packed,
+        flash_int8_plain,
+        pack_int8,
+    )
+    from kandinsky5_tpu_torch.tools.bench_i8_decomp import (
+        MODES,
+        i8_decomp,
+        i8_decomp_plain,
+    )
+    from kandinsky5_tpu_torch.tools.bench_int8mm import (
+        SHAPES,
+        gemm,
+        gemm_plain,
+        library_call,
+        operands,
+    )
+
+    for lq, masked in ((47616, False), (10752, False), (1536, False),
+                       (256, True)):
+        q, k = normed((1, lq, 28, 64)), normed((1, lq, 28, 64))
+        v = torch.randn((1, lq, 28, 64), generator=g, device=dev).bfloat16()
+        mask = (torch.arange(lq, device=dev) < 77)[None] if masked else None
+        n_keys = 77 if masked else lq
+        q8, k8, coeff, shift = pack_int8(q, k)
+        pairs = 2.0 * lq * n_keys * 28 * 64
+        work = (pairs, _nbytes(q8, k8, v, coeff, mask, q), pairs)
+        shape = f"(1,{lq},28,64){' mask' if masked else ''}"
+        sdpa = _sdpa(q, k, v, None if mask is None else mask[:, None, None, :])
+        outs = {}
+        for name, pipe in (("K5_flash_int8", False), ("K7_flash_int8_pipe", True)):
+            def kernel(pipe=pipe):
+                return flash_int8_packed(q8, k8, v, coeff, shift, mask, pipe)
+
+            outs[name] = kernel()
+            _compare(name, shape, kernel,
+                     lambda: flash_int8_plain(q8, k8, v, coeff, shift, mask),
+                     results, work, reps=3 if lq > 10000 else 20,
+                     control_fn=lambda: flash_int8_plain(q8 * 0, k8, v, coeff,
+                                                         shift, mask),
+                     yardstick_fn=sdpa)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(outs["K5_flash_int8"], outs["K7_flash_int8_pipe"]))
+        k7_vs_k5 = (outs["K5_flash_int8"].float()
+                    - outs["K7_flash_int8_pipe"].float()).abs().max().item()
+        e_abs, e_rel = _errors(outs["K5_flash_int8"], flash_fixed(q, k, v, mask))
+        log(f"  K7 against K5 {shape}: max_abs {k7_vs_k5:.3e} "
+            f"({'bit-equal' if same else 'DIFFERENT'}); K5 against K1 (the "
+            f"int8 quantization error on this card): max_abs {e_abs:.3e} "
+            f"rel_l2 {e_rel:.3e}")
+        results["K7_flash_int8_pipe"][-1]["ok"] &= same
+        results["K7_flash_int8_pipe"][-1]["max_abs_vs_k5"] = k7_vs_k5
+        results["K5_flash_int8"][-1]["rel_l2_vs_k1"] = e_rel
+        del q, k, v, q8, k8, coeff, outs
+
+    q, k = normed((1, 47616, 28, 64)), normed((1, 47616, 28, 64))
+    v = torch.randn((1, 47616, 28, 64), generator=g, device=dev).bfloat16()
+    q8, k8, coeff, shift = pack_int8(q, k)
+    pairs = 2.0 * 47616 * 47616 * 28 * 64
+    for mode in MODES:
+        _compare("T5_i8_decomp", f"(1,47616,28,64) {mode}",
+                 lambda: i8_decomp(q8, k8, v, coeff, shift, mode),
+                 lambda: i8_decomp_plain(q8, k8, v, coeff, shift, mode),
+                 results,
+                 work=(0.0 if mode == "qk_only" else pairs,
+                       _nbytes(q8, k8, v, coeff, q), pairs),
+                 reps=3, info=dict(mode=mode))
+    t = {r["mode"]: r["ms"] for r in results["T5_i8_decomp"]}
+    log(f"  T5 at (1,47616,28,64): exp2 {t['full'] - t['no_exp2']:.3f} ms, "
+        f"dequant {t['no_exp2'] - t['raw_pv']:.3f} ms, PV "
+        f"{t['raw_pv'] - t['qk_only']:.3f} ms, QK + loads {t['qk_only']:.3f} ms")
+    del q, k, v, q8, k8, coeff
+
+    for m, kk, n in SHAPES:
+        for name, dtype in (("T1_gemm_i8", torch.int8),
+                            ("T1_gemm_bf16", torch.bfloat16)):
+            a, b = operands(m, kk, n, dtype, g, dev)
+            ops = 2.0 * m * n * kk
+            out_bytes = 4 * m * n
+            _compare(name, f"({m},{kk},{n})", lambda: gemm(a, b),
+                     lambda: gemm_plain(a, b), results,
+                     work=(0.0 if dtype == torch.int8 else ops,
+                           _nbytes(a, b) + out_bytes,
+                           ops if dtype == torch.int8 else 0.0),
+                     reps=5, library_fn=library_call(a, b))
+            del a, b
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: small-input reference of the path (card kernels vs CPU plain)
 # ---------------------------------------------------------------------------
@@ -436,9 +589,10 @@ def phase_reference(dev, conf):
     blocks, STA alone keeps 27.8 %). The VAE latent (1, 5, 16, 32)
     decodes in a 4-frame chunk of 4 * 512 = 2048 tokens, the size at which
     mid attention goes to K4, then a 1-frame chunk that carries the K/V
-    buffer. bf16 activations through a few blocks keep about 2-3
-    significant digits, so the bound is a relative L2 error of 5e-2; a
-    wrong layout or index gives errors near 1."""
+    buffer. The int8 DiT (W8A8 and flash_int8, the same int8 weights on
+    both sides) runs a (2, 48, 64) latent. bf16 activations through a few
+    blocks keep about 2-3 significant digits, so the bound is a relative L2
+    error of 5e-2; a wrong layout or index gives errors near 1."""
     import dataclasses
 
     import torch
@@ -447,6 +601,7 @@ def phase_reference(dev, conf):
         SparseParams,
         dit_forward,
         fast_init_dit_params,
+        quantize_dit_params,
     )
     from kandinsky5_tpu_torch.models.vae import init_vae_params
     from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
@@ -487,7 +642,22 @@ def phase_reference(dev, conf):
         f"{e_nabla:.3e} (tol 5e-2); mask density card {_density(kept):.4f} "
         f"cpu {_density(kept_cpu):.4f} (STA alone {float(sta.float().mean()):.4f});"
         f" kernel launches {launched_n}")
-    del dit, dit_cpu
+
+    # the int8 DiT: flash_int8 attention and W8A8 projections on 1,536
+    # visual tokens, where the text cross-attention is short-KV (dense), so
+    # K5 runs the 2 text and 2 visual self-attentions
+    qdit, qdit_cpu = quantize_dit_params(dit), quantize_dit_params(dit_cpu)
+    x = torch.randn((1, 2, 48, 64, 33), generator=torch.Generator().manual_seed(9))
+    _kernels.reset_launches()
+    out = dit_forward(qdit, x.to(dev).bfloat16(), *[a.to(dev) for a in args],
+                      scale_factor=(1.0, 2.0, 2.0), attn_impl="flash_int8")
+    launched_i = dict(_kernels.LAUNCHES)
+    ref = dit_forward(qdit_cpu, x, *args, scale_factor=(1.0, 2.0, 2.0),
+                      attn_impl="flash_int8")
+    e_int8 = _rel(out, ref)
+    log(f"  DiT 2+2 blocks, full width, int8 (flash_int8 + W8A8) (1,2,48,64): "
+        f"rel_l2 {e_int8:.3e} (tol 5e-2), kernel launches {launched_i}")
+    del dit, dit_cpu, qdit, qdit_cpu
 
     vp = init_vae_params(device=dev, dtype=torch.bfloat16, seed=3)
 
@@ -503,17 +673,21 @@ def phase_reference(dev, conf):
     e_vae = _rel(out_v, ref_v)
     log(f"  VAE stream decode (1,5,16,32,16) -> {tuple(out_v.shape)}: rel_l2 "
         f"{e_vae:.3e} (tol 5e-2), kernel launches {launched_v}")
-    if not (e_dit < 5e-2 and e_nabla < 5e-2 and e_vae < 5e-2):
+    if not (e_dit < 5e-2 and e_nabla < 5e-2 and e_int8 < 5e-2
+            and e_vae < 5e-2):
         raise Failure(f"path disagrees with its CPU reference: DiT {e_dit}, "
-                      f"NABLA DiT {e_nabla}, VAE {e_vae}")
+                      f"NABLA DiT {e_nabla}, int8 DiT {e_int8}, VAE {e_vae}")
     if min(launched["K1_flash_fixed"], launched["K2_ff_mod"],
            launched_v["K3_conv3d"], launched_v["K4_flash_online"]) == 0:
         raise Failure("the reference run missed a kernel: DiT "
                       f"{launched}, VAE {launched_v}")
     if launched_n["K6_sparse_nabla"] != 2:
         raise Failure(f"the NABLA DiT launched K6 {launched_n} times, not 2")
+    if launched_i["K5_flash_int8"] != 4 or launched_i["K1_flash_fixed"] != 0:
+        raise Failure(f"the int8 DiT launched {launched_i}: K5 must launch 4 "
+                      "times and K1 never")
     return {"dit_rel_l2": e_dit, "nabla_dit_rel_l2": e_nabla,
-            "vae_rel_l2": e_vae}
+            "int8_dit_rel_l2": e_int8, "vae_rel_l2": e_vae}
 
 
 # ---------------------------------------------------------------------------
@@ -521,19 +695,20 @@ def phase_reference(dev, conf):
 # ---------------------------------------------------------------------------
 
 def _answer(pipe, requests, out_dir):
-    """Run each (name, seconds, frame shape, file) request through ``pipe``
-    and check what comes out; returns one report per request."""
+    """Run each (name, prompt, seconds, frame shape, file) request through
+    ``pipe`` and check what comes out; returns one report per request and
+    the frames by request name."""
     import numpy as np
     import torch
 
     from kandinsky5_tpu_torch.ops.nabla import record_density
 
-    report = []
-    for name, tl, shape, fname in requests:
+    report, videos = [], {}
+    for name, prompt, tl, shape, fname in requests:
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         with record_density() as kept:
-            frames = pipe(f"a smoke-test {name}", time_length=tl, width=768,
+            frames = pipe(prompt, time_length=tl, width=768,
                           height=512, seed=42, expand_prompts=False,
                           save_path=os.path.join(out_dir, fname))
         wall = time.perf_counter() - t
@@ -562,13 +737,23 @@ def _answer(pipe, requests, out_dir):
                            denoise_s=tm["denoise_s"], decode_s=tm["decode_s"],
                            peak_gib=peak / 2**30,
                            nabla_density=density if kept else None))
-    return report
+        videos[name] = frames
+    return report, videos
 
 
-def _video(tag, seconds):
+def _video(tag, seconds, prompt=None):
     frames = 4 * (seconds * 24 // 4) + 1
-    return (f"{tag} video {seconds}s", seconds, (1, frames, 512, 768, 3),
-            f"{tag}_video_{seconds}s.mp4")
+    name = f"{tag} video {seconds}s"
+    return (name, prompt or f"a smoke-test {name}", seconds,
+            (1, frames, 512, 768, 3), f"{tag}_video_{seconds}s.mp4")
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of uint8 frames ``a`` against ``b``."""
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
 
 
 def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
@@ -599,8 +784,10 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
         f"steps, guidance {conf5.model.guidance_weight}, dense attention)")
     pipe5 = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae)
     _kernels.reset_launches()
-    report = _answer(pipe5, [("image", 0, (1, 1, 512, 768, 3), "image.png"),
-                             _video("5s-path", seconds5)], out_dir)
+    bf16_video = _video("5s-path", seconds5, VIDEO_PROMPT)
+    report, videos = _answer(
+        pipe5, [("image", "a smoke-test image", 0, (1, 1, 512, 768, 3),
+                 "image.png"), bf16_video], out_dir)
     launches5 = dict(_kernels.LAUNCHES)
     log(f"  kernel launches on the 5 s path: {launches5}")
     missing = [k for k in ("K1_flash_fixed", "K2_ff_mod", "K3_conv3d",
@@ -615,7 +802,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
         f" {m10.attention.wW}))")
     pipe10 = Kandinsky5T2VPipeline(dit, conf10, SeededEmbedder(), vae)
     _kernels.reset_launches()
-    report += _answer(pipe10, [_video("10s-path", seconds10)], out_dir)
+    report += _answer(pipe10, [_video("10s-path", seconds10)], out_dir)[0]
     launches10 = dict(_kernels.LAUNCHES)
     log(f"  kernel launches on the 10 s path: {launches10}")
     cfg = m10.dit_params
@@ -628,7 +815,39 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     if wrong or missing:
         raise Failure(f"the 10 s path launched (got, want) {wrong}, never "
                       f"launched {missing}")
-    return {"5s": launches5, "10s": launches10}, report
+
+    m5, cfg5 = conf5.model, conf5.model.dit_params
+    n_attn = (cfg5.num_text_blocks + cfg5.num_visual_blocks) * m5.num_steps
+    log(f"  5 s int8 path ({os.path.basename(CONF5)}, the bf16 video's "
+        f"prompt and seed): (a) flash_int8, (b) flash_int8_pipe + W8A8")
+    launches = {"5s": launches5, "10s": launches10}
+    for tag, kw, want in (
+            ("a", dict(attn_impl="flash_int8"),
+             {"K5_flash_int8": n_attn, "K1_flash_fixed": 0,
+              "K7_flash_int8_pipe": 0}),
+            ("b", dict(attn_impl="flash_int8_pipe", int8_linear=True),
+             {"K7_flash_int8_pipe": n_attn, "K5_flash_int8": 0,
+              "K1_flash_fixed": 0,
+              "K2_ff_mod": cfg5.num_text_blocks * m5.num_steps})):
+        pipe = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae, **kw)
+        _kernels.reset_launches()
+        rep, vids = _answer(pipe, [_video(f"5s-int8-{tag}", seconds5,
+                                          VIDEO_PROMPT)], out_dir)
+        got = dict(_kernels.LAUNCHES)
+        log(f"  kernel launches on the 5 s int8 path ({tag}): {got}")
+        db = psnr(next(iter(vids.values())), videos[bf16_video[0]])
+        rep[0]["psnr_vs_bf16_db"] = db
+        log(f"  5s-int8-{tag}: frame PSNR against the bf16 video {db:.2f} dB "
+            "(random weights: recorded, not gated)")
+        report += rep
+        launches[f"5s-int8-{tag}"] = got
+        wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        missing = [k for k in ("K3_conv3d", "K4_flash_online") if got[k] == 0]
+        if wrong or missing:
+            raise Failure(f"the 5 s int8 path ({tag}) launched (got, want) "
+                          f"{wrong}, never launched {missing}")
+        del pipe, vids
+    return launches, report
 
 
 def main() -> int:
@@ -702,16 +921,31 @@ def main() -> int:
         h = rs[HEADLINE[name]]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": launches["5s"][name] + launches["10s"][name],
+                 "launches": sum(n[name] for n in launches.values()),
                  "launches_by_path": {p: n[name] for p, n in launches.items()},
+                 "on_path": name not in TOOLS,
                  "max_abs_err": max(r["max_abs"] for r in rs),
                  "ms": h["ms"], "plain_ms": h["plain_ms"],
                  "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
                  "library_ms": h["library_ms"], "shape": h["shape"]}
+        if name == "T5_i8_decomp":
+            # garbage outputs of any scale: the error relative to each
+            # mode's largest plain output
+            entry["max_abs_err"] = max(r["max_abs"] / r["scale"] for r in rs)
+            entry["max_abs_err_is"] = "relative to the largest plain output"
+        if h["yardstick_ms"] is not None:
+            entry["yardstick_ms"] = h["yardstick_ms"]
+            entry["yardstick"] = "bf16 scaled_dot_product_attention (not the same function)"
         if name == "K6_sparse_nabla":
             entry["cases"] = [{k: r[k] for k in (
                 "shape", "density", "ms", "plain_ms", "bound_ms",
                 "library_ms", "k1_dense_ms")} for r in rs]
+        elif len(rs) > 1:
+            entry["cases"] = [{k: r[k] for k in (
+                "shape", "max_abs", "rel", "ms", "plain_ms", "bound_ms",
+                "library_ms", "yardstick_ms") + tuple(
+                    x for x in ("rel_l2_vs_k1", "max_abs_vs_k5") if x in r)}
+                for r in rs]
         kernels.append(entry)
     log(gpu_line())
     log(json.dumps({"kernels": kernels, "requests": report}))

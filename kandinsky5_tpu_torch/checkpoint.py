@@ -9,8 +9,8 @@ weights in torch (Cout, Cin, kT, kH, kW) and Linear weights in (out, in).
 
 ``dit_state_dict_from_jax`` and ``vae_state_dict_from_jax`` run the JAX
 converters in reverse: they take a JAX parameter pytree as numpy arrays and
-return a reference-layout state dict. This is how the tests hand both
-packages the same weights.
+return a reference-layout state dict (a W8A8 DiT tree included). This is
+how the tests hand both packages the same weights.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from kandinsky5_tpu_torch.utils import default_device
 
 _STACKED = ("text_transformer_blocks", "visual_transformer_blocks")
 # VAE modules that are plain Conv3d in the checkpoint (no causal wrapper)
@@ -58,7 +60,7 @@ def dit_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
         else:
             _flatten(sub, key, out)
     for key, arr in out.items():
-        if key.endswith(".weight") and arr.ndim == 2:
+        if key.endswith((".weight", ".weight_i8")) and arr.ndim == 2:
             out[key] = np.ascontiguousarray(arr.T)
     return out
 
@@ -92,7 +94,9 @@ def _lookup(tree, path: str):
 
 def vae_params_from_state_dict(state_dict: Mapping, device=None,
                                dtype=torch.bfloat16) -> dict:
-    """HF HunyuanVideo VAE state dict -> the port's nested VAE params."""
+    """HF HunyuanVideo VAE state dict -> the port's nested VAE params, on
+    ``device`` (the CUDA card when None)."""
+    device = default_device(device)
     tree: dict = {}
     for key, value in state_dict.items():
         t = torch.as_tensor(np.array(value) if not torch.is_tensor(value)
@@ -107,10 +111,18 @@ def vae_params_from_state_dict(state_dict: Mapping, device=None,
 
 def dit_from_state_dict(model: torch.nn.Module, state_dict: Mapping):
     """Load a reference-layout state dict (numpy or torch values) into the
-    port's DiT, casting to its parameter dtype and device."""
-    ref = next(model.parameters())
+    port's DiT, each tensor cast to the dtype and device of the entry it
+    fills. A W8A8 state dict (``weight_i8`` / ``w_scale`` entries, as
+    ``dit_state_dict_from_jax`` gives for a JAX ``quantize_dit_params``
+    tree) loads into ``quantize_dit_params(model)``, which is returned;
+    the tensors it shares with ``model`` are loaded into ``model`` too."""
+    from kandinsky5_tpu_torch.models.dit import is_quantized, quantize_dit_params
+
+    if any(k.endswith(".weight_i8") for k in state_dict) and not is_quantized(model):
+        model = quantize_dit_params(model)
+    own = model.state_dict()
     sd = {k: torch.as_tensor(np.array(v) if not torch.is_tensor(v) else v)
-          .to(device=ref.device, dtype=ref.dtype)
+          .to(device=own[k].device, dtype=own[k].dtype) if k in own else v
           for k, v in state_dict.items()}
     model.load_state_dict(sd, strict=True)
     return model

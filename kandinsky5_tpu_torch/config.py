@@ -2,8 +2,9 @@
 
 Counterpart of ``kandinsky5_tpu/config.py``: the same dataclasses and the
 same YAML loader, copied so that the port never imports the JAX package
-(whose ``__init__`` imports jax). The YAML files themselves are read by
-path from ``kandinsky5_tpu/configs/`` (:data:`CONFIG_DIR`).
+(whose ``__init__`` imports jax). The eight released YAMLs have their own
+copy in ``kandinsky5_tpu_torch/configs/`` (:data:`CONFIG_DIR`); a test
+holds each copy's content equal to the JAX package's file's.
 """
 
 from __future__ import annotations
@@ -16,10 +17,8 @@ from typing import Any, Optional, Tuple
 
 import yaml
 
-# The released YAMLs live beside the JAX package; the port reads them as
-# plain files.
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "kandinsky5_tpu", "configs")
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs")
 
 
 @dataclass(frozen=True)

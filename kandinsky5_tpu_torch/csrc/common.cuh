@@ -31,7 +31,30 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// mma.sync.m16n8k32 s8 x s8 -> s32. Its fragments hold the same BYTES as
+// m16n8k16's above (four int8 where m16n8k16 holds two bf16): A a[0] =
+// (row g, k 4t..4t+3), a[1] = (row g+8, same), a[2]/a[3] = k + 16; B b[0] =
+// (k 4t..4t+3, col g), b[1] = k + 16; C as above, in int32. So one
+// 32-byte-deep step of either product reads a tile stored row-major (A) or
+// (N, K) row-major (B) at the same byte offsets.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 

@@ -14,6 +14,7 @@ blocks and cross-attention stay dense.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple, Optional, Sequence
 
@@ -34,6 +35,7 @@ from kandinsky5_tpu_torch.models.nn import (
     linear,
     modulated_feed_forward,
     modulation,
+    quantize_linear,
     qkv_proj,
     rms_norm,
     rope_1d,
@@ -46,6 +48,7 @@ from kandinsky5_tpu_torch.models.nn import (
 from kandinsky5_tpu_torch.ops.attention import attention
 from kandinsky5_tpu_torch.ops.fractal import fractal_flatten, fractal_unflatten
 from kandinsky5_tpu_torch.ops.nabla import nabla_attention
+from kandinsky5_tpu_torch.utils import default_device
 
 
 class SparseParams(NamedTuple):
@@ -269,9 +272,10 @@ def init_dit_params(cfg: DiTParams, device=None, dtype=torch.bfloat16,
                     seed: int = 0) -> DiffusionTransformer3D:
     """The JAX ``init_dit_params`` scheme: linears uniform in +-1/sqrt(in),
     zero biases, norms at one, modulation weights at ZERO (so every block
-    starts as an identity)."""
+    starts as an identity). ``device=None`` means the CUDA card."""
+    device = default_device(device)
     model = DiffusionTransformer3D(cfg, device=device, dtype=dtype)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear):
             if "modulation" in name:
@@ -291,10 +295,52 @@ def fast_init_dit_params(cfg: DiTParams, device=None, dtype=torch.bfloat16,
                          seed: int = 0, scale: float = 0.02
                          ) -> DiffusionTransformer3D:
     """Every parameter uniform in +-scale from one seeded generator, drawn
-    on ``device`` (the JAX ``fast_init_dit_params`` scheme: modulation is
-    not zero, so every block does work)."""
+    on ``device``, the CUDA card when None (the JAX ``fast_init_dit_params``
+    scheme: modulation is not zero, so every block does work)."""
+    device = default_device(device)
     model = DiffusionTransformer3D(cfg, device=device, dtype=dtype)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     for prm in model.parameters():
         prm.uniform_(-scale, scale, generator=gen)
     return model
+
+
+def _shallow(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` that shares its parameters and buffers but owns
+    its table of submodules, so replacing a child leaves ``module`` as it
+    was."""
+    out = copy.copy(module)
+    out._modules = dict(module._modules)
+    return out
+
+
+@torch.no_grad()
+def quantize_dit_params(model: DiffusionTransformer3D) -> DiffusionTransformer3D:
+    """W8A8 model of the visual blocks' projections, as the JAX
+    ``quantize_dit_params``: the self- and cross-attention Q/K/V/out and
+    the FF in/out layers of every visual block become
+    :class:`~kandinsky5_tpu_torch.models.nn.Int8Linear`. Text blocks, norms,
+    modulations and embeddings stay as they are. Returns a new model that
+    shares every unquantized tensor with ``model``; ``model`` is left
+    unchanged (the JAX function returns a new tree too)."""
+    out = _shallow(model)
+    blocks = _shallow(model.visual_transformer_blocks)
+    for i, blk in enumerate(model.visual_transformer_blocks):
+        nb = _shallow(blk)
+        for attn in ("self_attention", "cross_attention"):
+            a = _shallow(getattr(blk, attn))
+            for proj in ("to_query", "to_key", "to_value", "out_layer"):
+                setattr(a, proj, quantize_linear(getattr(a, proj)))
+            setattr(nb, attn, a)
+        ff = _shallow(blk.feed_forward)
+        ff.in_layer = quantize_linear(ff.in_layer)
+        ff.out_layer = quantize_linear(ff.out_layer)
+        nb.feed_forward = ff
+        blocks[i] = nb
+    out.visual_transformer_blocks = blocks
+    return out
+
+
+def is_quantized(model: DiffusionTransformer3D) -> bool:
+    """Whether ``model`` holds W8A8 projections (:func:`quantize_dit_params`)."""
+    return any(k.endswith("weight_i8") for k, _ in model.named_buffers())

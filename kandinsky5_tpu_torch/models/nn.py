@@ -10,6 +10,10 @@ the JAX package's cast points:
   * LayerNorm, RMSNorm, modulation, the time embedding and RoPE run in
     fp32;
   * q/k are cast back to the activation dtype right after the RMSNorm.
+
+W8A8: :func:`quantize_linear` turns an ``nn.Linear`` into an
+:class:`Int8Linear` (int8 weight per out channel), which :func:`linear`
+runs with per-token int8 activations (``_linear_i8``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from kandinsky5_tpu_torch.ops.ff import fused_ff_modulated
 
@@ -87,6 +92,18 @@ class Attention(nn.Module):
         self.out_layer = nn.Linear(dim, dim, **kw)
 
 
+class Int8Linear(nn.Module):
+    """A W8A8 linear (the JAX ``quantize_linear`` params): ``weight_i8``
+    (out, in) int8, ``w_scale`` (out,) fp32 and the original ``bias``
+    (a Parameter, or None)."""
+
+    def __init__(self, weight_i8, w_scale, bias=None):
+        super().__init__()
+        self.register_buffer("weight_i8", weight_i8)
+        self.register_buffer("w_scale", w_scale)
+        self.bias = bias
+
+
 class FeedForward(nn.Module):
     def __init__(self, dim, ff_dim, device=None, dtype=None):
         super().__init__()
@@ -100,9 +117,52 @@ class FeedForward(nn.Module):
 # Elementary functions
 # ---------------------------------------------------------------------------
 
-def linear(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+@torch.no_grad()
+def quantize_linear(layer: nn.Linear) -> Int8Linear:
+    """``nn.Linear`` -> :class:`Int8Linear`, as the JAX ``quantize_linear``:
+    a symmetric scale per out channel, max(max|w| over the in axis, 1e-6)
+    * (1/127) (a multiply by the reciprocal, as there), w8 = clip(round(w /
+    scale), -127, 127). The bias is shared, not copied."""
+    w = layer.weight.float()
+    s = w.abs().amax(dim=1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+    w8 = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+    return Int8Linear(w8, s[:, 0].contiguous(), layer.bias)
+
+
+def _int8_product(x8, w8):
+    """(M, K) int8 . (N, K)^T int8 -> (M, N) int32, exactly. On the card
+    ``torch._int_mm`` (the JAX package leaves this product to XLA, outside
+    any Pallas kernel), with the rows padded above its minimum of 17; on
+    the CPU an fp64 product, exact since |sum| <= K * 127^2 < 2^53."""
+    if x8.device.type == "cpu":
+        return (x8.double() @ w8.double().T).to(torch.int32)
+    m = x8.shape[0]
+    if m <= 16:
+        x8 = F.pad(x8, (0, 0, 0, 32 - m))
+    return torch._int_mm(x8, w8.t())[:m]
+
+
+def _linear_i8(layer: Int8Linear, x):
+    """W8A8: per-token sx = max(max|x|, 1e-6) * (1/127), x8 = clip(round(x /
+    sx), -127, 127), s32 product, y = float(s32) * sx * w_scale (in that
+    order) + bias, in x.dtype."""
+    with record_function("int8_linear"):
+        xf = x.float()
+        sx = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+        x8 = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+        y = _int8_product(x8.reshape(-1, x.shape[-1]), layer.weight_i8)
+        y = y.reshape(*x.shape[:-1], -1).float() * sx * layer.w_scale
+        if layer.bias is not None:
+            y = y + layer.bias.float()
+        return y.to(x.dtype)
+
+
+def linear(layer, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """y = x W^T (+ b), computed in ``dtype`` (default: the promotion of x
-    and the weight), returned in ``dtype`` or x.dtype."""
+    and the weight), returned in ``dtype`` or x.dtype. An
+    :class:`Int8Linear` runs W8A8 (``dtype`` is not used there)."""
+    if isinstance(layer, Int8Linear):
+        return _linear_i8(layer, x)
     w, b = layer.weight, layer.bias
     ct = dtype or torch.promote_types(x.dtype, w.dtype)
     y = F.linear(x.to(ct), w.to(ct), None if b is None else b.to(ct))
@@ -258,11 +318,14 @@ def feed_forward(p, x):
 
 def modulated_feed_forward(p, x, scale, shift, gate):
     """apply_scale_shift_norm -> feed_forward -> apply_gate_sum as one op.
-    Runs as K2 (``ops/ff.py``) when neither projection has a bias and the
-    modulation is per batch item; K2's own wrapper takes the plain version
-    on the CPU. scale/shift/gate: (B, 1, D)."""
+    Runs as K2 (``ops/ff.py``) when both projections are plain bias-free
+    linears and the modulation is per batch item; K2's own wrapper takes
+    the plain version on the CPU. W8A8 projections (:class:`Int8Linear`)
+    take the unfused chain, as the JAX routing does. scale/shift/gate:
+    (B, 1, D)."""
     b = x.shape[0]
-    if (p.in_layer.bias is None and p.out_layer.bias is None
+    if (isinstance(p.in_layer, nn.Linear) and isinstance(p.out_layer, nn.Linear)
+            and p.in_layer.bias is None and p.out_layer.bias is None
             and scale.shape == (b, 1, x.shape[-1])):
         return fused_ff_modulated(x, scale[:, 0], shift[:, 0],
                                   p.in_layer.weight, p.out_layer.weight,

@@ -32,6 +32,7 @@ from kandinsky5_tpu_torch.ops.conv import (
     conv_kernel_supported,
 )
 from kandinsky5_tpu_torch.ops.flash import flash_attention
+from kandinsky5_tpu_torch.utils import default_device
 
 GROUPNORM_EPS = 1e-6
 SCALING_FACTOR = 0.476986
@@ -250,8 +251,10 @@ def init_vae_params(latent_channels: int = 16, device=None,
                     block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS):
     """Random decoder-side parameters with the checkpoint's layout and the
     JAX ``init_vae_params`` scheme (uniform +-1/sqrt(fan_in) weights, zero
-    biases, unit GroupNorms), drawn on ``device``."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    biases, unit GroupNorms), drawn on ``device``, the CUDA card when
+    None."""
+    device = default_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     rev = list(reversed(block_out_channels))
     kw = dict(device=device, dtype=dtype)
     up_blocks = {}

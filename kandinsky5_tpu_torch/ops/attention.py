@@ -7,8 +7,15 @@ is (B, L, H, D). ``impl``:
     without segment ids, K4 otherwise;
   * "auto": "flash", except short-KV cross-attention (k_len <= 512 and
     q_len >= 4 k_len, e.g. 47,616 visual queries against 256 text keys),
-    which goes dense as in the JAX package. The rule applies to "auto"
-    only: an explicit "flash" is honoured. No environment flag is read.
+    which goes dense as in the JAX package. An explicit "flash" is
+    honoured;
+  * "flash_int8": the int8-QK K5 (``ops.flash.flash_int8``) for every
+    attention but short-KV cross-attention, which runs dense: the name
+    means "int8 where the JAX package uses it", and the JAX dispatch sends
+    short-KV cross-attention dense for every impl but "dense". Text
+    self-attention (q_len == k_len = 256) takes K5;
+  * "flash_int8_pipe": the same routing with K7, K5's pipelined schedule.
+No environment flag is read.
 """
 
 from __future__ import annotations
@@ -41,12 +48,20 @@ def short_kv(q_len: int, k_len: int) -> bool:
     return k_len <= 512 and q_len >= 4 * k_len
 
 
+INT8_IMPLS = ("flash_int8", "flash_int8_pipe")
+
+
 def attention(q, k, v, kv_mask=None, impl: str = "auto"):
     """Single-device dispatch between the flash kernels and dense."""
     if impl == "auto":
         impl = "dense" if short_kv(q.shape[1], k.shape[1]) else "flash"
+    elif impl in INT8_IMPLS and short_kv(q.shape[1], k.shape[1]):
+        impl = "dense"
     if impl == "dense":
         return dense_attention(q, k, v, kv_mask=kv_mask)
     if impl == "flash":
         return flash_attention(q, k, v, kv_mask=kv_mask)
+    if impl in INT8_IMPLS:
+        return flash_attention(q, k, v, kv_mask=kv_mask, qk_int8=True,
+                               pipe=impl == "flash_int8_pipe")
     raise ValueError(f"unknown attention impl {impl!r}")

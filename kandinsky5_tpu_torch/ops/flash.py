@@ -1,10 +1,12 @@
-"""Flash attention: kernels K1 (fixed shift, d = 64) and K4 (online softmax
-with key mask and segment ids), each beside its plain PyTorch version.
+"""Flash attention: kernels K1 (fixed shift, d = 64), K4 (online softmax
+with key mask and segment ids), K5 (int8 QK^T, fixed shift) and K7 (K5's
+lag-1 pipelined schedule), each beside its plain PyTorch version.
 
 Counterpart of ``kandinsky5_tpu/ops/flash_pallas.py``. Layout is the JAX
 public (B, L, H, D) throughout. The wrappers send a CPU tensor to the plain
 version and a CUDA tensor to the kernel (``csrc/flash_fixed.cu``,
-``csrc/flash_online.cu``); on a CUDA tensor they launch or raise.
+``csrc/flash_online.cu``, ``csrc/flash_int8.cu``); on a CUDA tensor they
+launch or raise.
 
 Semantics kept from the TPU kernels:
   * K1: one global shift per call, ``score_bound`` = max|q| max|k| / sqrt(d)
@@ -14,6 +16,10 @@ Semantics kept from the TPU kernels:
   * K4: scale 1/sqrt(d); keys masked by ``kv_mask`` or by monotone segment
     ids (query i sees key j iff q_id[i] >= kv_id[j]) score -1e30; running
     max and sum; p rounds to bf16 before PV.
+  * K5/K7: the ``_pack_int8`` pre-pass (:func:`pack_int8`), then
+    s = float(q8 . k8) * coeff_j - shift, -1e30 for masked keys,
+    p = exp2(s) cast to V's dtype, normalizer = sum of the cast p clamped at
+    1e-30. K7 equals K5 bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from kandinsky5_tpu_torch.ops import _kernels
 
@@ -165,11 +172,154 @@ def flash_online(q, k, v, kv_mask=None, q_ids=None, kv_ids=None):
     return out
 
 
-def flash_attention(q, k, v, kv_mask=None, q_ids=None, kv_ids=None):
+# ---------------------------------------------------------------------------
+# K5 / K7: int8-QK fixed-shift attention (SageAttention-style)
+# ---------------------------------------------------------------------------
+
+# the JAX package's default kv blocks for the int8 path (flash_pallas
+# BLOCK_K, BLOCK_K_I8): its K is zero-padded to a block before quantizing
+_BLOCK_K, _BLOCK_K_I8 = 768, 512
+
+
+def int8_padded_len(lk: int) -> int:
+    """The length ``flash_pallas.flash_attention`` pads K to on its int8
+    path with the default blocks: ``lk`` rounded up to 128 when that is
+    below 768 (lk <= 640), else rounded up to 512. The padded rows count in
+    K's mean and in the shift, so the port reproduces them."""
+    blk = min(_BLOCK_K, -(-lk // 128) * 128)
+    if blk == _BLOCK_K:
+        blk = _BLOCK_K_I8
+    return -(-lk // blk) * blk
+
+
+def _heads_first(x):
+    b, l, h, d = x.shape
+    return x.float().permute(0, 2, 1, 3).reshape(b * h, l, d).contiguous()
+
+
+def pack_int8(q, k):
+    """Quantize Q and K for K5/K7, as ``flash_pallas._pack_int8`` does
+    (an O(L d) plain-PyTorch pre-pass; the JAX package runs it in XLA).
+
+    q (B, Lq, H, d), k (B, Lk, H, d). K is mean-centred per (batch, head)
+    over its keys zero-padded to :func:`int8_padded_len` (so the mean is the
+    sum over real keys divided by the padded length, and the padded rows,
+    exactly -mean, take part in the shift); masked keys count like any
+    other. Q has one scale per (batch, head), K one per key; each scale is
+    max(max|x|, 1e-6) / 127 and x8 = clip(round(x / scale), -127, 127),
+    rounding half to even. Returns
+      q8 (B*H, Lq, d) int8, k8 (B*H, Lk, d) int8 (real keys only);
+      coeff (B*H, Lk) fp32 = sq * sk * log2(e)/sqrt(d), the dequant factor;
+      shift (1,) fp32 = qn * kn * log2(e)/sqrt(d), the log2-domain bound,
+    with qn, kn the largest row norms of Q and of the centred (padded) K
+    over all batches and heads. No host sync."""
+    with record_function("pack_int8"):
+        d = q.shape[-1]
+        lk = k.shape[1]
+        lk_pad = int8_padded_len(lk)
+        scale = LOG2E / math.sqrt(d)
+        qf, kf = _heads_first(q), _heads_first(k)
+        km = kf.sum(1, keepdim=True) / lk_pad
+        kc = kf - km
+        sq = qf.abs().amax((1, 2)).clamp_min(1e-6) / 127.0
+        sk = kc.abs().amax(-1).clamp_min(1e-6) / 127.0
+        q8 = torch.round(qf / sq[:, None, None]).clamp(-127, 127).to(torch.int8)
+        k8 = torch.round(kc / sk[..., None]).clamp(-127, 127).to(torch.int8)
+        kn2 = kc.square().sum(-1).amax()
+        if lk_pad != lk:
+            kn2 = torch.maximum(kn2, km.square().sum(-1).amax())
+        qn = qf.square().sum(-1).amax().sqrt()
+        shift = (qn * kn2.sqrt() * scale).reshape(1)
+        coeff = sq[:, None] * sk * scale
+    return q8, k8, coeff, shift
+
+
+def flash_int8_plain(q8, k8, v, coeff, shift, kv_mask=None):
+    """Plain PyTorch K5/K7 (the two compute one function). q8 (B*H, Lq, d)
+    and k8 (B*H, Lk, d) int8, v (B, Lk, H, d), coeff (B*H, Lk), shift (1,)
+    from :func:`pack_int8`. Scores s = float(q8 . k8) * coeff - shift (the
+    int8 products are exact in fp32: |s32| <= 64 * 127^2 < 2^24); masked
+    keys score -1e30; p = exp2(s) cast to v.dtype; out = p v / max(sum p,
+    1e-30) in v.dtype, the sum over the cast p. Looped over (batch, head,
+    query chunk)."""
+    b, lk, h, d = v.shape
+    lq = q8.shape[1]
+    out = torch.empty((b, lq, h, d), dtype=v.dtype, device=v.device)
+    sh = shift.float()
+    for bi in range(b):
+        for hi in range(h):
+            bh = bi * h + hi
+            kh = k8[bh].float()
+            vh = v[bi, :, hi].float()
+            c = coeff[bh].float()
+            for lo, hi_ in _row_chunks(lq, lk):
+                s = (q8[bh, lo:hi_].float() @ kh.T) * c - sh
+                if kv_mask is not None:
+                    s = torch.where(kv_mask[bi].bool()[None], s,
+                                    torch.full_like(s, _NEG))
+                p = torch.exp2(s).to(v.dtype).float()
+                den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+                out[bi, lo:hi_, hi] = ((p @ vh) / den).to(v.dtype)
+    return out
+
+
+def flash_int8(q, k, v, kv_mask: Optional[torch.Tensor] = None,
+               pipe: bool = False):
+    """K5 (``pipe=False``) or K7 (``pipe=True``) wrapper. q (B, Lq, H, 64),
+    k/v (B, Lk, H, 64) bf16; kv_mask (B, Lk) bool, True where the key is
+    valid. Packs with :func:`pack_int8`, then runs
+    :func:`flash_int8_packed`."""
+    q8, k8, coeff, shift = pack_int8(q, k)
+    return flash_int8_packed(q8, k8, v, coeff, shift, kv_mask, pipe)
+
+
+def flash_int8_packed(q8, k8, v, coeff, shift, kv_mask=None,
+                      pipe: bool = False):
+    """K5/K7 on :func:`pack_int8`'s outputs: the plain version for a CPU
+    tensor, the kernel (K7 with ``pipe``) for a CUDA one, or raise."""
+    if v.device.type == "cpu":
+        return flash_int8_plain(q8, k8, v, coeff, shift, kv_mask)
+    b, lk, h, d = v.shape
+    lq = q8.shape[1]
+    name = "K7" if pipe else "K5"
+    if d != 64 or v.dtype != torch.bfloat16:
+        raise ValueError(f"{name} takes bf16 V and heads of 64, got "
+                         f"{v.dtype} d={d}")
+    if q8.shape != (b * h, lq, d) or k8.shape != (b * h, lk, d) \
+            or coeff.shape != (b * h, lk):
+        raise ValueError(f"{name} shapes: q8 {tuple(q8.shape)} k8 "
+                         f"{tuple(k8.shape)} v {tuple(v.shape)} coeff "
+                         f"{tuple(coeff.shape)}")
+    mask = None
+    if kv_mask is not None:
+        if kv_mask.shape != (b, lk):
+            raise ValueError(f"{name} kv_mask must be (B, Lk), got {kv_mask.shape}")
+        mask = kv_mask.to(torch.uint8).contiguous()
+    _kernels.check_cuda(name, q8=q8, k8=k8, v=v, coeff=coeff, shift=shift,
+                        mask=mask)
+    out = torch.empty((b, lq, h, d), dtype=v.dtype, device=v.device)
+    entry, counter = (("k5_flash_int8_pipe", "K7_flash_int8_pipe") if pipe
+                      else ("k5_flash_int8", "K5_flash_int8"))
+    _kernels.launch(entry, counter, q8.data_ptr(), k8.data_ptr(),
+                    v.data_ptr(), coeff.data_ptr(), _kernels.ptr(mask),
+                    shift.data_ptr(), out.data_ptr(), b, lq, lk, h)
+    return out
+
+
+def flash_attention(q, k, v, kv_mask=None, q_ids=None, kv_ids=None,
+                    qk_int8: bool = False, pipe: bool = False):
     """(B, L, H, D) flash attention, as ``flash_pallas.flash_attention``
     routes it: the fixed-shift K1 for 64-wide heads (d % 128 == 64)
-    without segment ids, otherwise the online K4. The fixed shift is valid
-    only for bounded scores: the DiT's 64-wide heads are QK-RMSNorm'd."""
+    without segment ids, otherwise the online K4. ``qk_int8`` selects the
+    int8-QK K5 (K7 with ``pipe``), which the JAX package builds only in
+    fixed-shift mode: it raises for segment ids or a head not 64 wide. The
+    fixed shift is valid only for bounded scores: the DiT's 64-wide heads
+    are QK-RMSNorm'd."""
+    if qk_int8:
+        if q_ids is not None or q.shape[-1] != 64:
+            raise ValueError("the int8-QK kernels take 64-wide heads without "
+                             f"segment ids, got d={q.shape[-1]}")
+        return flash_int8(q, k, v, kv_mask, pipe)
     if q_ids is None and q.shape[-1] % 128 == 64:
         return flash_fixed(q, k, v, kv_mask)
     return flash_online(q, k, v, kv_mask, q_ids, kv_ids)

@@ -3,10 +3,16 @@
 Counterpart of ``kandinsky5_tpu/pipeline.py``: conditioning from an
 injected text embedder -> Euler flow-matching denoise of the DiT
 (``sampling.py``) -> streaming VAE decode -> uint8 frames -> mp4 / PNG.
-The attention implementation is ``DenoiseSpec.attn_impl`` ("auto": K1 for
-self-attention, dense for the short text cross-attention), not sniffed
-from the backend; a config with ``attention.type: nabla`` (the 10 s
-configs) runs the visual self-attention through NABLA and K6 instead. ``get_T2V_pipeline`` and the Qwen/CLIP text towers wait
+The attention implementation is ``DenoiseSpec.attn_impl``, not sniffed
+from the backend: "auto" (K1 for self-attention, dense for the short text
+cross-attention; the JAX package's default off its accelerator),
+"flash_int8" (K5, the JAX package's single-chip default) or
+"flash_int8_pipe" (K7). ``int8_linear=True`` quantizes the visual blocks'
+projections to W8A8 (``quantize_dit_params``), as the JAX package's
+``KANDINSKY5_TPU_INT8_LINEAR`` does. A config with ``attention.type:
+nabla`` (the 10 s configs) runs the visual self-attention through NABLA
+and K6 whatever the impl; its text blocks then follow the impl.
+``get_T2V_pipeline`` and the Qwen/CLIP text towers wait
 for a later slice; the embedder passed in must offer
 ``encode(texts, type_of_content) -> TextEmbeddings`` (and
 ``expand_prompt`` when ``expand_prompts`` is set).
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from kandinsky5_tpu_torch.config import Config
+from kandinsky5_tpu_torch.models.dit import quantize_dit_params
 from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
 
 DEFAULT_NEGATIVE = (
@@ -29,6 +36,8 @@ DEFAULT_NEGATIVE = (
 )
 
 RESOLUTIONS = {512: [(512, 512), (512, 768), (768, 512)]}
+
+ATTN_IMPLS = ("auto", "flash", "dense", "flash_int8", "flash_int8_pipe")
 
 
 class TextEmbeddings(NamedTuple):
@@ -42,8 +51,12 @@ class TextEmbeddings(NamedTuple):
 
 class Kandinsky5T2VPipeline:
     def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
-                 attn_impl: str = "auto"):
-        self.dit = dit
+                 attn_impl: str = "auto", int8_linear: bool = False):
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{attn_impl!r}")
+        self.dit = quantize_dit_params(dit) if int8_linear else dit
+        self.int8_linear = int8_linear
         self.conf = conf
         self.text_embedder = text_embedder
         self.vae = vae
@@ -73,7 +86,8 @@ class Kandinsky5T2VPipeline:
             dit_params=self.conf.model.dit_params, num_steps=num_steps,
             guidance_weight=guidance_weight, scheduler_scale=scheduler_scale,
             scale_factor=tuple(self.conf.metrics.scale_factor),
-            attn_impl=self.attn_impl, sequential_cfg=nabla,
+            attn_impl=self.attn_impl, int8_linear=self.int8_linear,
+            sequential_cfg=nabla,
             attention_type=att.type, nabla_P=att.P, nabla_wT=att.wT,
             nabla_wH=att.wH, nabla_wW=att.wW)
 

@@ -24,6 +24,7 @@ from kandinsky5_tpu_torch.models.dit import (
     dit_epilogue,
     dit_prologue,
     dit_visual_blocks,
+    is_quantized,
 )
 from kandinsky5_tpu_torch.ops.nabla import sta_mask
 
@@ -44,9 +45,14 @@ class DenoiseSpec:
     guidance_weight: float
     scheduler_scale: float
     scale_factor: Tuple[float, float, float]
-    # "auto" (K1 self-attention, dense short-KV cross-attention), "flash"
-    # or "dense" (ops/attention.py)
+    # "auto" (K1 self-attention, dense short-KV cross-attention), "flash",
+    # "dense", "flash_int8" (K5) or "flash_int8_pipe" (K7)
+    # (ops/attention.py)
     attn_impl: str = "auto"
+    # the visual blocks' projections are W8A8 (models/dit.py
+    # quantize_dit_params): the model denoised must be quantized exactly
+    # when this is set
+    int8_linear: bool = False
     # the CFG pair as two forwards instead of one batch-2 call
     sequential_cfg: bool = False
     # "flash" (dense self-attention) or "nabla" (block-sparse, K6)
@@ -109,6 +115,10 @@ def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
     ``noise`` (B, T, H, W, C) fp32. cond/uncond: {"text_embeds",
     "pooled_embed", "mask"}. ``on_step(i)`` is called after each step."""
     cfg = spec.dit_params
+    if spec.int8_linear != is_quantized(model):
+        raise ValueError(f"spec.int8_linear is {spec.int8_linear} but the "
+                         "model is " + ("" if is_quantized(model) else "not ")
+                         + "W8A8-quantized")
     batch = noise.shape[0]
     pdtype = model.dtype
     use_cfg = spec.use_cfg

@@ -5,15 +5,21 @@ attention) for ``--seconds 1|5``, the 10 s NABLA path
 10``.
 
     python -m kandinsky5_tpu_torch.tools.profile_step [--seconds 1|5|10]
+        [--attn auto|flash_int8|flash_int8_pipe] [--int8-linear] [--dit-only]
 
-For each of the two it prints the unprofiled wall time (host clock around
-a synchronized call, the minimum of a few repeats), the device time that
-``torch.profiler`` records per kernel, grouped into the port's kernels
-K1-K4 and K6, library GEMMs/convs and elementwise passes, and the device's
-idle share. On the NABLA path it also prints the device time under each
-stage of the mask build (the ``nabla_mask.*`` ranges of ``ops/nabla.py``:
-pooled map and softmax, sort, cumsum and scatter, kv lists), whose kernels
-the groups above also count, and the masks' mean kept fraction. The idle
+``--attn`` picks the DiT's attention (K1, K5 or K7 for self-attention) and
+``--int8-linear`` makes its visual projections W8A8; ``--dit-only`` skips
+the decode. For each of the two it prints the unprofiled wall time (host
+clock around a synchronized call, the minimum of a few repeats), the device
+time that ``torch.profiler`` records per kernel, grouped into the port's
+kernels K1-K7, int8 and other library GEMMs/convs and elementwise passes,
+and the device's idle share. It also prints the device time under the
+``record_function`` ranges of the port: each stage of the NABLA mask build
+(``nabla_mask.*`` in ``ops/nabla.py``: pooled map and softmax, sort, cumsum
+and scatter, kv lists), the int8-QK pre-pass (``pack_int8``) and the W8A8
+linears (``int8_linear``: activation quantization, ``torch._int_mm``,
+dequant), whose kernels the groups above also count; and on the NABLA path
+the masks' mean kept fraction. The idle
 share comes from the profiled call's own trace: the time between the
 first device activity's start and the last one's end, less the union of
 the activities' intervals, over that span. The profiler adds host time per
@@ -31,7 +37,11 @@ import time
 import torch
 
 from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
-from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
+from kandinsky5_tpu_torch.models.dit import (
+    dit_forward,
+    fast_init_dit_params,
+    quantize_dit_params,
+)
 from kandinsky5_tpu_torch.models.vae import init_vae_params
 from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
 from kandinsky5_tpu_torch.ops.nabla import record_density
@@ -42,10 +52,14 @@ from kandinsky5_tpu_torch.tools import gpu_line
 # kernel-name substrings -> group (first match wins)
 GROUPS = [
     ("K6 sparse_nabla", ("sparse_nabla_kernel",)),
+    ("K7 flash_int8_pipe", ("flash_int8_pipe_kernel",)),
+    ("K5 flash_int8", ("flash_int8_kernel",)),
     ("K1 flash_fixed", ("flash_fixed_kernel",)),
     ("K2 ff_kernel", ("ff_kernel",)),
     ("K3 conv3d", ("conv3d_kernel",)),
     ("K4 flash_online", ("flash_online_kernel",)),
+    ("int8 GEMM (torch._int_mm of the W8A8 linears)",
+     ("imma", "s8s8", "_s8_", "i8i8", "int8")),
     ("library GEMM/conv (projections, 1x1, conv_in/out, dense cross)",
      ("gemm", "nvjet", "xmma", "cutlass", "sm90", "sm80", "fprop", "cublas")),
     ("sort / scan (NABLA mask: row sort, cumsum, kv-list sort)",
@@ -54,10 +68,16 @@ GROUPS = [
      ("elementwise", "reduce", "copy", "pad", "cat", "index", "softmax",
       "memcpy", "memset", "fill", "scatter")),
 ]
-# profiler ranges (record_function) whose device time is printed apart
-RANGES = "nabla_mask."
-# profiler rows that are host-side API calls or markers, not kernels
-_NOT_KERNELS = ("Command Buffer Full", "cuLaunch", "cuda", "aten::")
+# profiler ranges (record_function name prefix -> what they hold) whose
+# device time is printed apart
+RANGES = {"nabla_mask.": "NABLA mask build",
+          "pack_int8": "int8-QK pre-pass",
+          "int8_linear": "W8A8 linears (quantize x, torch._int_mm, dequant)"}
+# profiler rows that are host-side API calls, markers or the ranges above
+# (a range's row carries the device time of the kernels inside it, which
+# their own rows already count), not kernels
+_NOT_KERNELS = ("Command Buffer Full", "cuLaunch", "cuda", "aten::") \
+    + tuple(RANGES)
 
 
 def busy_and_span(intervals) -> dict:
@@ -153,11 +173,13 @@ def measure(label: str, fn, reps: int) -> None:
         print(f"   {ms:10.1f} ms {100 * ms / total:5.1f}%  x{n:<6d} {name}")
     for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"     top: {ms:9.1f} ms x{n:<5d} {key[:100]}")
-    ranges = range_times(prof, RANGES)
-    if ranges:
+    for prefix, label in RANGES.items():
+        ranges = range_times(prof, prefix)
+        if not ranges:
+            continue
         in_ranges = sum(ms for ms, _ in ranges.values())
-        print(f"   NABLA mask build (device time under the {RANGES}* ranges, "
-              f"counted in the groups above): {in_ranges:.1f} ms, "
+        print(f"   {label} (device time under the {prefix}* ranges, counted "
+              f"in the groups above): {in_ranges:.1f} ms, "
               f"{100 * in_ranges / total:.1f}% of the kernel time")
         for key, (ms, n) in sorted(ranges.items()):
             print(f"     {ms:10.1f} ms x{n:<5d} {key}")
@@ -166,6 +188,10 @@ def measure(label: str, fn, reps: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seconds", type=int, default=5, choices=(1, 5, 10))
+    ap.add_argument("--attn", default="auto",
+                    choices=("auto", "flash_int8", "flash_int8_pipe"))
+    ap.add_argument("--int8-linear", action="store_true")
+    ap.add_argument("--dit-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -189,6 +215,8 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(0)
 
     dit = fast_init_dit_params(cfg, device=dev, seed=0)
+    if args.int8_linear:
+        dit = quantize_dit_params(dit)
     # conditioning at the text towers' widths, a partly padded mask
     text = torch.randn((1, 256, cfg.in_text_dim), generator=g, device=dev)
     pooled = torch.randn((1, cfg.in_text_dim2), generator=g, device=dev)
@@ -197,16 +225,20 @@ def main() -> None:
     step = torch.tensor([500.0], device=dev)
     with record_density() as kept:
         measure(f"one {args.seconds} s DiT forward ({tokens} tokens, "
-                f"{spec.attention_type} attention, {name})",
+                f"{spec.attention_type} attention, attn_impl {args.attn}"
+                f"{', W8A8 projections' if args.int8_linear else ''}, {name})",
                 lambda: dit_forward(dit, x, text, pooled, step, mask,
                                     scale_factor=conf.metrics.scale_factor,
-                                    sparse=sparse),
+                                    attn_impl=args.attn, sparse=sparse),
                 reps=2)
     if kept:
         print(f"   NABLA masks: {len(kept)} built, mean kept fraction "
               f"{float(torch.stack(kept).mean()):.4f}")
     del dit
     torch.cuda.empty_cache()
+    if args.dit_only:
+        print(gpu_line())
+        return
 
     vae = init_vae_params(device=dev, seed=1)
     z = torch.randn((1, t_lat, h_lat, w_lat, 16), generator=g,

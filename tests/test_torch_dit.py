@@ -97,7 +97,8 @@ def test_init_dit_params_follows_jax_scheme():
         np.asarray, jax_init_dit(jax.random.PRNGKey(0), jcfg,
                                  dtype=jnp.float32)))
     sd = {k: v.numpy() for k, v in
-          init_dit_params(pcfg, dtype=torch.float32, seed=0).state_dict().items()}
+          init_dit_params(pcfg, device="cpu", dtype=torch.float32,
+                          seed=0).state_dict().items()}
     assert sorted(sd) == sorted(jsd)
     for key, want in jsd.items():
         got = sd[key]
@@ -123,7 +124,8 @@ def test_sharded_safetensors_load_into_the_dit(tmp_path):
     save_file({k: sd[k] for k in keys[1::2]}, str(tmp_path / "b.safetensors"))
     loaded = load_state_dict_file(str(tmp_path))
     assert sorted(loaded) == keys
-    dst = dit_from_state_dict(init_dit_params(pcfg, dtype=torch.bfloat16),
+    dst = dit_from_state_dict(init_dit_params(pcfg, device="cpu",
+                                              dtype=torch.bfloat16),
                               loaded)
     for k, v in dst.state_dict().items():
         assert v.dtype == torch.bfloat16

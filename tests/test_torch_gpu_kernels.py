@@ -1,6 +1,7 @@
-"""K1-K4 and K6 on the card against their plain PyTorch versions, at small
-shapes (ragged lengths, masks, kv lists) and at the shapes the 5 s distil
-and 10 s NABLA paths give them.
+"""K1-K7, T1 and T5 on the card against their plain PyTorch versions, at
+small shapes (ragged lengths, masks, kv lists) and at the shapes the 5 s
+distil and 10 s NABLA paths give them. K7 must equal K5 bit for bit, and
+T1's int8 instance its exact integer product.
 
 Needs a CUDA device and nvcc; skips without a card. Run on a GPU machine
 with ``pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py`` (the
@@ -27,14 +28,23 @@ from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
 from kandinsky5_tpu_torch.ops.flash import (
     flash_fixed,
     flash_fixed_plain,
+    flash_int8,
+    flash_int8_plain,
     flash_online,
     flash_online_plain,
+    pack_int8,
 )
 from kandinsky5_tpu_torch.ops.nabla import block_mask_to_kv_lists, sta_mask
 from kandinsky5_tpu_torch.ops.sparse import (
     sparse_attention,
     sparse_attention_plain,
 )
+from kandinsky5_tpu_torch.tools.bench_i8_decomp import (
+    MODES,
+    i8_decomp,
+    i8_decomp_plain,
+)
+from kandinsky5_tpu_torch.tools.bench_int8mm import gemm, gemm_plain, operands
 
 pytestmark = pytest.mark.gpu
 
@@ -84,6 +94,68 @@ def test_k1_matches_plain(dev, b, lq, lk, h, masked):
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
     assert _fails_bound(flash_fixed_plain(q * 0, k, v, mask), ref, 3e-2, 1e-2)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,masked", [
+    (2, 300, 300, 3, True), (1, 256, 256, 28, True), (1, 1000, 700, 2, False),
+    (1, 47616, 47616, 28, False)])
+def test_k5_k7_match_plain(dev, b, lq, lk, h, masked):
+    """K5 against its plain version on the same packed inputs (they differ
+    only in exp2's last bits and the order of sums), with the uniform-weight
+    control failing the bound; K7 equal to K5 bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _normed(g, (b, lq, h, 64), dev)
+    k = _normed(g, (b, lk, h, 64), dev)
+    v = torch.randn((b, lk, h, 64), generator=g, device=dev).bfloat16()
+    mask = None
+    if masked:
+        n_valid = torch.tensor([lk * 2 // 3, lk // 5][:b], device=dev)
+        mask = torch.arange(lk, device=dev)[None] < n_valid[:, None]
+    out = flash_int8(q, k, v, mask)
+    pipe = flash_int8(q, k, v, mask, pipe=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pipe)
+    q8, k8, coeff, shift = pack_int8(q, k)
+    ref = flash_int8_plain(q8, k8, v, coeff, shift, mask)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    assert _fails_bound(flash_int8_plain(q8 * 0, k8, v, coeff, shift, mask),
+                        ref, 3e-2, 1e-2)
+
+
+@pytest.mark.parametrize("lq,lk,h", [(200, 150, 3), (47616, 47616, 28)])
+@pytest.mark.parametrize("mode", MODES)
+def test_t5_modes_match_plain(dev, mode, lq, lk, h):
+    """Each of T5's modes against its plain version; the outputs are
+    garbage of any scale, so the bound is relative: rel_l2 1e-2 and
+    max-abs 1e-2 of the output's largest magnitude."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = _normed(g, (1, lq, h, 64), dev)
+    k = _normed(g, (1, lk, h, 64), dev)
+    v = torch.randn((1, lk, h, 64), generator=g, device=dev).bfloat16()
+    q8, k8, coeff, shift = pack_int8(q, k)
+    out = i8_decomp(q8, k8, v, coeff, shift, mode)
+    torch.cuda.synchronize()
+    ref = i8_decomp_plain(q8, k8, v, coeff, shift, mode)
+    max_abs, rel = _err(out, ref)
+    scale = ref.float().abs().max().item()
+    assert rel < 1e-2 and max_abs < 1e-2 * scale, (max_abs, scale, rel)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 320, 384), (8192, 8192, 8192),
+                                   (47616, 1792, 7168)])
+def test_t1_matches_plain(dev, m, k, n):
+    """T1's int8 instance equals the exact integer product; the bf16
+    instance is within fp32 summation order of the fp32 product of the
+    same bf16 values (K2's bound)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    a, b = operands(m, k, n, torch.int8, g, dev)
+    assert torch.equal(gemm(a, b), gemm_plain(a, b))
+    a, b = operands(m, k, n, torch.bfloat16, g, dev)
+    out = gemm(a, b)
+    torch.cuda.synchronize()
+    max_abs, rel = _err(out, gemm_plain(a, b))
+    assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
 
 
 @pytest.mark.parametrize("b,grid,h,extra", [

@@ -54,11 +54,13 @@ def tiny_pipe():
                     in_text_dim2=16, time_dim=32, model_dim=128, ff_dim=256,
                     num_text_blocks=1, num_visual_blocks=2,
                     axes_dims=(16, 24, 24), visual_cond=True)
-    dit = fast_init_dit_params(cfg, dtype=torch.float32, seed=0, scale=0.05)
+    dit = fast_init_dit_params(cfg, device="cpu", dtype=torch.float32, seed=0,
+                               scale=0.05)
     conf = Config(model=ModelConfig(dit_params=cfg, num_steps=2,
                                     guidance_weight=1.0),
                   metrics=MetricsConfig())
-    vae = HunyuanVideoVAE(init_vae_params(dtype=torch.float32, seed=1),
+    vae = HunyuanVideoVAE(init_vae_params(device="cpu", dtype=torch.float32,
+                                          seed=1),
                           dtype=torch.float32)
     return Kandinsky5T2VPipeline(dit, conf, StubEmbedder(32, 16), vae)
 
@@ -168,3 +170,49 @@ def test_nabla_config_rejects_tpu_modes():
         conf, model=dataclasses.replace(conf.model, attention=att))
     with pytest.raises(ValueError, match="faithful"):
         Kandinsky5T2VPipeline(None, conf)._spec(16, 1.0, 5.0)
+
+
+def test_constructors_default_to_the_card(monkeypatch):
+    """The entry points build on the CUDA card unless told otherwise:
+    without one, ``device=None`` raises and names ``device="cpu"``."""
+    from kandinsky5_tpu_torch.checkpoint import vae_params_from_state_dict
+    from kandinsky5_tpu_torch.models.dit import init_dit_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DiTParams(in_visual_dim=4, out_visual_dim=4, in_text_dim=8,
+                    in_text_dim2=8, time_dim=16, model_dim=64, ff_dim=64,
+                    num_text_blocks=1, num_visual_blocks=1,
+                    axes_dims=(16, 24, 24), visual_cond=False)
+    for build in (lambda: fast_init_dit_params(cfg),
+                  lambda: init_dit_params(cfg),
+                  lambda: init_vae_params(),
+                  lambda: vae_params_from_state_dict({})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert next(fast_init_dit_params(cfg, device="cpu").parameters()).is_cuda \
+        is False
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(CONFIG_DIR)))
+def test_port_configs_equal_the_jax_package_files(name):
+    """The port's copy of each released YAML holds what the JAX package's
+    file holds (only the header comment names the port's loader) and
+    parses to the same DiT and sampling settings as the JAX loader gives,
+    so the two cannot drift apart."""
+    import dataclasses
+
+    import yaml
+
+    from kandinsky5_tpu.config import load_config as jax_load_config
+
+    jax_path = os.path.join(REPO, "kandinsky5_tpu", "configs", name)
+    with open(jax_path) as a, open(os.path.join(CONFIG_DIR, name)) as b:
+        assert yaml.safe_load(a) == yaml.safe_load(b)
+    assert len(os.listdir(CONFIG_DIR)) == 8
+    mine, theirs = load_config(os.path.join(CONFIG_DIR, name)), jax_load_config(jax_path)
+    assert dataclasses.asdict(mine.model.dit_params) == \
+        dataclasses.asdict(theirs.model.dit_params)
+    for key in ("num_steps", "guidance_weight"):
+        assert getattr(mine.model, key) == getattr(theirs.model, key)
+    assert mine.model.attention.type == theirs.model.attention.type
+    assert tuple(mine.metrics.scale_factor) == tuple(theirs.metrics.scale_factor)

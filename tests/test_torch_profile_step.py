@@ -6,7 +6,9 @@ import math
 
 import pytest
 
-from kandinsky5_tpu_torch.tools.profile_step import busy_and_span
+from types import SimpleNamespace
+
+from kandinsky5_tpu_torch.tools.profile_step import busy_and_span, device_times
 
 
 @pytest.mark.parametrize("intervals,span,busy,summed", [
@@ -26,3 +28,19 @@ def test_busy_and_span(intervals, span, busy, summed):
 def test_busy_and_span_empty_trace():
     occ = busy_and_span([])
     assert occ["busy"] == 0.0 and math.isnan(occ["idle"])
+
+
+def test_device_times_skips_ranges_and_host_rows():
+    """A record_function range's row carries its kernels' device time
+    again; it must not count as a kernel (it once inflated the kernel
+    total above the traced span)."""
+    def row(key, ms, n=1):
+        return SimpleNamespace(key=key, device_time_total=ms * 1e3, count=n,
+                               device_type=SimpleNamespace(name="CUDA"))
+
+    prof = SimpleNamespace(key_averages=lambda: [
+        row("flash_int8_kernel<0>", 70.0), row("pack_int8", 5.0),
+        row("int8_linear", 30.0, 8), row("nabla_mask.sort", 2.0),
+        row("aten::mm", 9.0), row("void elementwise_kernel", 3.0, 4)])
+    assert device_times(prof) == {"flash_int8_kernel<0>": (70.0, 1),
+                                  "void elementwise_kernel": (3.0, 4)}

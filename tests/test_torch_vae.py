@@ -35,7 +35,8 @@ from ._torch_parity import rand, to_np
 def vae_pair():
     jparams = jax_init_vae(jax.random.PRNGKey(0), dtype=jnp.float32)
     sd = vae_state_dict_from_jax(jax.tree.map(np.asarray, jparams))
-    return jparams, sd, vae_params_from_state_dict(sd, dtype=torch.float32)
+    return jparams, sd, vae_params_from_state_dict(sd, device="cpu",
+                                                    dtype=torch.float32)
 
 
 def test_state_dict_has_checkpoint_layout(vae_pair):
