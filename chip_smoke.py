@@ -9,23 +9,30 @@ Phases, each of which must pass (any failure exits nonzero):
                shared-memory / spill report;
   2. kernels — K1-K7 against their plain PyTorch versions on the card, in
                bf16, at the shapes the 5 s and 10 s paths give them (every
-               decoder conv class for K3, both K3 modes; K6 at the 10 s
-               shape under three masks: STA only, ~15 % and ~35 % kept; K5
-               and K7 at K1's four shapes on one shared pack_int8 call, K7
-               bit-equal to K5, K5's error against K1 printed as the
-               quantization error), the tools kernels T5 (its four modes at
-               the 5 s shape) and T1 (int8 exact, bf16, at 8192^3 and the
-               DiT's projection shapes), with max-abs and relative-L2
-               errors against stated tolerances, CUDA-event times of
-               kernel, plain version and (where one PyTorch call computes
-               the same function) that call, and each case's bound (bytes,
-               or bf16 and int8 operations over the card's peak rates);
+               decoder conv class for K3, plain and time_padded; K3's
+               GroupNorm-fold + SiLU prologue at 128, 256 and 512 channels
+               and with carried prefix planes; K3's W8A8 mode plain and with
+               the prologue over several TPU W tiles, with a control that
+               one scale for the whole tensor fails, and its window-max
+               reduction; K6 at the 10 s shape under three masks: STA only,
+               ~15 % and ~35 % kept; K5 and K7 at K1's four shapes on one
+               shared pack_int8 call, K7 bit-equal to K5, K5's error
+               against K1 printed as the quantization error), the tools
+               kernels T5 (its four modes at the 5 s shape) and T1 (int8
+               exact, bf16, at 8192^3 and the DiT's projection shapes),
+               with max-abs and relative-L2 errors against stated
+               tolerances, CUDA-event times of kernel, plain version and
+               (where one PyTorch call computes the same function) that
+               call, and each case's bound (bytes, or bf16 and int8
+               operations over the card's peak rates);
   3. reference — a cut-depth, full-width DiT (dense; NABLA on a
                (1,4,64,96) latent; int8, i.e. flash_int8 attention and W8A8
                projections, on a (1,2,48,64) latent, launching K5 4 times)
-               and the full-width VAE decode on a small input (its first
-               chunk large enough for K4), on the card (kernels) against
-               the same weights in fp32 on the CPU (plain versions);
+               and the full-width VAE decode on a small input (streaming,
+               its first chunk large enough for K4; and tiled over 2
+               temporal x 2 x 2 spatial tiles, fused, in bf16 and with int8
+               convs), on the card (kernels) against the same weights in
+               fp32 on the CPU (plain versions);
   4. pipeline — ``Kandinsky5T2VPipeline`` with the full 2B DiT (uniform
                +-0.02 weights from a seed), the full VAE decoder and a
                seeded stand-in text embedder, 16 steps per request. The 5 s
@@ -41,9 +48,15 @@ Phases, each of which must pass (any failure exits nonzero):
                K5 exactly (2 + 32) x 16 launches and K1 none; (b)
                "flash_int8_pipe" with W8A8 projections, K7 544, K5 and K1
                none, K2 2 x 16 (the text blocks); each frame PSNR against
-               the bf16 video is printed (random weights: not gated). Each
-               path's launch counts are reset just before it and read just
-               after.
+               the bf16 video is printed (random weights: not gated). Then
+               the decodes: the 5 s path video's latents tiled (2 temporal
+               tiles at 1 s), with int8 convs streamed and tiled (PSNR
+               against the bf16 decode of the same mode, not gated), a
+               17-frame 1024x1024 decode (2 x 2 spatial tiles) and, with
+               ``--seconds 10``, the 241-frame latents tiled with their PSNR
+               against the streaming decode; each with exact K3 (by mode)
+               and K4 launch counts. Each path's launch counts are reset
+               just before it and read just after.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -65,6 +78,15 @@ ROUTE_SOURCES = {
                   "kandinsky5_tpu/ops/ff_pallas.py:69 _ff_mod_kernel"),
     "K3_conv3d": ("kandinsky5_tpu_torch/csrc/conv3d.cu",
                   "kandinsky5_tpu/ops/conv_pallas.py:126 _kernel"),
+    "K3_conv3d_fused": ("kandinsky5_tpu_torch/csrc/conv3d.cu",
+                        "kandinsky5_tpu/ops/conv_pallas.py:126 _kernel "
+                        "(fuse/act, prefix :163-182)"),
+    "K3_conv3d_quant": ("kandinsky5_tpu_torch/csrc/conv3d.cu",
+                        "kandinsky5_tpu/ops/conv_pallas.py:126 _kernel "
+                        "(quant :183-230)"),
+    "K3_quant_windows": ("kandinsky5_tpu_torch/csrc/conv3d.cu",
+                         "kandinsky5_tpu/ops/conv_pallas.py:126 _kernel "
+                         "(quant scale :183-198)"),
     "K4_flash_online": ("kandinsky5_tpu_torch/csrc/flash_online.cu",
                         "kandinsky5_tpu/ops/flash_pallas.py:477 _kernel_online"),
     "K5_flash_int8": ("kandinsky5_tpu_torch/csrc/flash_int8.cu",
@@ -93,8 +115,15 @@ TOOLS = ("T1_gemm_i8", "T1_gemm_bf16", "T5_i8_decomp")
 # exp2's last bits and the order of sums, so K1's bounds hold. T1's int8
 # instance must equal the exact product. T5's outputs are garbage of any
 # scale: its max-abs bound is relative to the plain output's largest value.
+# K3's W8A8 mode and its plain version take the same codes (the prologue and
+# the scales are the same fp32 operations on the card), sum them exactly and
+# dequantize alike: equal, but for codes flipped where a transformed value
+# lies within an ulp of a rounding (``_flips_only``); the window scales must
+# equal their plain version exactly.
 TOL = {"K1_flash_fixed": (3e-2, 1e-2), "K2_ff_mod": (6e-2, 1e-2),
-       "K3_conv3d": (6e-2, 1e-2), "K4_flash_online": (3e-2, 1e-2),
+       "K3_conv3d": (6e-2, 1e-2), "K3_conv3d_fused": (6e-2, 1e-2),
+       "K3_conv3d_quant": (0.0, 0.0), "K3_quant_windows": (0.0, 0.0),
+       "K4_flash_online": (3e-2, 1e-2),
        "K5_flash_int8": (3e-2, 1e-2), "K6_sparse_nabla": (3e-2, 1e-2),
        "K7_flash_int8_pipe": (3e-2, 1e-2), "T1_gemm_i8": (0.0, 0.0),
        "T1_gemm_bf16": (6e-2, 1e-2), "T5_i8_decomp": (1e-2, 1e-2)}
@@ -107,6 +136,7 @@ CONF5 = "config_5s_distil.yaml"
 CONF10 = "config_10s_distil.yaml"
 # the case of each kernel that its JSON entry reports
 HEADLINE = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": -1,
+            "K3_conv3d_fused": 0, "K3_conv3d_quant": 1, "K3_quant_windows": 0,
             "K4_flash_online": 0, "K5_flash_int8": 0, "K6_sparse_nabla": 1,
             "K7_flash_int8_pipe": 0, "T1_gemm_i8": 0, "T1_gemm_bf16": 0,
             "T5_i8_decomp": 0}
@@ -159,12 +189,14 @@ def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
 
 
 def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
-             control_fn=None, library_fn=None, info=None, yardstick_fn=None):
+             control_fn=None, library_fn=None, info=None, yardstick_fn=None,
+             check=None):
     """Check ``kernel_fn`` against ``plain_fn`` and time both (and
     ``library_fn``, one PyTorch call computing the same function, if
     given; ``yardstick_fn``, a call that computes a different function,
     is timed and labelled as such). ``work`` = (bf16 flops, bytes[, int8
-    ops]) of the call for its bound."""
+    ops]) of the call for its bound. ``check(out, ref)`` -> bool replaces
+    the tolerance test (the control must fail it too)."""
     import torch
 
     out = kernel_fn()
@@ -173,7 +205,9 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     torch.cuda.synchronize()
     max_abs, rel = _errors(out, ref)
     atol, rtol = TOL[name]
-    if name == "T1_gemm_i8":
+    if check is not None:
+        ok = check(out, ref)
+    elif name in ("T1_gemm_i8", "K3_quant_windows"):
         ok = bool(torch.equal(out, ref))
     else:
         if name == "T5_i8_decomp":
@@ -182,10 +216,17 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
         ok = max_abs <= atol and rel <= rtol
     note = ""
     if control_fn is not None:
-        c_abs, c_rel = _errors(control_fn(), ref)
-        control_fails = not (c_abs <= atol and c_rel <= rtol)
-        note = (f" control (uniform weights): max_abs {c_abs:.3e} rel_l2 "
+        control = control_fn()
+        c_abs, c_rel = _errors(control, ref)
+        if check is not None:
+            control_fails = not check(out, control)
+            label = "one scale for the whole tensor"
+        else:
+            control_fails = not (c_abs <= atol and c_rel <= rtol)
+            label = "uniform weights"
+        note = (f" control ({label}): max_abs {c_abs:.3e} rel_l2 "
                 f"{c_rel:.3e} {'fails the bound' if control_fails else 'PASSES'}")
+        del control
         ok = ok and control_fails
     del out, ref
     ms = _time_ms(kernel_fn, reps)
@@ -202,7 +243,9 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     if yard_ms is not None:
         lib_note += (f" yardstick {yard_ms:.3f} ms (bf16 SDPA: not the same "
                      "function)")
-    tol_note = "exact" if name == "T1_gemm_i8" else f"tol {atol:.3g}"
+    tol_note = ("flips only" if check is not None else "exact"
+                if name in ("T1_gemm_i8", "K3_quant_windows")
+                else f"tol {atol:.3g}")
     log(f"  {name} {shape}: max_abs {max_abs:.3e} ({tol_note}) rel_l2 "
         f"{rel:.3e} (tol {rtol}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
         f"{lib_note} bound {b_ms:.3f} ms ({b_by}){note} "
@@ -311,6 +354,8 @@ def phase_kernels(dev, results):
                      reps=2, library_fn=lambda: F.conv3d(xp, wt, bias))
             del x, xp
 
+    phase_k3_modes(dev, g, results)
+
     # K4: the streaming mid attention's first full chunk: 4 frames of
     # 64x96 latents against 4 carried + 4 chunk frames, ids and buffer mask.
     # Unit q and k give scores of standard deviation 1 (spread over several
@@ -342,6 +387,118 @@ def phase_kernels(dev, results):
     bad = [(n, r["shape"]) for n, rs in results.items() for r in rs if not r["ok"]]
     if bad:
         raise Failure(f"kernels outside tolerance: {bad}")
+
+
+def _flips_only(x, wt, flips: int = 8):
+    """The check of K3's W8A8 mode against its plain version (see TOL):
+    equal outputs except for at most ``flips`` flipped codes, each moving
+    the outputs of its 3x3x3 neighbourhood (27 voxels x Cout) by at most
+    one step, s * max|w| <= max|x| / 127 * max|w|; ``x`` is the conv's
+    transformed input."""
+    step = float(x.float().abs().max()) / 127.0 * float(wt.float().abs().max())
+
+    def check(out, ref):
+        d = (out.float() - ref.float()).abs()
+        return (int((d > 0).sum()) <= flips * 27 * out.shape[-1]
+                and float(d.max()) <= 2 * step)
+    return check
+
+
+def phase_k3_modes(dev, g, results):
+    """K3's other modes at the decoder's classes for a 17-frame 512x768
+    tile (latents 5 x 64 x 96): the GroupNorm-fold + SiLU prologue at
+    128->128 (17x512x768), 256->256 (9x256x384) and 512->512 (5x128x192),
+    and with two prefix planes at the streaming chunk's shape (128->128, 12
+    + 2 frames, time_padded); W8A8 plain at 256->256 (9x256x384, four W
+    tiles of 96) and with the prologue at 128->128 (17x512x768, four W
+    tiles of 192), the latter with a control that one scale for the whole
+    tensor fails; the window-max reduction alone at that shape. The
+    library call is cuDNN's conv3d on an input transformed and padded
+    beforehand; no PyTorch call is an int8 conv3d or a window max."""
+    import torch
+    import torch.nn.functional as F
+
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    def inputs(cin, cout, t, hh, ww):
+        x = torch.randn((1, t, hh, ww, cin), generator=g, device=dev).bfloat16()
+        wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
+              / math.sqrt(27 * cin)).bfloat16()
+        bias = torch.randn((cout,), generator=g, device=dev).bfloat16()
+        sc = 1 + 0.2 * torch.randn((cin,), generator=g, device=dev)
+        sh = 0.1 * torch.randn((cin,), generator=g, device=dev)
+        return x, wt, bias, sc, sh
+
+    def cudnn(x, wt, bias, tp, sc, sh, prefix=0):
+        xt = conv_mod.conv_prologue(x, sc, sh, True, prefix)
+        xp = F.pad(xt.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 0 if tp else 2, 0),
+                   mode="replicate")
+        xp = xp.contiguous(memory_format=torch.channels_last_3d)
+        return lambda: F.conv3d(xp, wt, bias)
+
+    for cin, cout, t, hh, ww, tp in ((128, 128, 17, 512, 768, False),
+                                     (256, 256, 9, 256, 384, False),
+                                     (512, 512, 5, 128, 192, False),
+                                     (128, 128, 14, 512, 768, True)):
+        x, wt, bias, sc, sh = inputs(cin, cout, t, hh, ww)
+        kw = dict(time_padded=tp, scale=sc, shift=sh, act=True,
+                  prefix_planes=2 if tp else 0)
+        t_out = t - 2 if tp else t
+        _compare("K3_conv3d_fused",
+                 f"{cin}->{cout} {t_out}x{hh}x{ww}"
+                 f"{' time_padded prefix 2' if tp else ''}",
+                 lambda: conv_mod.causal_conv3d_fused(x, wt, bias, **kw),
+                 lambda: conv_mod.conv3d_plain(x, wt, bias, **kw), results,
+                 work=(2.0 * 27 * t_out * hh * ww * cin * cout,
+                       _nbytes(x, wt, bias, sc, sh) + 2 * t_out * hh * ww * cout),
+                 reps=2, library_fn=cudnn(x, wt, bias, tp, sc, sh, kw["prefix_planes"]))
+        del x
+
+    real_scales = conv_mod.window_scales
+
+    def one_scale(*args):
+        s, _ = real_scales(*args)
+        top = s.max()
+        return torch.full_like(s, top), torch.full_like(s, 1.0) / top
+
+    for cin, cout, t, hh, ww, fuse in ((256, 256, 9, 256, 384, False),
+                                       (128, 128, 17, 512, 768, True)):
+        x, wt, bias, sc, sh = inputs(cin, cout, t, hh, ww)
+        # windows of different scales: the magnitude grows along W
+        x = (x.float() * (1 + torch.arange(ww, device=dev)[:, None] / ww)).bfloat16()
+        kw = dict(quant=True)
+        if fuse:
+            kw.update(scale=sc, shift=sh, act=True)
+        xt = conv_mod.conv_prologue(x, sc, sh) if fuse else x
+        bw = conv_mod.quant_tile_width(ww, cin, cout)
+        w8, _ = conv_mod.quantized_weight(wt)
+
+        def control():
+            conv_mod.window_scales = one_scale
+            try:
+                return conv_mod.conv3d_plain(x, wt, bias, **kw)
+            finally:
+                conv_mod.window_scales = real_scales
+
+        ops = 2.0 * 27 * t * hh * ww * cin * cout
+        _compare("K3_conv3d_quant",
+                 f"{cin}->{cout} {t}x{hh}x{ww} bw {bw}"
+                 f"{' with the prologue' if fuse else ''}",
+                 lambda: conv_mod.causal_conv3d_fused(x, wt, bias, **kw),
+                 lambda: conv_mod.conv3d_plain(x, wt, bias, **kw), results,
+                 work=(0.0, _nbytes(x, w8, bias) + 2 * t * hh * ww * cout, ops),
+                 reps=2, check=_flips_only(xt, wt),
+                 control_fn=control if fuse else None,
+                 info=dict(windows=t * (hh // 8) * (ww // bw)))
+        if fuse:
+            _compare("K3_quant_windows", f"{cin} ch {t}x{hh}x{ww} bw {bw} "
+                     "with the prologue",
+                     lambda: torch.stack(conv_mod.quant_window_scales(
+                         x, bw, False, sc, sh, True)),
+                     lambda: torch.stack(conv_mod.window_scales(xt, bw, False)),
+                     results, work=(0.0, _nbytes(x, sc, sh)
+                                    + 8 * t * (hh // 8) * (ww // bw)), reps=5)
+        del x, xt
 
 
 def _flex_attention(q, k, v, mask):
@@ -603,7 +760,7 @@ def phase_reference(dev, conf):
         fast_init_dit_params,
         quantize_dit_params,
     )
-    from kandinsky5_tpu_torch.models.vae import init_vae_params
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
     from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
     from kandinsky5_tpu_torch.ops import _kernels
     from kandinsky5_tpu_torch.ops.nabla import record_density, sta_mask
@@ -673,21 +830,182 @@ def phase_reference(dev, conf):
     e_vae = _rel(out_v, ref_v)
     log(f"  VAE stream decode (1,5,16,32,16) -> {tuple(out_v.shape)}: rel_l2 "
         f"{e_vae:.3e} (tol 5e-2), kernel launches {launched_v}")
+    # the same decode through the VAE with GroupNorm + SiLU folded into K3
+    # (fuse_gn): its second chunk's convs carry two prefix planes; in fp32
+    # the fused and unfused streams agree to 2e-4, so the CPU reference is
+    # the unfused one
+    _kernels.reset_launches()
+    out_f = HunyuanVideoVAE(vp, fuse_gn=True).decode(z.to(dev).bfloat16(),
+                                                     mode="stream")
+    launched_f = dict(_kernels.LAUNCHES)
+    e_fused = _rel(out_f, ref_v)
+    log(f"  VAE stream decode, fuse_gn=True, (1,5,16,32,16): rel_l2 "
+        f"{e_fused:.3e} (tol 5e-2), kernel launches {launched_f}")
+    tiled = phase_tiled_reference(dev, vp, to_cpu(vp), g)
     if not (e_dit < 5e-2 and e_nabla < 5e-2 and e_int8 < 5e-2
-            and e_vae < 5e-2):
+            and e_vae < 5e-2 and e_fused < 5e-2):
         raise Failure(f"path disagrees with its CPU reference: DiT {e_dit}, "
-                      f"NABLA DiT {e_nabla}, int8 DiT {e_int8}, VAE {e_vae}")
+                      f"NABLA DiT {e_nabla}, int8 DiT {e_int8}, VAE {e_vae}, "
+                      f"fused stream VAE {e_fused}")
     if min(launched["K1_flash_fixed"], launched["K2_ff_mod"],
-           launched_v["K3_conv3d"], launched_v["K4_flash_online"]) == 0:
+           launched_v["K3_conv3d"], launched_v["K4_flash_online"],
+           launched_f["K3_conv3d_fused"]) == 0:
         raise Failure("the reference run missed a kernel: DiT "
-                      f"{launched}, VAE {launched_v}")
+                      f"{launched}, VAE {launched_v}, fused VAE {launched_f}")
     if launched_n["K6_sparse_nabla"] != 2:
         raise Failure(f"the NABLA DiT launched K6 {launched_n} times, not 2")
     if launched_i["K5_flash_int8"] != 4 or launched_i["K1_flash_fixed"] != 0:
         raise Failure(f"the int8 DiT launched {launched_i}: K5 must launch 4 "
                       "times and K1 never")
     return {"dit_rel_l2": e_dit, "nabla_dit_rel_l2": e_nabla,
-            "int8_dit_rel_l2": e_int8, "vae_rel_l2": e_vae}
+            "int8_dit_rel_l2": e_int8, "vae_rel_l2": e_vae,
+            "vae_fused_stream_rel_l2": e_fused, **tiled}
+
+
+# the tiled reference: tiles of 3 latent frames (9 px frames, stride 4) and
+# 8 x 16 latents (64 x 128 px, strides 32 and 64 px) over a (3, 12, 24)
+# latent: 2 temporal x 2 x 2 spatial tiles, blends on every axis
+TILED_REF = ((1, 3, 12, 24, 16), (9, 64, 128), (4, 32, 64))
+
+
+def phase_tiled_reference(dev, vp, vp_cpu, g):
+    """The tiled decode at tile settings that force two temporal and 2 x 2
+    spatial tiles (``TILED_REF``; every level but the first, 16 px wide, is
+    one the TPU kernel admits, so the fused and W8A8 modes run there).
+
+    bf16 (GroupNorm folded into K3, the tiled default): the card against
+    the same weights in fp32 through the plain versions on the CPU, rel_l2
+    5e-2 as the stream decode.
+
+    int8 convs: held conv by conv. Every K3 call of the card's decode is
+    compared, on its own input, with its plain version on the card: W8A8
+    calls equal up to a few flipped codes (``_flips_only``, as in phase 2),
+    the others within K3's tolerance. Two controls must fail that check:
+    the same decode with one scale for the whole tensor in every W8A8 call
+    (each window-max result replaced by its largest scale), and with the
+    quantization off (the bf16 kernel held against the W8A8 plain version).
+    No whole-decode bound: rounding flips compound through GroupNorm's
+    statistics, so the int8 decode does not stay near any reference that
+    computes in another order. On an H100 a one-ulp change at 0.1 % of the
+    latents moved the card's own int8 decode 1.1e-1 (rel_l2) from itself,
+    further than the bf16 decode lies from it (8.6e-2); both readings are
+    logged."""
+    import torch
+
+    from kandinsky5_tpu_torch.models import vae as vae_mod
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    shape, tile, stride = TILED_REF
+    z = torch.randn(shape, generator=g)
+    zd = z.to(dev).bfloat16()
+
+    def vae(params, **kw):
+        v = HunyuanVideoVAE(params, **kw)
+        v._apply_tiling(tile, stride)
+        return v
+
+    _kernels.reset_launches()
+    out_bf16 = vae(vp).decode(zd, opt_tiling=False, mode="tiled")
+    launched = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    ref = vae(vp_cpu, dtype=torch.float32).decode(z, opt_tiling=False,
+                                                  mode="tiled")
+    e_bf16 = _rel(out_bf16, ref)
+    ok_bf16 = e_bf16 < 5e-2 and launched.get("K3_conv3d_fused", 0) > 0
+    log(f"  VAE tiled decode bf16 {shape} tiles {tile} stride {stride} -> "
+        f"{tuple(out_bf16.shape)}: rel_l2 {e_bf16:.3e} (tol 5e-2), kernel "
+        f"launches {launched}")
+
+    real_conv, real_scales = vae_mod.causal_conv3d_fused, \
+        conv_mod.quant_window_scales
+    atol, rtol = TOL["K3_conv3d_fused"]
+
+    def one_scale(*args):
+        s, _ = real_scales(*args)
+        top = s.max()
+        return torch.full_like(s, top), torch.full_like(s, 1.0) / top
+
+    def held(run, quant_off=False):
+        """``run()`` with every K3 call of the VAE held against its plain
+        version on the same input; returns (run's result, [(W8A8?, rel_l2,
+        within the check?)])."""
+        calls = []
+
+        def conv(x, w, b, *args, **kw):
+            quant = kw.get("quant", False)
+            y = real_conv(x, w, b, *args, **dict(kw, quant=quant and not
+                                                  quant_off))
+            want = conv_mod.conv3d_plain(x, w, b, *args, **kw)
+            max_abs, rel = _errors(y, want)
+            if quant:
+                xt = x if kw.get("scale") is None else conv_mod.conv_prologue(
+                    x, kw["scale"], kw["shift"], kw.get("act", False))
+                ok = _flips_only(xt, w)(y, want)
+            else:
+                ok = max_abs <= atol and rel <= rtol
+            calls.append((quant, rel, ok))
+            return y
+
+        vae_mod.causal_conv3d_fused = conv
+        try:
+            return run(), calls
+        finally:
+            vae_mod.causal_conv3d_fused = real_conv
+            conv_mod.quant_window_scales = real_scales
+
+    v8 = vae(vp, int8_conv=True)
+    _kernels.reset_launches()
+    out_i8, calls = held(lambda: v8.decode(zd, opt_tiling=False, mode="tiled"))
+    launched_i8 = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+
+    def one_scale_run():
+        conv_mod.quant_window_scales = one_scale
+        return v8.decode(zd, opt_tiling=False, mode="tiled")
+
+    _, calls_one = held(one_scale_run)
+    _, calls_off = held(lambda: v8.decode(zd, opt_tiling=False, mode="tiled"),
+                        quant_off=True)
+
+    def summary(cs):
+        q = [(rel, ok) for quant, rel, ok in cs if quant]
+        return (len(q), sum(not ok for _, ok in q), max(r for r, _ in q),
+                all(ok for _, _, ok in cs))
+
+    n_q, bad, worst, ok_i8 = summary(calls)
+    _, bad_one, worst_one, ok_one = summary(calls_one)
+    _, bad_off, worst_off, ok_off = summary(calls_off)
+    ok_i8 = ok_i8 and all(launched_i8.get(k) for k in ("K3_conv3d_quant",
+                                                        "K3_quant_windows"))
+    # the readings that rule out a whole-decode bound
+    gp = torch.Generator().manual_seed(17)
+    nudge = torch.rand(shape, generator=gp) < 1e-3
+    zp = torch.where(nudge.to(dev), (zd.float() * (1 + 2 ** -7)).bfloat16(), zd)
+    out_p = v8.decode(zp, opt_tiling=False, mode="tiled")
+    e_nudge, e_vs_bf16 = _rel(out_p, out_i8), _rel(out_bf16, out_i8)
+    log(f"  VAE tiled decode int8, conv by conv on the card: {len(calls)} K3 "
+        f"calls, {n_q} W8A8, {bad} outside the check (flips only), worst "
+        f"W8A8 rel_l2 {worst:.3e}; kernel launches {launched_i8}")
+    log(f"  controls that must fail it: one scale for the whole tensor "
+        f"{bad_one} of {n_q} W8A8 calls outside, worst rel_l2 "
+        f"{worst_one:.3e} {'fails' if not ok_one else 'PASSES'}; "
+        f"quantization off {bad_off} of {n_q} outside, worst rel_l2 "
+        f"{worst_off:.3e} {'fails' if not ok_off else 'PASSES'}")
+    log(f"  int8 decode against itself from latents nudged one bf16 ulp at "
+        f"0.1 % of entries: rel_l2 {e_nudge:.3e}; against the bf16 decode: "
+        f"{e_vs_bf16:.3e} (recorded, not gated)")
+    if not (ok_bf16 and ok_i8) or ok_one or ok_off:
+        raise Failure(
+            f"tiled decode: bf16 rel_l2 {e_bf16} launches {launched}; int8 "
+            f"{bad} of {n_q} W8A8 calls outside the check, launches "
+            f"{launched_i8}; controls pass: one scale {ok_one}, "
+            f"quantization off {ok_off}")
+    return {"vae_tiled_bf16_rel_l2": e_bf16, "vae_tiled_int8_w8a8_calls": n_q,
+            "vae_tiled_int8_worst_rel_l2": worst,
+            "vae_tiled_int8_one_scale_worst_rel_l2": worst_one,
+            "vae_tiled_int8_quant_off_worst_rel_l2": worst_off,
+            "vae_tiled_int8_nudged_rel_l2": e_nudge,
+            "vae_tiled_int8_vs_bf16_rel_l2": e_vs_bf16}
 
 
 # ---------------------------------------------------------------------------
@@ -783,6 +1101,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     log(f"  5 s path ({os.path.basename(CONF5)}: {conf5.model.num_steps} "
         f"steps, guidance {conf5.model.guidance_weight}, dense attention)")
     pipe5 = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae)
+    latents = _keep_latents(pipe5, "5s")
     _kernels.reset_launches()
     bf16_video = _video("5s-path", seconds5, VIDEO_PROMPT)
     report, videos = _answer(
@@ -801,8 +1120,11 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
         f"P {m10.attention.P} window ({m10.attention.wT}, {m10.attention.wH},"
         f" {m10.attention.wW}))")
     pipe10 = Kandinsky5T2VPipeline(dit, conf10, SeededEmbedder(), vae)
+    _keep_latents(pipe10, "10s", latents)
     _kernels.reset_launches()
-    report += _answer(pipe10, [_video("10s-path", seconds10)], out_dir)[0]
+    video10 = _video("10s-path", seconds10)
+    rep10, videos10 = _answer(pipe10, [video10], out_dir)
+    report += rep10
     launches10 = dict(_kernels.LAUNCHES)
     log(f"  kernel launches on the 10 s path: {launches10}")
     cfg = m10.dit_params
@@ -847,7 +1169,172 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
             raise Failure(f"the 5 s int8 path ({tag}) launched (got, want) "
                           f"{wrong}, never launched {missing}")
         del pipe, vids
-    return launches, report
+    torch.cuda.empty_cache()
+    log("  decodes of the requests' latents: tiled, int8 convs (stream and "
+        "tiled), 1024 x 1024")
+    rep, dec_launches = phase_decodes(
+        dev, conf5, vae, latents, videos[bf16_video[0]],
+        videos10[video10[0]] if seconds10 == 10 else None)
+    return {**launches, **dec_launches}, report + rep
+
+
+def _keep_latents(pipe, key, store=None):
+    """Make ``pipe`` keep the latents of its last decode in ``store[key]``
+    (the video request's, as it comes last)."""
+    store = {} if store is None else store
+    real = pipe.decode_latents
+
+    def decode_latents(lat, mode=None):
+        store[key] = lat
+        return real(lat, mode)
+
+    pipe.decode_latents = decode_latents
+    return store
+
+
+def expected_decode_launches(vae, shape, mode: str, int8: bool) -> dict:
+    """K3's launches by mode and K4's in one ``vae.decode(z, mode=mode)``
+    of latents ``shape``, counted from the decoder's structure: the tiles
+    (or streaming chunks) the reference's tables give, and per tile each
+    3x3x3 conv of 128-512 channels (14 resnets of two GroupNorm convs and
+    three upsampler convs) routed by the TPU kernel's admission rule; K4
+    once per tile or chunk of at least 2048 latent voxels."""
+    import torch
+
+    from kandinsky5_tpu_torch.models.vae import (
+        BLOCK_OUT_CHANNELS,
+        FLASH_MIN_TOKENS,
+        LAYERS_PER_BLOCK,
+        _up_plan,
+    )
+    from kandinsky5_tpu_torch.ops.conv import tpu_kernel_admits
+
+    _, tf, hl, wl, _ = shape
+    (ft, ht, wt), (fs, hs, ws) = vae._optimal_tiling(4 * (tf - 1) + 1,
+                                                     8 * hl, 8 * wl)
+    stream = mode == "stream" and not (wl > ws // 8 or hl > ht // 8)
+    fuse = (not stream) if vae.fuse_gn is None else vae.fuse_gn
+    if stream:
+        n0 = min(tf, 4)
+        frames = [n0] + [min(3, tf - i) for i in range(n0, tf, 3)]
+        tiles = [(hl, wl)]
+    else:
+        t_lat = (ft - 1) // 4
+        frames = ([len(range(tf)[i:i + t_lat + 1])
+                   for i in range(0, tf - t_lat + 1, fs // 4)]
+                  if tf > t_lat + 1 else [tf])
+        if wl > ws // 8 or hl > ht // 8:
+            tiles = [(ht // 8, wt // 8)] * (
+                len(range(0, hl - ht // 8 + 1, hs // 8))
+                * len(range(0, wl - wt // 8 + 1, ws // 8)))
+        else:
+            tiles = [(hl, wl)]
+    per_tile = dict.fromkeys(("K3_conv3d", "K3_conv3d_fused",
+                              "K3_conv3d_quant", "K3_quant_windows"), 0)
+
+    def conv(cin, cout, h, w, gn):
+        admitted = tpu_kernel_admits(
+            torch.empty((1, 1, h, w, cin), device="meta"),
+            torch.empty((cout, cin, 3, 3, 3), device="meta"))
+        if int8 and admitted:
+            per_tile["K3_conv3d_quant"] += 1
+            per_tile["K3_quant_windows"] += 1
+        elif gn and fuse and admitted:
+            per_tile["K3_conv3d_fused"] += 1
+        else:
+            per_tile["K3_conv3d"] += 1
+
+    def count(h, w):
+        for k in per_tile:
+            per_tile[k] = 0
+        rev = list(reversed(BLOCK_OUT_CHANNELS))
+        for _ in range(2 * 2):  # the mid block's two resnets
+            conv(rev[0], rev[0], h, w, True)
+        c_in = rev[0]
+        for i, (add_s, _) in enumerate(_up_plan()):
+            for j in range(LAYERS_PER_BLOCK + 1):
+                conv(c_in if j == 0 else rev[i], rev[i], h, w, True)
+                conv(rev[i], rev[i], h, w, True)
+            c_in = rev[i]
+            if add_s:
+                h, w = 2 * h, 2 * w
+                conv(rev[i], rev[i], h, w, False)
+        return dict(per_tile)
+
+    total = dict.fromkeys(list(per_tile) + ["K4_flash_online"], 0)
+    for h, w in tiles:
+        n = count(h, w)
+        for t in frames:
+            for k, v in n.items():
+                total[k] += v
+            total["K4_flash_online"] += t * h * w >= FLASH_MIN_TOKENS
+    return total
+
+
+def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
+    """The decodes beside the streaming default, each with its launch
+    counts reset just before and held against ``expected_decode_launches``
+    just after: the 5 s path video's latents (1 s, or 5 s with ``--seconds
+    5``) decoded tiled, then with int8 convs streamed and tiled (frame PSNR
+    against the bf16 decode of the same mode, recorded, not gated); a
+    17-frame 1024 x 1024 decode through the pipeline's default decode,
+    which tiles it 2 x 2 (``OPT_SPATIAL_TILING[1024]``); with ``--seconds
+    10`` the 241-frame video's latents tiled, and its PSNR against the
+    streaming decode the request made."""
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    pipe = Kandinsky5T2VPipeline(None, conf5, None, vae)
+    pipe_i8 = Kandinsky5T2VPipeline(None, conf5, None, vae, int8_conv=True)
+    g = torch.Generator(device=dev).manual_seed(11)
+    big = torch.randn((1, 5, 128, 128, 16), generator=g, device=dev).bfloat16()
+    cases = [("tiled", pipe, latents["5s"], "tiled", frames5, "stream bf16"),
+             ("int8-stream", pipe_i8, latents["5s"], "stream", frames5,
+              "stream bf16"),
+             ("int8-tiled", pipe_i8, latents["5s"], "tiled", "tiled",
+              "tiled bf16"),
+             ("1024x1024", pipe, big, None, None, None)]
+    if frames10 is not None:
+        cases.append(("10s-tiled", pipe, latents["10s"], "tiled", frames10,
+                      "stream bf16"))
+    report, launches, decoded = [], {}, {}
+    for name, p, lat, mode, against, against_name in cases:
+        want = expected_decode_launches(p.vae, tuple(lat.shape),
+                                        mode or p.decode_mode, p.int8_conv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t = time.perf_counter()
+        frames = p.decode_latents(lat, mode)
+        wall = time.perf_counter() - t
+        got = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        decoded[name] = frames
+        tf, hl, wl = lat.shape[1:4]
+        shape = (1, 4 * (tf - 1) + 1, 8 * hl, 8 * wl, 3)
+        line = dict(request=f"decode {name}", decode_s=wall, peak_gib=peak,
+                    frames=list(frames.shape))
+        if isinstance(against, str):
+            against = decoded[against]
+        if against is not None:
+            line["psnr_db"] = psnr(frames, against)
+            line["psnr_against"] = against_name
+        wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        log(f"  decode {name} {tuple(lat.shape)} -> {frames.shape}: "
+            f"{wall:.3f} s, peak {peak:.2f} GiB, launches "
+            f"{ {k: got[k] for k in want} }"
+            + (f", PSNR against the {against_name} decode "
+               f"{line['psnr_db']:.2f} dB" if against is not None else ""))
+        if wrong or frames.shape != shape or frames.dtype != np.uint8 \
+                or float(frames.std()) == 0.0:
+            raise Failure(f"decode {name}: launches (got, want) {wrong}, "
+                          f"frames {frames.shape} {frames.dtype}")
+        launches[f"decode-{name}"] = got
+        report.append(line)
+    return report, launches
 
 
 def main() -> int:

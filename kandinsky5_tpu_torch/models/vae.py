@@ -6,22 +6,28 @@ a nested dict keyed like the HF checkpoint (``checkpoint.
 vae_params_from_state_dict``): Conv3d weights (Cout, Cin, kT, kH, kW),
 Linear weights (out, in). GroupNorm and the attention softmax run in fp32.
 
-Routing of the 3x3x3 convs: 128-512 channels go to K3
-(``ops/conv.causal_conv3d_fused``), the rest (conv_in with Cin 16, conv_out
-with Cout 3) to the plain conv, as ``conv_pallas_supported`` splits them.
-The mid attention goes to K4 (``ops/flash.flash_attention`` with segment
-ids) once it covers at least 2048 voxels. GroupNorm + SiLU run unfused
-ahead of each conv (the streaming decode's default in the JAX package).
+Two decodes, as in the JAX package: the faithful overlap-tiled decode
+(``HunyuanVideoVAE.decode(mode="tiled")``, the reference's, with its
+``OPT_*_TILING`` tables and linear blends) and the streaming decode
+(``models/vae_stream.py``, the single-device default), which falls back to
+tiled where spatial tiling would apply (above 900 px).
 
-Only the streaming decode (``models/vae_stream.py``, the JAX package's
-single-device default) is ported; the overlap-tiled decode and the
-encoder wait for later work.
+Routing of the 3x3x3 convs (``ConvMode``, fixed per decode from the VAE's
+options): 128-512 channels go to K3 (``ops/conv.causal_conv3d_fused``), the
+rest (conv_in with Cin 16, conv_out with Cout 3) to the plain conv. Where
+the TPU kernel admits a conv (``ops/conv.tpu_kernel_admits``, the JAX
+package's ``conv_pallas_supported``), ``fuse`` folds GroupNorm + SiLU into
+K3's prologue and ``int8`` runs it W8A8; every other conv stays bf16 and
+unfused, as in the JAX package. The mid attention goes to K4
+(``ops/flash.flash_attention`` with segment ids) once it covers at least
+2048 voxels. The encoder waits for later work.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +36,7 @@ from kandinsky5_tpu_torch.ops.conv import (
     causal_conv3d_fused,
     conv3d_plain,
     conv_kernel_supported,
+    tpu_kernel_admits,
 )
 from kandinsky5_tpu_torch.ops.flash import flash_attention
 from kandinsky5_tpu_torch.utils import default_device
@@ -40,6 +47,41 @@ BLOCK_OUT_CHANNELS = (128, 256, 512, 512)
 LAYERS_PER_BLOCK = 2
 # the mid attention takes K4 from this many voxels on
 FLASH_MIN_TOKENS = 2048
+DECODE_MODES = ("stream", "tiled")
+
+# The reference's tiling tables (its vae.py:26-107): frame count -> (tile,
+# stride) in sample frames, and spatial size -> (tile, stride) in pixels.
+OPT_TEMPORAL_TILING = {1: (1, 1), 17: (17, 17)}
+OPT_TEMPORAL_TILING.update({
+    21: (13, 8), 25: (17, 8), 29: (17, 12), 33: (21, 12), 37: (21, 16),
+    41: (17, 12), 45: (21, 12), 49: (17, 8), 53: (21, 16), 57: (21, 12),
+    61: (13, 8), 65: (17, 12), 69: (21, 16), 73: (17, 8), 77: (17, 12),
+    81: (21, 12), 85: (21, 16), 89: (17, 12), 93: (21, 12), 97: (17, 8),
+    101: (21, 16), 105: (21, 12), 109: (13, 8), 113: (17, 12), 117: (21, 16),
+    121: (17, 8), 125: (17, 12), 129: (21, 12), 133: (21, 16), 137: (17, 12),
+    141: (21, 12), 145: (17, 8), 149: (21, 16), 153: (21, 12), 157: (13, 8),
+    161: (17, 12), 165: (21, 16), 169: (17, 8), 173: (17, 12), 177: (21, 12),
+    181: (21, 16), 185: (17, 12), 189: (21, 12), 193: (17, 8), 197: (21, 16),
+    201: (21, 12), 205: (13, 8), 209: (17, 12), 213: (21, 16), 217: (17, 8),
+    221: (17, 12), 225: (21, 12), 229: (21, 16), 233: (17, 12), 237: (21, 12),
+    241: (17, 8),
+})
+
+OPT_SPATIAL_TILING = {
+    160: (160, 160), 192: (192, 192), 224: (224, 224), 256: (256, 256),
+    288: (288, 288), 320: (320, 320), 352: (352, 352), 384: (384, 384),
+    448: (448, 448), 512: (288, 224), 576: (320, 256), 640: (352, 288),
+    704: (384, 320), 768: (416, 352), 896: (480, 416), 1024: (544, 480),
+    1152: (608, 544), 1280: (672, 608), 1408: (736, 672),
+}
+
+
+class ConvMode(NamedTuple):
+    """How a decode runs the convs the TPU kernel admits: ``fuse`` folds
+    GroupNorm + SiLU into K3, ``int8`` quantizes them (W8A8)."""
+
+    fuse: bool = False
+    int8: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -53,11 +95,14 @@ def conv1x1(p, x):
     return F.linear(x.to(w.dtype), w, p["bias"].to(w.dtype)).to(x.dtype)
 
 
-def causal_conv3d(p, x):
-    """Time-causal conv with replicate padding (stride 1)."""
+def causal_conv3d(p, x, int8: bool = False):
+    """Time-causal conv with replicate padding (stride 1); W8A8 with
+    ``int8`` where the TPU kernel admits the conv."""
     w = p["weight"]
     if tuple(w.shape[2:]) == (1, 1, 1):
         return conv1x1(p, x)
+    if int8 and tpu_kernel_admits(x, w):
+        return causal_conv3d_fused(x, w, p["bias"], quant=True)
     if conv_kernel_supported(w):
         return causal_conv3d_fused(x, w, p["bias"])
     return conv3d_plain(x, w, p["bias"])
@@ -98,10 +143,22 @@ def gn_silu(p, x):
     return F.silu(h.float()).to(x.dtype)
 
 
-def resnet_block(p, x):
+def _gn_silu_conv(p_norm, p_conv, x, mode: ConvMode):
+    """GroupNorm -> SiLU -> causal conv; with ``mode.fuse``, where the TPU
+    kernel admits the conv, the folded GroupNorm and SiLU run as K3's
+    prologue (one rounding of the normalized activation instead of two)."""
+    if mode.fuse and tpu_kernel_admits(x, p_conv["weight"]):
+        scale_c, shift_c = _gn_fold(p_norm, x)
+        return causal_conv3d_fused(x, p_conv["weight"], p_conv["bias"],
+                                   scale=scale_c[0], shift=shift_c[0],
+                                   act=True, quant=mode.int8)
+    return causal_conv3d(p_conv, gn_silu(p_norm, x), mode.int8)
+
+
+def resnet_block(p, x, mode: ConvMode = ConvMode()):
     """GN -> SiLU -> conv -> GN -> SiLU -> conv + (1x1) shortcut."""
-    h = causal_conv3d(p["conv1"], gn_silu(p["norm1"], x))
-    h = causal_conv3d(p["conv2"], gn_silu(p["norm2"], h))
+    h = _gn_silu_conv(p["norm1"], p["conv1"], x, mode)
+    h = _gn_silu_conv(p["norm2"], p["conv2"], h, mode)
     residual = x
     if "conv_shortcut" in p:
         residual = causal_conv3d(p["conv_shortcut"], x)
@@ -147,13 +204,13 @@ def _repeat_up(x, ft: int, fh: int, fw: int):
     return x
 
 
-def upsample(p, x, factor: Tuple[int, int, int]):
+def upsample(p, x, factor: Tuple[int, int, int], int8: bool = False):
     """Nearest upsample (the first frame only spatially), then a conv."""
     ft, fh, fw = factor
     first = _repeat_up(x[:, :1], 1, fh, fw)
     if x.shape[1] > 1:
         first = torch.cat([first, _repeat_up(x[:, 1:], ft, fh, fw)], dim=1)
-    return causal_conv3d(p["conv"], first)
+    return causal_conv3d(p["conv"], first, int8)
 
 
 def _up_plan():
@@ -166,48 +223,214 @@ def up_factor(add_s: bool, add_t: bool) -> Tuple[int, int, int]:
     return (2 if add_t else 1, 2 if add_s else 1, 2 if add_s else 1)
 
 
-def decoder_forward(p, z):
+def decoder_forward(p, z, mode: ConvMode = ConvMode()):
     """(B, T', H', W', 16) -> (B, T, 8H', 8W', 3), untiled."""
-    h = causal_conv3d(p["conv_in"], z)
+    h = causal_conv3d(p["conv_in"], z, mode.int8)
     mid = p["mid_block"]
-    h = resnet_block(mid["resnets"]["0"], h)
+    h = resnet_block(mid["resnets"]["0"], h, mode)
     h = mid_attention(mid["attentions"]["0"], h)
-    h = resnet_block(mid["resnets"]["1"], h)
+    h = resnet_block(mid["resnets"]["1"], h, mode)
     for i, (add_s, add_t) in enumerate(_up_plan()):
         blk = p["up_blocks"][str(i)]
         for j in range(LAYERS_PER_BLOCK + 1):
-            h = resnet_block(blk["resnets"][str(j)], h)
+            h = resnet_block(blk["resnets"][str(j)], h, mode)
         if "upsamplers" in blk:
-            h = upsample(blk["upsamplers"]["0"], h, up_factor(add_s, add_t))
-    return causal_conv3d(p["conv_out"], gn_silu(p["conv_norm_out"], h))
+            h = upsample(blk["upsamplers"]["0"], h, up_factor(add_s, add_t),
+                         mode.int8)
+    return causal_conv3d(p["conv_out"], gn_silu(p["conv_norm_out"], h),
+                         mode.int8)
+
+
+def _decode_tile(params, z, mode: ConvMode):
+    z = conv1x1(params["post_quant_conv"], z)
+    return decoder_forward(params["decoder"], z, mode)
+
+
+def _blend(a, b, extent: int, axis: int):
+    """Linear cross-fade of the last ``extent`` slices of a into the first
+    ``extent`` slices of b along ``axis``, fp32, out in b.dtype (the
+    reference's blend_t/h/v)."""
+    extent = min(a.shape[axis], b.shape[axis], extent)
+    if extent == 0:
+        return b
+    shape = [1] * b.ndim
+    shape[axis] = extent
+    ramp = (torch.arange(extent, dtype=torch.float32, device=b.device)
+            / extent).reshape(shape)
+    a_tail = a.narrow(axis, a.shape[axis] - extent, extent).float()
+    b_head = b.narrow(axis, 0, extent).float()
+    blended = (a_tail * (1 - ramp) + b_head * ramp).to(b.dtype)
+    return torch.cat([blended, b.narrow(axis, extent, b.shape[axis] - extent)],
+                     dim=axis)
 
 
 class HunyuanVideoVAE:
-    """Decoder side of the VAE. Layout (B, T, H, W, C) throughout."""
+    """Decoder side of the VAE. Layout (B, T, H, W, C) throughout.
+
+    Options, fixed at construction: ``fuse_gn`` folds GroupNorm + SiLU into
+    K3 (None: the JAX package's per-mode default, fused in the tiled decode
+    and unfused in the streaming one, measured there on the TPU);
+    ``int8_conv`` runs the convs the TPU kernel admits W8A8 in both decodes
+    (the JAX package's ``KANDINSKY5_TPU_INT8_CONV``). The tiling state
+    (``tile_sample_*``) lives on the object and is set per decode from the
+    reference's tables, as in the JAX package."""
 
     spatial_compression = 8
     temporal_compression = 4
     scaling_factor = SCALING_FACTOR
 
-    def __init__(self, params: dict, dtype=torch.bfloat16):
+    def __init__(self, params: dict, dtype=torch.bfloat16, fuse_gn=None,
+                 int8_conv: bool = False):
         self.params = params
         self.dtype = dtype
+        self.fuse_gn = fuse_gn
+        self.int8_conv = int8_conv
+        self.tile_sample_min_num_frames = 16
+        self.tile_sample_stride_num_frames = 12
+        self.tile_sample_min_height = 256
+        self.tile_sample_min_width = 256
+        self.tile_sample_stride_height = 192
+        self.tile_sample_stride_width = 192
+
+    def replace(self, **options) -> "HunyuanVideoVAE":
+        """A VAE over the same parameters with other options."""
+        vae = copy.copy(self)
+        for key, value in options.items():
+            if key not in ("fuse_gn", "int8_conv"):
+                raise TypeError(f"unknown VAE option {key!r}")
+            setattr(vae, key, value)
+        return vae
+
+    def conv_mode(self, decode: str) -> ConvMode:
+        """The conv routing of a decode ("tiled" or "stream")."""
+        fuse = decode == "tiled" if self.fuse_gn is None else self.fuse_gn
+        return ConvMode(fuse=fuse, int8=self.int8_conv)
+
+    # -- tiling selection (reference get_dec_optimal_tiling)
+    def _optimal_tiling(self, num_frames, height, width):
+        if math.sqrt(height * width) < 450 and num_frames <= 97:
+            ft, fs = num_frames, num_frames
+        else:
+            ft, fs = OPT_TEMPORAL_TILING[num_frames]
+        if math.sqrt(height * width) > 900:
+            ht, hs = OPT_SPATIAL_TILING[height]
+            wt, ws = OPT_SPATIAL_TILING[width]
+        else:
+            ht, hs, wt, ws = height, height, width, width
+        return (ft, ht, wt), (fs, hs, ws)
+
+    def _apply_tiling(self, tile, stride):
+        ft, ht, wt = tile
+        fs, hs, ws = stride
+        self.tile_sample_min_num_frames = ft - 1
+        self.tile_sample_stride_num_frames = fs
+        self.tile_sample_min_height = ht
+        self.tile_sample_min_width = wt
+        self.tile_sample_stride_height = hs
+        self.tile_sample_stride_width = ws
 
     @torch.no_grad()
-    def decode(self, z, mode: str = "stream"):
-        """(B, T', H', W', 16) latents -> (B, T, H, W, 3) in about [-1, 1],
-        by the streaming decode. The JAX package switches to its
-        overlap-tiled decode above sqrt(H W) = 900 pixels, which is not
-        ported yet, so such sizes raise."""
-        from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
+    def decode(self, z, opt_tiling: bool = True, mode: str = "stream"):
+        """(B, T', H', W', 16) latents -> (B, T, H, W, 3) in about [-1, 1].
 
-        if mode != "stream":
-            raise NotImplementedError(f"decode mode {mode!r} is not ported")
-        hl, wl = z.shape[2], z.shape[3]
-        if math.sqrt(64 * hl * wl) > 900:
-            raise NotImplementedError(
-                "spatially tiled decode (above 900 px) is not ported")
-        return streaming_decode(self.params, z.to(self.dtype))
+        ``mode``: "tiled" is the reference's overlap-tile decode; "stream"
+        decodes disjoint chunks with carried causal state
+        (``models/vae_stream.py``) and falls back to tiled where spatial
+        tiling would apply."""
+        if mode not in DECODE_MODES:
+            raise ValueError(f"decode mode must be one of {DECODE_MODES}, "
+                             f"got {mode!r}")
+        z = z.to(self.dtype)
+        tf, hl, wl = z.shape[1:4]
+        if opt_tiling:
+            sample_frames = 4 * (tf - 1) + 1
+            self._apply_tiling(*self._optimal_tiling(sample_frames, 8 * hl,
+                                                     8 * wl))
+        if mode == "stream":
+            sc = self.spatial_compression
+            needs_spatial = (wl > self.tile_sample_stride_width // sc
+                             or hl > self.tile_sample_min_height // sc)
+            if not needs_spatial:
+                from kandinsky5_tpu_torch.models.vae_stream import (
+                    streaming_decode,
+                )
+
+                return streaming_decode(self.params, z,
+                                        mode=self.conv_mode("stream"))
+        cm = self.conv_mode("tiled")
+        tile_lat_f = self.tile_sample_min_num_frames // self.temporal_compression
+        if tf > tile_lat_f + 1:
+            return self._temporal_tiled_decode(z, cm)
+        return self._spatial_decode(z, cm)
+
+    def _spatial_decode(self, z, cm: ConvMode):
+        hl, wl = z.shape[2:4]
+        tile_lat_h = self.tile_sample_min_height // self.spatial_compression
+        # the reference compares the width against the STRIDE here (its
+        # vae.py:854-856), a quirk kept for parity
+        tile_lat_w = self.tile_sample_stride_width // self.spatial_compression
+        if wl > tile_lat_w or hl > tile_lat_h:
+            return self._spatial_tiled_decode(z, cm)
+        return _decode_tile(self.params, z, cm)
+
+    def _spatial_tiled_decode(self, z, cm: ConvMode):
+        """Overlap tiles over H and W, blended linearly (reference
+        tiled_decode); each blend chains off the already-blended
+        neighbour, as the reference's in-place blend does."""
+        sc = self.spatial_compression
+        hl, wl = z.shape[2:4]
+        t_lat_h = self.tile_sample_min_height // sc
+        t_lat_w = self.tile_sample_min_width // sc
+        s_lat_h = self.tile_sample_stride_height // sc
+        s_lat_w = self.tile_sample_stride_width // sc
+        blend_h = self.tile_sample_min_height - self.tile_sample_stride_height
+        blend_w = self.tile_sample_min_width - self.tile_sample_stride_width
+        rows = [[_decode_tile(self.params, z[:, :, i:i + t_lat_h,
+                                             j:j + t_lat_w], cm)
+                 for j in range(0, wl - t_lat_w + 1, s_lat_w)]
+                for i in range(0, hl - t_lat_h + 1, s_lat_h)]
+        result_rows = []
+        for i, row in enumerate(rows):
+            result_row = []
+            for j, tile in enumerate(row):
+                if i > 0:
+                    tile = _blend(rows[i - 1][j], tile, blend_h, axis=2)
+                if j > 0:
+                    tile = _blend(rows[i][j - 1], tile, blend_w, axis=3)
+                rows[i][j] = tile
+                h_lim = (self.tile_sample_min_height if i == len(rows) - 1
+                         else self.tile_sample_stride_height)
+                w_lim = (self.tile_sample_min_width if j == len(row) - 1
+                         else self.tile_sample_stride_width)
+                result_row.append(tile[:, :, :h_lim, :w_lim])
+            result_rows.append(torch.cat(result_row, dim=3))
+        out = torch.cat(result_rows, dim=2)
+        return out[:, :, :hl * sc, :wl * sc]
+
+    def _temporal_tiled_decode(self, z, cm: ConvMode):
+        """Chunks over latent time, re-decoding one overlap frame, blended
+        linearly (reference _temporal_tiled_decode)."""
+        tf = z.shape[1]
+        num_sample_frames = (tf - 1) * self.temporal_compression + 1
+        t_lat_f = self.tile_sample_min_num_frames // self.temporal_compression
+        s_lat_f = self.tile_sample_stride_num_frames // self.temporal_compression
+        blend_f = (self.tile_sample_min_num_frames
+                   - self.tile_sample_stride_num_frames)
+        row = []
+        for i in range(0, tf - t_lat_f + 1, s_lat_f):
+            decoded = self._spatial_decode(z[:, i:i + t_lat_f + 1], cm)
+            row.append(decoded[:, 1:] if i > 0 else decoded)
+        result = []
+        for i, tile in enumerate(row):
+            if i > 0:
+                tile = _blend(row[i - 1], tile, blend_f, axis=1)
+                row[i] = tile
+                t_lim = (self.tile_sample_min_num_frames if i == len(row) - 1
+                         else self.tile_sample_stride_num_frames)
+                result.append(tile[:, :t_lim])
+            else:
+                result.append(tile[:, :self.tile_sample_stride_num_frames + 1])
+        return torch.cat(result, dim=1)[:, :num_sample_frames]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Counterpart of ``kandinsky5_tpu/pipeline.py``: conditioning from an
 injected text embedder -> Euler flow-matching denoise of the DiT
-(``sampling.py``) -> streaming VAE decode -> uint8 frames -> mp4 / PNG.
+(``sampling.py``) -> VAE decode -> uint8 frames -> mp4 / PNG.
 The attention implementation is ``DenoiseSpec.attn_impl``, not sniffed
 from the backend: "auto" (K1 for self-attention, dense for the short text
 cross-attention; the JAX package's default off its accelerator),
@@ -12,8 +12,12 @@ projections to W8A8 (``quantize_dit_params``), as the JAX package's
 ``KANDINSKY5_TPU_INT8_LINEAR`` does. A config with ``attention.type:
 nabla`` (the 10 s configs) runs the visual self-attention through NABLA
 and K6 whatever the impl; its text blocks then follow the impl.
-``get_T2V_pipeline`` and the Qwen/CLIP text towers wait
-for a later slice; the embedder passed in must offer
+``decode_mode`` picks the VAE decode: None is the JAX package's
+single-device default, "stream"; "tiled" is the reference's overlap-tiled
+decode (its parity gate and bench protocol). ``int8_conv=True`` runs the
+decoder's convs that the TPU kernel admits W8A8, as the JAX package's
+``KANDINSKY5_TPU_INT8_CONV`` does. ``get_T2V_pipeline`` and the Qwen/CLIP
+text towers wait for a later slice; the embedder passed in must offer
 ``encode(texts, type_of_content) -> TextEmbeddings`` (and
 ``expand_prompt`` when ``expand_prompts`` is set).
 """
@@ -28,6 +32,7 @@ import torch
 
 from kandinsky5_tpu_torch.config import Config
 from kandinsky5_tpu_torch.models.dit import quantize_dit_params
+from kandinsky5_tpu_torch.models.vae import DECODE_MODES
 from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
 
 DEFAULT_NEGATIVE = (
@@ -51,15 +56,20 @@ class TextEmbeddings(NamedTuple):
 
 class Kandinsky5T2VPipeline:
     def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
-                 attn_impl: str = "auto", int8_linear: bool = False):
+                 attn_impl: str = "auto", int8_linear: bool = False,
+                 decode_mode: Optional[str] = None, int8_conv: bool = False):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
+        if decode_mode not in (None,) + DECODE_MODES:
+            raise ValueError(f"decode_mode must be None or one of "
+                             f"{DECODE_MODES}, got {decode_mode!r}")
         self.dit = quantize_dit_params(dit) if int8_linear else dit
         self.int8_linear = int8_linear
         self.conf = conf
         self.text_embedder = text_embedder
-        self.vae = vae
+        self.vae = vae.replace(int8_conv=True) if int8_conv and vae else vae
+        self.decode_mode = decode_mode or "stream"
         self.attn_impl = attn_impl
         self.resolution = conf.resolution
         if self.resolution not in RESOLUTIONS:
@@ -161,12 +171,19 @@ class Kandinsky5T2VPipeline:
             self.timings["saved"] = self.save(frames, save_path, time_length)
         return frames
 
+    @property
+    def int8_conv(self) -> bool:
+        """Whether the decodes run W8A8 convs: the VAE's own option, which
+        ``int8_conv=True`` sets on the pipeline's copy."""
+        return bool(self.vae is not None and self.vae.int8_conv)
+
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
-        """(B, T', H', W', 16) -> (B, T, H, W, 3) uint8 by the streaming
-        decode."""
+    def decode_latents(self, latents: torch.Tensor,
+                       mode: Optional[str] = None) -> np.ndarray:
+        """(B, T', H', W', 16) -> (B, T, H, W, 3) uint8, by the decode
+        ``mode`` names, else the pipeline's ``decode_mode``."""
         z = latents / self.vae.scaling_factor
-        video = self.vae.decode(z, mode="stream")
+        video = self.vae.decode(z, mode=mode or self.decode_mode)
         video = video.float().clamp(-1.0, 1.0)
         video = ((video + 1.0) * 127.5).to(torch.uint8)
         return video.cpu().numpy()

@@ -1,15 +1,19 @@
-"""Where the time goes on the card: one DiT forward and one streaming VAE
-decode, at full width with random weights: the 5 s distil path (dense
-attention) for ``--seconds 1|5``, the 10 s NABLA path
-(``config_10s_distil.yaml``: 93,696 tokens, 241 frames) for ``--seconds
-10``.
+"""Where the time goes on the card: one DiT forward and one VAE decode, at
+full width with random weights: the 5 s distil path (dense attention) for
+``--seconds 1|5``, the 10 s NABLA path (``config_10s_distil.yaml``: 93,696
+tokens, 241 frames) for ``--seconds 10``.
 
     python -m kandinsky5_tpu_torch.tools.profile_step [--seconds 1|5|10]
         [--attn auto|flash_int8|flash_int8_pipe] [--int8-linear] [--dit-only]
+        [--decode stream|tiled] [--int8-conv] [--fuse-gn auto|on|off]
 
 ``--attn`` picks the DiT's attention (K1, K5 or K7 for self-attention) and
 ``--int8-linear`` makes its visual projections W8A8; ``--dit-only`` skips
-the decode. For each of the two it prints the unprofiled wall time (host
+the decode. ``--decode`` picks the streaming decode (the default) or the
+reference's overlap-tiled one (GroupNorm folded into K3), ``--int8-conv``
+runs the decoder's convs W8A8, and ``--fuse-gn`` sets the VAE's ``fuse_gn``
+(auto: fused in the tiled decode, unfused in the streaming one; on or off
+in both). For each of the two it prints the unprofiled wall time (host
 clock around a synchronized call, the minimum of a few repeats), the device
 time that ``torch.profiler`` records per kernel, grouped into the port's
 kernels K1-K7, int8 and other library GEMMs/convs and elementwise passes,
@@ -42,8 +46,7 @@ from kandinsky5_tpu_torch.models.dit import (
     fast_init_dit_params,
     quantize_dit_params,
 )
-from kandinsky5_tpu_torch.models.vae import init_vae_params
-from kandinsky5_tpu_torch.models.vae_stream import streaming_decode
+from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
 from kandinsky5_tpu_torch.ops.nabla import record_density
 from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
 from kandinsky5_tpu_torch.sampling import _build_sparse, token_grid
@@ -56,6 +59,10 @@ GROUPS = [
     ("K5 flash_int8", ("flash_int8_kernel",)),
     ("K1 flash_fixed", ("flash_fixed_kernel",)),
     ("K2 ff_kernel", ("ff_kernel",)),
+    ("K3 conv3d W8A8", ("conv3d_kernel<false, true>",
+                        "conv3d_kernel<true, true>")),
+    ("K3 conv3d fused GroupNorm + SiLU", ("conv3d_kernel<true, false>",)),
+    ("K3 W8A8 window scales", ("window_rowmax_kernel", "window_scale_kernel")),
     ("K3 conv3d", ("conv3d_kernel",)),
     ("K4 flash_online", ("flash_online_kernel",)),
     ("int8 GEMM (torch._int_mm of the W8A8 linears)",
@@ -192,6 +199,9 @@ def main() -> None:
                     choices=("auto", "flash_int8", "flash_int8_pipe"))
     ap.add_argument("--int8-linear", action="store_true")
     ap.add_argument("--dit-only", action="store_true")
+    ap.add_argument("--decode", default="stream", choices=("stream", "tiled"))
+    ap.add_argument("--int8-conv", action="store_true")
+    ap.add_argument("--fuse-gn", default="auto", choices=("auto", "on", "off"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -240,13 +250,17 @@ def main() -> None:
         print(gpu_line())
         return
 
-    vae = init_vae_params(device=dev, seed=1)
+    fuse_gn = {"auto": None, "on": True, "off": False}[args.fuse_gn]
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, seed=1),
+                          fuse_gn=fuse_gn, int8_conv=args.int8_conv)
     z = torch.randn((1, t_lat, h_lat, w_lat, 16), generator=g,
                     device=dev).bfloat16()
     torch.cuda.reset_peak_memory_stats()
-    measure(f"{args.seconds} s streaming decode ({t_lat} latent -> "
-            f"{4 * (t_lat - 1) + 1} frames)", lambda: streaming_decode(vae, z),
-            reps=1)
+    measure(f"{args.seconds} s {args.decode} decode ({t_lat} latent -> "
+            f"{4 * (t_lat - 1) + 1} frames"
+            f"{', int8 convs' if args.int8_conv else ''}, fuse_gn "
+            f"{args.fuse_gn})",
+            lambda: vae.decode(z, mode=args.decode), reps=1)
     print(f"   decode peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
     print(gpu_line())

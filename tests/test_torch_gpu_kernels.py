@@ -1,4 +1,5 @@
-"""K1-K7, T1 and T5 on the card against their plain PyTorch versions, at
+"""K1-K7 (K3 in all its modes), T1 and T5 on the card against their plain
+PyTorch versions, at
 small shapes (ragged lengths, masks, kv lists) and at the shapes the 5 s
 distil and 10 s NABLA paths give them. K7 must equal K5 bit for bit, and
 T1's int8 instance its exact integer product.
@@ -239,11 +240,98 @@ def test_k3_matches_plain(dev, t, h, w, cin, cout, time_padded):
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
 
 
+def _k3_inputs(dev, t, h, w, cin, cout, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((1, t, h, w, cin), generator=g, device=dev)
+         * (1 + torch.arange(w, device=dev)[:, None] / w)).bfloat16()
+    wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
+          / math.sqrt(27 * cin)).bfloat16()
+    bias = torch.randn((cout,), generator=g, device=dev).bfloat16()
+    scale = 1 + 0.2 * torch.randn((cin,), generator=g, device=dev)
+    shift = 0.1 * torch.randn((cin,), generator=g, device=dev)
+    return x, wt, bias, scale, shift
+
+
+@pytest.mark.parametrize("t,h,w,cin,cout,time_padded,prefix,act", [
+    (3, 8, 20, 128, 256, False, 0, True), (5, 8, 64, 256, 128, True, 2, True),
+    (2, 64, 96, 512, 512, False, 0, False)])
+def test_k3_fused_matches_plain(dev, t, h, w, cin, cout, time_padded, prefix,
+                                act):
+    """The GroupNorm-fold (+ SiLU) prologue, with carried prefix planes in
+    one case. Kernel and plain version transform with the same fp32
+    operations and round once to bf16, so they differ only in summation
+    order. Control: the plain conv without the prologue fails the bound."""
+    x, wt, bias, scale, shift = _k3_inputs(dev, t, h, w, cin, cout)
+    kw = dict(time_padded=time_padded, scale=scale, shift=shift, act=act,
+              prefix_planes=prefix)
+    out = causal_conv3d_fused(x, wt, bias, **kw)
+    torch.cuda.synchronize()
+    ref = conv3d_plain(x, wt, bias, **kw)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+    assert _fails_bound(conv3d_plain(x, wt, bias, time_padded=time_padded),
+                        ref, 6e-2, 1e-2)
+
+
+def _assert_flips_only(out, ref, x, wt, flips=4):
+    """W8A8 kernel against its plain version: the same codes, exact int32
+    sums and the same epilogue, so equal, except where a transformed value
+    lies within an ulp of a rounding (the prologue's exp on this card against
+    torch's): at most ``flips`` flipped codes, each moving the outputs of
+    its 3x3x3 neighbourhood by at most s * max|w|."""
+    d = (out.float() - ref.float()).abs()
+    step = x.float().abs().max() / 127.0 * wt.float().abs().max()
+    assert int((d > 0).sum()) <= flips * 27 * out.shape[-1]
+    assert float(d.max()) <= 2 * float(step)
+
+
+@pytest.mark.parametrize("t,h,w,cin,cout,time_padded,fuse", [
+    (3, 16, 320, 128, 128, False, False), (3, 16, 320, 128, 128, False, True),
+    (6, 16, 384, 256, 256, True, True)])
+def test_k3_quant_matches_plain(dev, monkeypatch, t, h, w, cin, cout,
+                                time_padded, fuse):
+    """W8A8 over several TPU tiles in H and W (bw 64 at W 320, 96 at W 384
+    with 256 channels), plain and with the prologue (time_padded with two
+    prefix planes in the last case). Control: the plain version with one
+    scale for the whole tensor fails, so the windows matter."""
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    assert conv_mod.quant_tile_width(w, cin, cout) < w
+    x, wt, bias, scale, shift = _k3_inputs(dev, t, h, w, cin, cout)
+    kw = dict(time_padded=time_padded, quant=True)
+    if fuse:
+        kw.update(scale=scale, shift=shift, act=True,
+                  prefix_planes=2 if time_padded else 0)
+    out = causal_conv3d_fused(x, wt, bias, **kw)
+    torch.cuda.synchronize()
+    ref = conv3d_plain(x, wt, bias, **kw)
+    xt = (conv_mod.conv_prologue(x, scale, shift, True, kw.get("prefix_planes", 0))
+          if fuse else x)
+    _assert_flips_only(out, ref, xt, wt)
+    real = conv_mod.window_scales
+
+    def one_scale(*args):
+        s, _ = real(*args)
+        return torch.full_like(s, s.max()), torch.full_like(s, 1.0 / s.max())
+
+    monkeypatch.setattr(conv_mod, "window_scales", one_scale)
+    with pytest.raises(AssertionError):
+        _assert_flips_only(out, conv3d_plain(x, wt, bias, **kw), xt, wt)
+
+
 def test_launch_counters_count_kernel_launches(dev):
     _kernels.reset_launches()
-    x = torch.randn((1, 3, 8, 8, 128), device=dev).bfloat16()
+    x = torch.randn((1, 3, 8, 64, 128), device=dev).bfloat16()
     wt = torch.randn((128, 128, 3, 3, 3), device=dev).bfloat16() * 0.01
-    causal_conv3d_fused(x, wt, torch.zeros(128, device=dev))
+    b = torch.zeros(128, device=dev)
+    causal_conv3d_fused(x, wt, b)
     assert _kernels.LAUNCHES["K3_conv3d"] == 1
     causal_conv3d_fused(x.cpu(), wt.cpu(), torch.zeros(128))
+    assert _kernels.LAUNCHES["K3_conv3d"] == 1
+    one = torch.ones(128, device=dev)
+    causal_conv3d_fused(x, wt, b, scale=one, shift=b, act=True)
+    causal_conv3d_fused(x, wt, b, quant=True)
+    assert _kernels.LAUNCHES["K3_conv3d_fused"] == 1
+    assert _kernels.LAUNCHES["K3_conv3d_quant"] == 1
+    assert _kernels.LAUNCHES["K3_quant_windows"] == 1
     assert _kernels.LAUNCHES["K3_conv3d"] == 1

@@ -241,17 +241,63 @@ def test_quantized_weights_match_jax_quantize_dit_params():
         np.testing.assert_array_equal(t.numpy(), sd[key].numpy(), err_msg=key)
 
 
-def test_int8_dit_forward_matches_jax():
+def _record_jax_int8_ops(monkeypatch, rec):
+    """Make the JAX DiT append (kind, inputs..., output) to ``rec`` as numpy
+    arrays, in call order, at every W8A8 linear and every attention call
+    (ordered debug callbacks, so the records survive the scan over the
+    visual blocks)."""
+    import kandinsky5_tpu.models.dit as jdit
+    import kandinsky5_tpu.models.nn as jnn
+
+    real_linear, real_attention = jnn._linear_i8, jdit.attention
+
+    def note(kind):
+        return lambda *a: rec.append((kind,) + tuple(np.asarray(v) for v in a))
+
+    def linear_i8(p, x):
+        y = real_linear(p, x)
+        jax.debug.callback(note("linear"), x, y, ordered=True)
+        return y
+
+    def attention(q, k, v, kv_mask=None, impl="auto", **kw):
+        out = real_attention(q, k, v, kv_mask=kv_mask, impl=impl, **kw)
+        jax.debug.callback(note("attention"), q, k, v, out, ordered=True)
+        return out
+
+    monkeypatch.setattr(jnn, "_linear_i8", linear_i8)
+    monkeypatch.setattr(jdit, "attention", attention)
+
+
+def test_int8_dit_forward_matches_jax(monkeypatch):
     """A tiny DiT (tests/test_int8_linear.py's config, widened to 64-wide
     heads because the int8-QK path exists only for them) with flash_int8
-    attention and W8A8 projections, against the JAX forward, fp32. The
-    two sides compute the same roundings, but the fp32 values feeding a
-    rounding come out of different summation orders, so a rounding may
-    flip: a flip moves one activation or key entry by one quantization
-    step, 1/127 of its row's largest entry, and an output by a small
-    fraction of that. Bound: 2e-3 of the output's largest magnitude (5e-7
-    measured when this was written). Control: the unquantized JAX forward
-    lies about 2e-2 away, outside the bound."""
+    attention and W8A8 projections, against the JAX forward, fp32, with
+    teacher forcing at every quantized op.
+
+    Why forcing: the two sides round the same quantities, but the fp32
+    values feeding a rounding come out of different summation orders, so a
+    value within a few ulps of a .5 boundary rounds one way on one side and
+    the other way on the other (a flip), and flips compound through the
+    blocks. Measured on this test's DiT: a 1e-6 relative perturbation of x
+    moves the port's own output by up to 3.9e-2 (median 1.6e-2, 18 of 20
+    draws above 1e-4), against an output scale of 2.6 and 5.0e-2 to the
+    unquantized forward; un-forced, DiT seeds 0-5 put the port 1.2e-6 to
+    4.1e-2 from JAX. Hooked block by block (seeds 0 and 4), the first
+    differing code was one entry off by one step whose pre-rounding value
+    lay 1-3 ulps from .5; no code differed by more than one step or where
+    the pre-rounding values agreed: flips, not a port fault.
+
+    So each W8A8 linear and each attention call of the port's forward takes
+    the JAX forward's own input to that op. Checked there: the port's
+    un-forced input agrees with JAX's (1e-4 of its scale: the wiring
+    between the ops); a W8A8 output equals JAX's to 1e-6 (same codes, exact
+    int32 product); an int8-QK call's q8 equals JAX's pre-pass and its k8
+    differs in at most 0.1 % of entries, each by exactly one step (K's mean
+    is summed in another order), and on JAX's own codes the port's kernel
+    math gives JAX's output to 2e-4, as does the whole call where the codes
+    agree; a dense call matches to 2e-4. The forced forward's output then
+    lies within 1e-4 of JAX's scale; control: the unquantized JAX forward
+    lies outside that bound."""
     jcfg, pcfg = both_cfgs(**TINY_I8)
     jparams, model = random_dit_pair(jcfg, pcfg, seed=4)
     rng = np.random.default_rng(5)
@@ -260,19 +306,70 @@ def test_int8_dit_forward_matches_jax():
     pooled = rand(rng, 1, 24)
     t = np.array([400.0], np.float32)
     mask = np.arange(16)[None] < 11
-    want = to_np(jax_dit_forward(jax_quantize_dit(jparams), jcfg, jnp.asarray(x),
-                                 jnp.asarray(text), jnp.asarray(pooled),
-                                 jnp.asarray(t), jnp.asarray(mask),
-                                 attn_impl="flash_int8"))
-    got = to_np(dit_forward(quantize_dit_params(model), torch.from_numpy(x),
-                            torch.from_numpy(text), torch.from_numpy(pooled),
-                            torch.from_numpy(t), torch.from_numpy(mask),
+    jargs = [jnp.asarray(a) for a in (x, text, pooled, t, mask)]
+    rec = []
+    with monkeypatch.context() as m:
+        _record_jax_int8_ops(m, rec)
+        want = to_np(jax_dit_forward(jax_quantize_dit(jparams), jcfg, *jargs,
+                                     attn_impl="flash_int8"))
+        jax.effects_barrier()
+
+    import kandinsky5_tpu_torch.models.dit as pdit
+    import kandinsky5_tpu_torch.models.nn as pnn
+
+    real_linear, real_attention = pnn._linear_i8, pdit.attention
+    ops = iter(rec)
+    n_int8 = []
+
+    def forced(kind, got_inputs):
+        rec_op = next(ops)
+        assert rec_op[0] == kind
+        for g, j in zip(got_inputs, rec_op[1:]):
+            assert g.shape == j.shape
+            assert np.abs(to_np(g) - j).max() <= 1e-4 * np.abs(j).max()
+        return [torch.from_numpy(np.array(a)) for a in rec_op[1:-1]], rec_op[-1]
+
+    def linear_i8(layer, x):
+        (xj,), yj = forced("linear", [x])
+        y = real_linear(layer, xj)
+        np.testing.assert_allclose(to_np(y), yj, rtol=1e-6,
+                                   atol=1e-6 * np.abs(yj).max())
+        return y
+
+    def attention(q, k, v, kv_mask=None, impl="auto"):
+        (qj, kj, vj), oj = forced("attention", [q, k, v])
+        out = real_attention(qj, kj, vj, kv_mask=kv_mask, impl=impl)
+        same_codes = True
+        if not tatt.short_kv(q.shape[1], k.shape[1]):  # int8-QK calls
+            n_int8.append(1)
+            q8, k8, coeff, shift = pack_int8(qj, kj)
+            jq8, jk8, jc, js = _jax_pack(qj.numpy(), kj.numpy())
+            np.testing.assert_array_equal(q8.numpy(), jq8)
+            diff = np.abs(k8.numpy().astype(np.int32) - jk8.astype(np.int32))
+            assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3
+            same_codes = diff.max() == 0
+            on_jax_codes = flash_int8_plain(
+                *(torch.from_numpy(a) for a in (jq8, jk8)), vj,
+                torch.from_numpy(jc), torch.from_numpy(js), kv_mask)
+            np.testing.assert_allclose(to_np(on_jax_codes), oj, rtol=2e-4,
+                                       atol=2e-4)
+        if same_codes:
+            np.testing.assert_allclose(to_np(out), oj, rtol=2e-4, atol=2e-4)
+        return out
+
+    monkeypatch.setattr(pnn, "_linear_i8", linear_i8)
+    monkeypatch.setattr(pdit, "attention", attention)
+    got = to_np(dit_forward(quantize_dit_params(model),
+                            *(torch.from_numpy(a) for a in (x, text, pooled, t,
+                                                            mask)),
                             attn_impl="flash_int8"))
-    bound = 2e-3 * np.abs(want).max()
+    assert next(ops, None) is None
+    # every self- and cross-attention (48 visual queries are not 4x the 16
+    # text keys, so cross-attention is not short-KV here)
+    assert len(n_int8) == 5
+    bound = 1e-4 * np.abs(want).max()
     assert np.abs(got - want).max() <= bound
-    plain = to_np(jax_dit_forward(jparams, jcfg, jnp.asarray(x),
-                                  jnp.asarray(text), jnp.asarray(pooled),
-                                  jnp.asarray(t), jnp.asarray(mask)))
+    plain = to_np(jax_dit_forward(jparams, jcfg, *jargs))
     assert np.abs(got - plain).max() > bound
 
 
