@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (``kandinsky5_tpu_torch``) on one CUDA GPU.
 
     python3 chip_smoke.py [--seconds 1|5|10] [--out DIR]
+    python3 chip_smoke.py --tp-seeds 6,7,8   # phase 5's tp forwards and
+                                             # controls at other seeds only
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -19,7 +21,9 @@ Phases, each of which must pass (any failure exits nonzero):
                shared pack_int8 call, K7 bit-equal to K5, K5's error
                against K1 printed as the quantization error), the tools
                kernels T5 (its four modes at the 5 s shape) and T1 (int8
-               exact, bf16, at 8192^3 and the DiT's projection shapes),
+               exact, bf16, at 8192^3 and the DiT's projection shapes), K8 at
+               each tensor-parallel rank's share of the 5 s FF (tp 1, 2,
+               4) and the tools kernels T2-T4 at their tool's shapes,
                with max-abs and relative-L2 errors against stated
                tolerances, CUDA-event times of kernel, plain version and
                (where one PyTorch call computes the same function) that
@@ -56,7 +60,23 @@ Phases, each of which must pass (any failure exits nonzero):
                ``--seconds 10``, the 241-frame latents tiled with their PSNR
                against the streaming decode; each with exact K3 (by mode)
                and K4 launch counts. Each path's launch counts are reset
-               just before it and read just after.
+               just before it and read just after;
+  5. tensor parallelism — ranks sharing the one card over gloo (CUDA
+               tensors staged through the host; the kernels are built
+               before any rank starts): one DiT forward at full width and
+               depth at the 5 s shape (47,616 tokens, seeded +-0.02
+               weights, each rank drawing its share one parameter at a
+               time) on one device, then as tp = 2 and tp = 4, each rank
+               held against it (TP_BOUND, relative L2) with exact launch
+               counts (K8 32, K1 34, K2 0); two controls must fail the
+               bound (each rank keeps its FF partial sum; the out layers'
+               bias added on every rank). Then the tp = 2 pipeline answers
+               the 5 s path's image and video requests with 16 steps, rank 0
+               decoding tiled and writing; s/step, the all-reduce share
+               (gloo through the host, 2 ranks on one card, not a
+               multi-GPU number) and the video's PSNR against phase 4's
+               tiled decode of the same request. A failed rank fails the
+               run.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -100,11 +120,20 @@ ROUTE_SOURCES = {
                    "tools/bench_int8mm.py:22 _mm_kernel"),
     "T1_gemm_bf16": ("kandinsky5_tpu_torch/csrc/gemm_i8.cu",
                      "tools/bench_int8mm.py:22 _mm_kernel"),
+    "K8_ff": ("kandinsky5_tpu_torch/csrc/ff_mod.cu",
+              "kandinsky5_tpu/ops/ff_pallas.py:49 _ff_kernel"),
+    "T2_gemm": ("kandinsky5_tpu_torch/csrc/gemm_i8.cu",
+                "tools/bench_pallas_gemm.py:43 _gemm_kernel"),
+    "T3_ff": ("kandinsky5_tpu_torch/csrc/ff_mod.cu",
+              "tools/bench_pallas_gemm.py:88 _ff_kernel"),
+    "T4_ff_tiled": ("kandinsky5_tpu_torch/csrc/ff_mod.cu",
+                    "tools/bench_pallas_gemm.py:128 _ff_tiled_kernel"),
     "T5_i8_decomp": ("kandinsky5_tpu_torch/csrc/flash_int8.cu",
                      "tools/bench_i8_decomp.py:37 _kernel"),
 }
 # the tools kernels run in phase 2 only: no path of the system launches them
-TOOLS = ("T1_gemm_i8", "T1_gemm_bf16", "T5_i8_decomp")
+TOOLS = ("T1_gemm_i8", "T1_gemm_bf16", "T2_gemm", "T3_ff", "T4_ff_tiled",
+         "T5_i8_decomp")
 # bf16 kernel vs plain on the card: both round the same quantities to bf16
 # but sum in different orders, so an output may move by a bf16 ulp (2^-8
 # relative); bounds are a few ulps at the outputs' scale. The attention
@@ -125,8 +154,10 @@ TOL = {"K1_flash_fixed": (3e-2, 1e-2), "K2_ff_mod": (6e-2, 1e-2),
        "K3_conv3d_quant": (0.0, 0.0), "K3_quant_windows": (0.0, 0.0),
        "K4_flash_online": (3e-2, 1e-2),
        "K5_flash_int8": (3e-2, 1e-2), "K6_sparse_nabla": (3e-2, 1e-2),
-       "K7_flash_int8_pipe": (3e-2, 1e-2), "T1_gemm_i8": (0.0, 0.0),
-       "T1_gemm_bf16": (6e-2, 1e-2), "T5_i8_decomp": (1e-2, 1e-2)}
+       "K7_flash_int8_pipe": (3e-2, 1e-2), "K8_ff": (6e-2, 1e-2),
+       "T1_gemm_i8": (0.0, 0.0), "T1_gemm_bf16": (6e-2, 1e-2),
+       "T2_gemm": (6e-2, 1e-2), "T3_ff": (6e-2, 1e-2),
+       "T4_ff_tiled": (6e-2, 1e-2), "T5_i8_decomp": (1e-2, 1e-2)}
 # published dense peaks of one H100 SXM (700 W): bf16 and int8 tensor cores
 # and HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -138,7 +169,8 @@ CONF10 = "config_10s_distil.yaml"
 HEADLINE = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": -1,
             "K3_conv3d_fused": 0, "K3_conv3d_quant": 1, "K3_quant_windows": 0,
             "K4_flash_online": 0, "K5_flash_int8": 0, "K6_sparse_nabla": 1,
-            "K7_flash_int8_pipe": 0, "T1_gemm_i8": 0, "T1_gemm_bf16": 0,
+            "K7_flash_int8_pipe": 0, "K8_ff": 1, "T1_gemm_i8": 0,
+            "T1_gemm_bf16": 0, "T2_gemm": 0, "T3_ff": 0, "T4_ff_tiled": 0,
             "T5_i8_decomp": 0}
 # the prompt of the 5 s path's bf16 video and of both int8 videos
 VIDEO_PROMPT = "a smoke-test video"
@@ -190,7 +222,7 @@ def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
 
 def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
              control_fn=None, library_fn=None, info=None, yardstick_fn=None,
-             check=None):
+             check=None, control_label=None):
     """Check ``kernel_fn`` against ``plain_fn`` and time both (and
     ``library_fn``, one PyTorch call computing the same function, if
     given; ``yardstick_fn``, a call that computes a different function,
@@ -220,10 +252,10 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
         c_abs, c_rel = _errors(control, ref)
         if check is not None:
             control_fails = not check(out, control)
-            label = "one scale for the whole tensor"
+            label = control_label or "one scale for the whole tensor"
         else:
             control_fails = not (c_abs <= atol and c_rel <= rtol)
-            label = "uniform weights"
+            label = control_label or "uniform weights"
         note = (f" control ({label}): max_abs {c_abs:.3e} rel_l2 "
                 f"{c_rel:.3e} {'fails the bound' if control_fails else 'PASSES'}")
         del control
@@ -384,6 +416,7 @@ def phase_kernels(dev, results):
     del q, k, v, allowed
     phase_k6(dev, g, normed, results)
     phase_int8(dev, g, normed, results)
+    phase_ff_tools(dev, g, results)
     bad = [(n, r["shape"]) for n, rs in results.items() for r in rs if not r["ok"]]
     if bad:
         raise Failure(f"kernels outside tolerance: {bad}")
@@ -691,6 +724,45 @@ def phase_int8(dev, g, normed, results):
                            ops if dtype == torch.int8 else 0.0),
                      reps=5, library_fn=library_call(a, b))
             del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_ff_tools(dev, g, results):
+    """K8 at each tensor-parallel rank's share of the 5 s visual FF, (47616,
+    1792) x (1792, 7168 / tp) x (7168 / tp, 1792) for tp 1, 2 and 4, and the
+    tools T2 (47616, 1792) x (1792, 1792), T3 and T4 at (47616, 1792) x
+    7168; the library call of each FF is matmul -> GELU -> matmul in bf16
+    (its hidden is rounded before the GELU too), T2's bf16 matmul. K8's
+    control drops the last 128 hidden units (one column tile of the up
+    product) from the plain version: a kernel that lost a tile of its
+    reduction must fail the bound."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.ff import ff_plain, fused_ff
+    from kandinsky5_tpu_torch.tools import bench_pallas_gemm as bpg
+
+    x, wo, w1, w2 = bpg.operands(g, dev)
+    rows, d = x.shape
+    for tp in (1, 2, 4):
+        f = bpg.FF // tp
+        w1s, w2s = w1[:f].contiguous(), w2[:, :f].contiguous()
+        _compare("K8_ff", f"({rows},{d})x({d},{f})x({f},{d}) tp {tp}",
+                 lambda: fused_ff(x, w1s, w2s), lambda: ff_plain(x, w1s, w2s),
+                 results, work=(4.0 * rows * d * f,
+                                _nbytes(x, w1s, w2s) + 2 * rows * d),
+                 library_fn=bpg.ff_library(x, w1s, w2s), info=dict(tp=tp),
+                 control_fn=lambda: ff_plain(x, w1s[:-128], w2s[:, :-128]),
+                 control_label="the last 128 of the ff sum dropped")
+        del w1s, w2s
+    for name, kernel, plain, library, flops, control in bpg.cases(x, wo, w1,
+                                                                  w2):
+        weights = (wo,) if name == "T2_gemm" else (w1, w2)
+        _compare(name, f"({rows},{d})x{bpg.FF if name != 'T2_gemm' else d}",
+                 kernel, plain, results,
+                 work=(flops, _nbytes(x, *weights) + 2 * rows * d),
+                 library_fn=library, control_fn=control,
+                 control_label="one tile of the reduction left out")
+    del x, wo, w1, w2
     torch.cuda.empty_cache()
 
 
@@ -1077,7 +1149,9 @@ def psnr(a, b) -> float:
 def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
                    out_dir: str):
     """The 5 s path (image + video) and the 10 s path (one video), each
-    with the launch counts reset just before it and read just after."""
+    with the launch counts reset just before it and read just after, then
+    the decodes; returns the launches by path, the report and the 5 s
+    path video's tiled frames."""
     import torch
 
     from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
@@ -1172,10 +1246,10 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     torch.cuda.empty_cache()
     log("  decodes of the requests' latents: tiled, int8 convs (stream and "
         "tiled), 1024 x 1024")
-    rep, dec_launches = phase_decodes(
+    rep, dec_launches, tiled = phase_decodes(
         dev, conf5, vae, latents, videos[bf16_video[0]],
         videos10[video10[0]] if seconds10 == 10 else None)
-    return {**launches, **dec_launches}, report + rep
+    return {**launches, **dec_launches}, report + rep, tiled
 
 
 def _keep_latents(pipe, key, store=None):
@@ -1334,7 +1408,335 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
                           f"frames {frames.shape} {frames.dtype}")
         launches[f"decode-{name}"] = got
         report.append(line)
-    return report, launches
+    return report, launches, decoded["tiled"]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the tensor-parallel DiT, its ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# seed of the tp forward's weights and inputs
+TP_SEED = 5
+TP_WORLDS = (2, 4)
+# a tp forward against the tp = 1 forward on the same card, relative L2: the
+# two sum the row-parallel products in another order and round each rank's
+# partial sum to bf16, which 34 bf16 blocks carry to the output. Over seeds
+# 5-8 (``--tp-seeds``, H100 80GB HBM3, 700 W) the sound runs read 4.26e-3 to
+# 4.51e-3 and the weakest control (bias on every rank, tp 2) 1.555e-2 to
+# 1.653e-2; the bound sits near their geometric mean, about 1.8x from each
+TP_BOUND = 8e-3
+# the controls a sound tp forward must not resemble: each rank keeps its FF
+# partial sum; each rank adds the out layers' bias before the all-reduce
+TP_CONTROLS = ("no_ff_all_reduce", "bias_on_every_rank")
+
+
+def tp_inputs(cfg, device, seed: int = TP_SEED):
+    """Seeded inputs of one DiT forward at the 5 s shape: a (1, 31, 64, 96,
+    33) latent (47,616 visual tokens after 1 x 2 x 2 patches), 256 text
+    tokens of which 200 are valid, a pooled embedding and t = 0.5."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(1, 31, 64, 96, cfg.visual_embed_dim, generator=g)
+    text = torch.randn(1, 256, cfg.in_text_dim, generator=g)
+    pooled = torch.randn(1, cfg.in_text_dim2, generator=g)
+    mask = torch.arange(256)[None] < 200
+    return (x.to(device, torch.bfloat16), text.to(device, torch.bfloat16),
+            pooled.to(device, torch.bfloat16),
+            torch.tensor([500.0], device=device), mask.to(device))
+
+
+class _NoSum:
+    """A group whose all-reduce leaves each rank's partial sum as it is."""
+
+    def all_reduce(self, x):
+        return x
+
+
+def _tp_forward_rank(tp, cfg_kw, controls, seed):
+    """One rank of a tp forward: its share of the DiT seeded with ``seed``
+    (weights and inputs), built one parameter at a time; the sound forward,
+    then each control. Returns per run the output (the controls' on rank 0
+    only), the wall and all-reduce seconds and the launch counts, reset
+    just before the forward."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from kandinsky5_tpu_torch.config import DiTParams
+    from kandinsky5_tpu_torch.models import dit as dit_mod
+    from kandinsky5_tpu_torch.models import nn as nn_mod
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DiTParams(**cfg_kw)
+    t = time.perf_counter()
+    model = fast_init_dit_shard(cfg, tp, seed=seed)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t,
+           "params": sum(p.numel() for p in model.parameters())}
+    args = tp_inputs(cfg, tp.device, seed)
+    real_ff = nn_mod.feed_forward
+
+    def ff_without_sum(p, x, tp=None):
+        return real_ff(p, x, None if tp is None else _NoSum())
+
+    def bias_on_every_rank(layer, x, tp=None):
+        if tp is None:
+            return nn_mod.linear(layer, x)
+        return tp.all_reduce(F.linear(x, layer.weight, layer.bias))
+
+    patches = {"sound": (),
+               "no_ff_all_reduce": ((nn_mod, "feed_forward", ff_without_sum),),
+               "bias_on_every_rank": ((dit_mod, "row_parallel_linear",
+                                       bias_on_every_rank),)}
+    for name in ("sound",) + tuple(controls):
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in patches[name]:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tp.reset_stats()
+            _kernels.reset_launches()
+            t = time.perf_counter()
+            y = dit_mod.dit_forward(model, *args, scale_factor=(1.0, 2.0, 2.0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = dict(_kernels.LAUNCHES)
+        out[name] = dict(
+            y=y.float().cpu() if name == "sound" or tp.rank == 0 else None,
+            wall_s=wall, all_reduce_s=tp.seconds,
+            all_reduce_calls=tp.calls, all_reduce_bytes=tp.bytes,
+            launches=launches,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del y
+    return out
+
+
+def _tp_request_rank(tp, seconds, out_dir):
+    """One rank of the tp = 2 pipeline answering the 5 s path's image and
+    video requests (prompts, seed, weights and VAE as phase 4's); rank 0
+    decodes (tiled) and writes."""
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    conf = load_config(os.path.join(CONFIG_DIR, CONF5))
+    dit = fast_init_dit_shard(conf.model.dit_params, tp, seed=0)
+    vae = None
+    if tp.rank == 0:
+        vae = HunyuanVideoVAE(init_vae_params(device=tp.device,
+                                              dtype=torch.bfloat16, seed=1))
+    pipe = Kandinsky5T2VPipeline(dit, conf, SeededEmbedder(), vae, tp=tp)
+    requests = [("tp2 image", "a smoke-test image", 0, (1, 1, 512, 768, 3),
+                 "tp2_image.png"), _video("tp2", seconds, VIDEO_PROMPT)]
+    report, frames = [], None
+    _kernels.reset_launches()
+    for name, prompt, tl, shape, fname in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = pipe(prompt, time_length=tl, width=768, height=512, seed=42,
+                      expand_prompts=False,
+                      save_path=os.path.join(out_dir, fname))
+        wall = time.perf_counter() - t
+        tm = dict(pipe.timings)
+        line = dict(request=name, rank=tp.rank, wall_s=wall,
+                    s_per_step=tm["denoise_s"] / tm["steps"],
+                    denoise_s=tm["denoise_s"], steps=tm["steps"],
+                    all_reduce_s=tm["all_reduce_s"],
+                    all_reduce_calls=tm["all_reduce_calls"],
+                    all_reduce_bytes=tm["all_reduce_bytes"],
+                    latents_finite=tm["latents_finite"])
+        if tp.rank == 0:
+            saved = tm["saved"][0]
+            line.update(decode_s=tm["decode_s"], saved=saved,
+                        saved_bytes=os.path.getsize(saved),
+                        frames=list(frames.shape),
+                        frames_ok=bool(frames.shape == shape
+                                       and frames.dtype == np.uint8
+                                       and float(frames.std()) > 0.0))
+        elif frames is not None:
+            raise Failure(f"rank {tp.rank} returned frames")
+        report.append(line)
+    return dict(report=report, launches=dict(_kernels.LAUNCHES),
+                video=frames)
+
+
+def tp_forwards(dev, cfg, seed: int = TP_SEED):
+    """One DiT forward at full width and depth at the 5 s shape on one
+    device, then as tp = 2 and tp = 4 ranks sharing the card over gloo, each
+    held against it with TP_BOUND and with the controls, which must fail
+    it; launch counts per rank exact. Weights and inputs seeded with
+    ``seed``. Returns the launches, the report and what failed."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel import launch
+
+    n_text, n_vis = cfg.num_text_blocks, cfg.num_visual_blocks
+    dit = fast_init_dit_params(cfg, device=dev, seed=seed)
+    args = tp_inputs(cfg, dev, seed)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    ref = dit_forward(dit, *args, scale_factor=(1.0, 2.0, 2.0))
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t
+    got1 = dict(_kernels.LAUNCHES)
+    ref = ref.float().cpu()
+    del dit, args
+    torch.cuda.empty_cache()
+    log(f"  tp 1 (seed {seed}): forward {wall1:.3f} s, output {tuple(ref.shape)}, launches "
+        f"K1 {got1['K1_flash_fixed']} K2 {got1['K2_ff_mod']} K8 "
+        f"{got1['K8_ff']}")
+    want1 = {"K1_flash_fixed": n_text + n_vis, "K2_ff_mod": n_text + n_vis,
+             "K8_ff": 0}
+    wrong = {k: (got1[k], n) for k, n in want1.items() if got1[k] != n}
+    if wrong or not bool(torch.isfinite(ref).all()):
+        raise Failure(f"tp 1 forward: launches (got, want) {wrong}")
+
+    launches, report, failed = {}, [], []
+    want = {"K8_ff": n_vis, "K1_flash_fixed": n_text + n_vis, "K2_ff_mod": 0}
+    for world in TP_WORLDS:
+        t = time.perf_counter()
+        res = launch(_tp_forward_rank, world, "gloo", "cuda",
+                     args=(dataclasses.asdict(cfg), TP_CONTROLS, seed),
+                     timeout=900)
+        total = time.perf_counter() - t
+        line = dict(request=f"tp{world} forward", seed=seed, launch_s=total,
+                    wall_s=[r["sound"]["wall_s"] for r in res],
+                    all_reduce_s=[r["sound"]["all_reduce_s"] for r in res],
+                    build_s=[r["build_s"] for r in res],
+                    peak_gib=[r["sound"]["peak_gib"] for r in res],
+                    params_per_rank=res[0]["params"])
+        bad = []
+        for rank, r in enumerate(res):
+            s = r["sound"]
+            rel, max_abs = _rel(s["y"], ref), (s["y"] - ref).abs().max().item()
+            line.setdefault("rel_l2", []).append(rel)
+            wrong = {k: (s["launches"][k], n) for k, n in want.items()
+                     if s["launches"][k] != n}
+            log(f"  tp {world} rank {rank}: forward {s['wall_s']:.3f} s, "
+                f"all-reduce {s['all_reduce_s']:.3f} s in "
+                f"{s['all_reduce_calls']} calls ({s['all_reduce_bytes'] / 2**30:.2f}"
+                f" GiB; gloo through the host, {world} ranks on one card), "
+                f"build {r['build_s']:.1f} s, {r['params']} params, peak "
+                f"{s['peak_gib']:.2f} GiB; against tp 1: rel_l2 {rel:.3e} "
+                f"max_abs {max_abs:.3e} (bound {TP_BOUND}); launches K8 "
+                f"{s['launches']['K8_ff']} K1 {s['launches']['K1_flash_fixed']}"
+                f" K2 {s['launches']['K2_ff_mod']}")
+            if (wrong or rel > TP_BOUND or s["all_reduce_calls"] != 3 * n_vis
+                    or not torch.equal(s["y"], res[0]["sound"]["y"])):
+                bad.append(f"rank {rank}: rel_l2 {rel:.3e}, launches (got, "
+                           f"want) {wrong}, {s['all_reduce_calls']} "
+                           "all-reduces, or unlike rank 0")
+        for name in TP_CONTROLS:
+            c = res[0][name]
+            rel = _rel(c["y"], ref)
+            line[f"{name}_rel_l2"] = rel
+            fails = rel > TP_BOUND
+            log(f"  tp {world} control ({name}): rel_l2 {rel:.3e} "
+                f"{'fails the bound' if fails else 'PASSES'}")
+            if not fails:
+                bad.append(f"control {name} passes the bound")
+        launches[f"tp{world}-forward"] = {
+            k: sum(r["sound"]["launches"][k] for r in res) for k in got1}
+        report.append(line)
+        del res
+        if bad:
+            failed.append(f"tp {world} forward (seed {seed}): "
+                          f"{'; '.join(bad)}")
+    return launches, report, failed
+
+
+def phase_tp(dev, conf5, seconds5: int, tiled_frames, out_dir: str):
+    """(a) :func:`tp_forwards` at TP_SEED. (b) The tp = 2 pipeline answers
+    the 5 s path's image and video requests; the video's frames against
+    phase 4's tiled decode of the same request (PSNR)."""
+    from kandinsky5_tpu_torch.parallel import launch
+
+    launches, report, failed = tp_forwards(dev, conf5.model.dit_params)
+    if failed:
+        raise Failure("; ".join(failed))
+    n_text = conf5.model.dit_params.num_text_blocks
+    n_vis = conf5.model.dit_params.num_visual_blocks
+    log(f"  tp 2 pipeline ({os.path.basename(CONF5)}, {conf5.model.num_steps}"
+        " steps): the image and the video requests, rank 0 decodes tiled")
+    res = launch(_tp_request_rank, 2, "gloo", "cuda",
+                 args=(seconds5, out_dir), timeout=900)
+    steps = conf5.model.num_steps
+    want = {"K8_ff": 2 * n_vis * steps,
+            "K1_flash_fixed": 2 * (n_text + n_vis) * steps, "K2_ff_mod": 0}
+    bad = []
+    for rank, r in enumerate(res):
+        got = r["launches"]
+        wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        decoded = got["K3_conv3d"] + got["K3_conv3d_fused"]
+        if wrong or (decoded > 0) != (rank == 0):
+            bad.append(f"rank {rank}: launches (got, want) {wrong}, K3 "
+                       f"{decoded}")
+        for line in r["report"]:
+            share = line["all_reduce_s"] / line["denoise_s"]
+            line["all_reduce_share"] = share
+            log(f"  {line['request']} rank {rank}: {line['s_per_step']:.4f} "
+                f"s/step ({line['steps']} steps), all-reduce "
+                f"{line['all_reduce_s']:.3f} s in {line['all_reduce_calls']} "
+                f"calls = {share:.3f} of the denoise (gloo through the host, "
+                "2 ranks on one card)"
+                + (f"; decode (tiled) {line['decode_s']:.3f} s, frames "
+                   f"{line['frames']}, wrote {line['saved']} "
+                   f"({line['saved_bytes']} bytes)" if rank == 0 else ""))
+            if not line["latents_finite"] or (rank == 0
+                                               and not line["frames_ok"]):
+                bad.append(f"{line['request']} rank {rank}: bad output")
+            report.append(line)
+    db = psnr(res[0]["video"], tiled_frames)
+    res[0]["report"][-1]["psnr_vs_tp1_tiled_db"] = db
+    log(f"  tp 2 video: frame PSNR against the tp 1 request's tiled decode "
+        f"{db:.2f} dB")
+    launches["tp2-requests"] = {
+        k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+    if bad:
+        raise Failure("tp 2 requests: " + "; ".join(bad))
+    return launches, report
+
+
+def tp_seed_study(dev, seeds) -> int:
+    """Phase 5's tp forwards and controls for each seed; prints one JSON
+    line of readings. 0 when every seed's sound runs pass TP_BOUND and
+    every control fails it."""
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+    from kandinsky5_tpu_torch.tools import gpu_line
+
+    cfg = load_config(os.path.join(CONFIG_DIR, CONF5)).model.dit_params
+    rows, failed = [], []
+    for seed in seeds:
+        t = time.perf_counter()
+        _, report, bad = tp_forwards(dev, cfg, seed)
+        failed += bad
+        for line in report:
+            rows.append({k: line[k] for k in (
+                "request", "seed", "rel_l2", "no_ff_all_reduce_rel_l2",
+                "bias_on_every_rank_rel_l2", "wall_s", "all_reduce_s")})
+        log(f"  seed {seed}: {time.perf_counter() - t:.1f} s")
+    log(gpu_line())
+    log(json.dumps({"tp_bound": TP_BOUND, "tp_seeds": rows,
+                    "failed": failed}))
+    return 1 if failed else 0
 
 
 def main() -> int:
@@ -1345,6 +1747,11 @@ def main() -> int:
                     "path 1 s)")
     ap.add_argument("--out", default="smoke_out",
                     help="directory for the written image and videos")
+    ap.add_argument("--tp-seeds", default=None,
+                    help="comma-separated seeds: build, then run only phase "
+                    "5's tp forwards and controls with each seed's weights "
+                    "and inputs, and print their readings (a study of "
+                    "TP_BOUND; no smoke result)")
     args = ap.parse_args()
     seconds5 = 1 if args.seconds == 10 else args.seconds
     seconds10 = 10 if args.seconds == 10 else 2
@@ -1380,6 +1787,8 @@ def main() -> int:
                 log("  " + line.strip())
         log(f"  build {info['seconds']:.1f} s")
         _kernels.library()
+        if args.tp_seeds:
+            return tp_seed_study(dev, [int(v) for v in args.tp_seeds.split(",")])
 
         log("phase 2: kernels vs plain versions (bf16, main-path shapes)")
         t = time.perf_counter()
@@ -1395,8 +1804,20 @@ def main() -> int:
         log(f"  phase 3 {time.perf_counter() - t:.1f} s")
 
         log("phase 4: pipeline at full width")
-        launches, report = phase_pipeline(dev, conf5, conf10, seconds5,
-                                          seconds10, args.out)
+        t = time.perf_counter()
+        launches, report, tiled = phase_pipeline(dev, conf5, conf10, seconds5,
+                                                 seconds10, args.out)
+        log(f"  phase 4 {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+
+        log("phase 5: tensor parallelism, 2 and 4 ranks sharing the card "
+            "(gloo)")
+        t = time.perf_counter()
+        tp_launches, tp_report = phase_tp(dev, conf5, seconds5, tiled,
+                                          args.out)
+        launches.update(tp_launches)
+        report += tp_report
+        log(f"  phase 5 {time.perf_counter() - t:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

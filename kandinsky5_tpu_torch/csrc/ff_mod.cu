@@ -20,6 +20,23 @@
 // product); the hidden round trip is 2 * rows * 7168 * 2 bytes, small next
 // to it. Weights stay in the torch (out, in) layout, which is exactly the
 // K-contiguous B operand mma.sync wants.
+//
+// K8: the plain fused FF, y = bf16(sum over ff of bf16(gelu_erf(x . W1^T))
+// . W2^T) with the second product summed in fp32 (no LN, modulation, gate,
+// residual or biases). Replaces kandinsky5_tpu/ops/ff_pallas.py _ff_kernel
+// (reached via fused_ff), which the tensor-parallel DiT runs on each rank's
+// W1 rows and W2 columns. Same split as K2 and for the same reason: MODE 2
+// is the up product with A = x as it is, MODE 3 the down product over the
+// whole (per-rank) ff width with the fp32 sum in registers. Bound: as K2.
+//
+// T3 (tools/bench_pallas_gemm.py _ff_kernel, both weights resident in
+// VMEM) is K8's entry at ff 7168: 51 MB of weights cannot stay in 227 KB
+// of shared memory, so both products stream their weight tiles through it.
+// T4 (tools/bench_pallas_gemm.py _ff_tiled_kernel) keeps the TPU kernel's
+// ff-chunk schedule: per chunk of bf columns, MODE 2 makes the (rows, bf)
+// hidden and MODE 4 adds its down product to an fp32 accumulator that lives
+// in device memory between the chunk launches (the TPU kernel's VMEM
+// scratch between grid steps); the last chunk writes the bf16 output.
 #include "common.cuh"
 
 namespace {
@@ -27,14 +44,20 @@ using namespace k5;
 
 constexpr float LN_EPS = 1e-5f;
 
-// MODE 0: ff_up (A = normalized x, epilogue gelu -> hidden)
-// MODE 1: ff_down (A = hidden, epilogue x + gate * acc -> out)
+// MODE 0: K2 up (A = normalized x, epilogue gelu -> hidden)
+// MODE 1: K2 down (A = hidden, epilogue x + gate * acc -> out)
+// MODE 2: K8 up (A = x, epilogue gelu -> hidden)
+// MODE 3: K8 down (A = hidden, epilogue acc -> out)
+// MODE 4: T4 down over one ff chunk (A = the chunk's hidden, epilogue
+//         acc32 (+)= acc, and on the last chunk out = bf16(acc32))
+// B is (N, K) with row stride ldb (K, but the ff width for a chunk of W2).
 template <int MODE>
 __global__ void __launch_bounds__(256)
 ff_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bw,
           const bf16* __restrict__ x, const float* __restrict__ scale,
           const float* __restrict__ shift, const float* __restrict__ gate,
-          bf16* __restrict__ C, int M, int N, int K, int L) {
+          bf16* __restrict__ C, float* __restrict__ acc32, int M, int N,
+          int K, int L, int ldb, int first, int last) {
   __shared__ __align__(16) bf16 As[GM * GST];
   __shared__ __align__(16) bf16 Bs[GN * GST];
   __shared__ float mean_s[GM], rstd_s[GM];
@@ -105,7 +128,7 @@ ff_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bw,
 
   const int nk = K / GK;
   load_a(0);
-  load_b_regs(Bw, K, n0, 0, br);
+  load_b_regs(Bw, ldb, n0, 0, br);
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();
     store_stage_regs(As, ar);
@@ -113,7 +136,7 @@ ff_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bw,
     __syncthreads();
     if (kt + 1 < nk) {
       load_a((kt + 1) * GK);
-      load_b_regs(Bw, K, n0, (kt + 1) * GK, br);
+      load_b_regs(Bw, ldb, n0, (kt + 1) * GK, br);
     }
     gemm_stage(As, Bs, acc);
   }
@@ -129,14 +152,25 @@ ff_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bw,
       for (int nt = 0; nt < 4; ++nt) {
         const int n = n0 + wn * 32 + nt * 8 + 2 * t;
         float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
-        if (MODE == 0) {
+        if (MODE == 0 || MODE == 2) {
           v0 = 0.5f * v0 * (1.f + erff(v0 * 0.7071067811865476f));
           v1 = 0.5f * v1 * (1.f + erff(v1 * 0.7071067811865476f));
-        } else {
+        } else if (MODE == 1) {
           const int bi = m / L;
           const float2 xr = unpack_f2(ld32(x + (size_t)m * N + n));
           v0 = xr.x + gate[(size_t)bi * N + n] * v0;
           v1 = xr.y + gate[(size_t)bi * N + n + 1] * v1;
+        } else if (MODE == 4) {
+          float2* a = reinterpret_cast<float2*>(acc32 + (size_t)m * N + n);
+          if (!first) {
+            const float2 prev = *a;
+            v0 = prev.x + v0;
+            v1 = prev.y + v1;
+          }
+          if (!last) {
+            *a = make_float2(v0, v1);
+            continue;
+          }
         }
         *reinterpret_cast<uint32_t*>(C + (size_t)m * N + n) = pack_f2(v0, v1);
       }
@@ -156,12 +190,71 @@ extern "C" int k5_ff_mod(const void* x, const void* scale, const void* shift,
   dim3 g1((M + GM - 1) / GM, FF / GN);
   ff_kernel<0><<<g1, 256, 0, s>>>((const bf16*)x, (const bf16*)w1, nullptr,
                                   (const float*)scale, (const float*)shift,
-                                  nullptr, (bf16*)hidden, M, FF, D, L);
+                                  nullptr, (bf16*)hidden, nullptr, M, FF, D,
+                                  L, D, 1, 1);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dim3 g2((M + GM - 1) / GM, D / GN);
   ff_kernel<1><<<g2, 256, 0, s>>>((const bf16*)hidden, (const bf16*)w2,
                                   (const bf16*)x, nullptr, nullptr,
-                                  (const float*)gate, (bf16*)out, M, D, FF, L);
+                                  (const float*)gate, (bf16*)out, nullptr, M,
+                                  D, FF, L, FF, 1, 1);
   return (int)cudaGetLastError();
+}
+
+// K8 (and T3): x (M, D) bf16; w1 (FF, D), w2 (D, FF) bf16; hidden (M, FF)
+// bf16 scratch; out (M, D) bf16.
+extern "C" int k5_ff(const void* x, const void* w1, const void* w2,
+                     void* hidden, void* out, int M, int D, int FF,
+                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 g1((M + GM - 1) / GM, FF / GN);
+  ff_kernel<2><<<g1, 256, 0, s>>>((const bf16*)x, (const bf16*)w1, nullptr,
+                                  nullptr, nullptr, nullptr, (bf16*)hidden,
+                                  nullptr, M, FF, D, 1, D, 1, 1);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 g2((M + GM - 1) / GM, D / GN);
+  ff_kernel<3><<<g2, 256, 0, s>>>((const bf16*)hidden, (const bf16*)w2,
+                                  nullptr, nullptr, nullptr, nullptr,
+                                  (bf16*)out, nullptr, M, D, FF, 1, FF, 1, 1);
+  return (int)cudaGetLastError();
+}
+
+// T4: as k5_ff over ff chunks of BF columns; hidden (M, BF) bf16 and acc
+// (M, D) fp32 scratch. parts selects the kernels, for a timing split: 1 the
+// up kernels, 2 the down kernels (MODE 4), 4 the down kernels as MODE 3
+// (no fp32 accumulator: each chunk overwrites out). T4 is parts = 3.
+extern "C" int k5_ff_chunked(const void* x, const void* w1, const void* w2,
+                             void* hidden, void* acc, void* out, int M, int D,
+                             int FF, int BF, int parts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nj = FF / BF;
+  cudaError_t e = cudaSuccess;
+  for (int j = 0; j < nj; ++j) {
+    if (parts & 1) {
+      dim3 g1((M + GM - 1) / GM, BF / GN);
+      ff_kernel<2><<<g1, 256, 0, s>>>(
+          (const bf16*)x, (const bf16*)w1 + (size_t)j * BF * D, nullptr,
+          nullptr, nullptr, nullptr, (bf16*)hidden, nullptr, M, BF, D, 1, D,
+          1, 1);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    dim3 g2((M + GM - 1) / GM, D / GN);
+    if (parts & 2) {
+      ff_kernel<4><<<g2, 256, 0, s>>>(
+          (const bf16*)hidden, (const bf16*)w2 + (size_t)j * BF, nullptr,
+          nullptr, nullptr, nullptr, (bf16*)out, (float*)acc, M, D, BF, 1, FF,
+          j == 0, j == nj - 1);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    if (parts & 4) {
+      ff_kernel<3><<<g2, 256, 0, s>>>(
+          (const bf16*)hidden, (const bf16*)w2 + (size_t)j * BF, nullptr,
+          nullptr, nullptr, nullptr, (bf16*)out, nullptr, M, D, BF, 1, FF, 1,
+          1);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+  }
+  return 0;
 }

@@ -18,6 +18,15 @@
 // instances share the byte geometry: a 32-byte-deep product step reads the
 // same offsets for either type (common.cuh). M and N must be multiples of
 // 128 and the row length in bytes a multiple of 64; the wrapper checks.
+//
+// T2: the row-block GEMM probe y = bf16(x . W^T), fp32 accumulation.
+// Replaces tools/bench_pallas_gemm.py _gemm_kernel (reached via
+// pallas_gemm), which keeps the whole (1792, 1792) weight resident in VMEM
+// and walks 512-row blocks of x. It is T1's bf16 instance with a bf16
+// epilogue (each fp32 sum rounded once): at 6.4 MB the weight cannot stay
+// in shared memory here, so its 128 x 32 tiles stream through the same two
+// cp.async stages as x's, and the 50 MB L2 keeps it on chip across blocks.
+// Bound: tensor-core rate (2 * 47616 * 1792^2 = 0.306 TFLOP, 0.31 ms).
 #include <type_traits>
 
 #include "common.cuh"
@@ -28,7 +37,7 @@ using namespace k5;
 constexpr int TM = 128, TN = 128, KB = 64;  // tile rows, cols, K bytes a step
 constexpr int ST = KB + 16;                 // smem row stride in bytes
 
-template <bool I8>
+template <bool I8, bool BF16_OUT = false>
 __global__ void __launch_bounds__(256)
 gemm_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
             void* __restrict__ C, int N, int kbytes) {
@@ -96,6 +105,21 @@ gemm_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
     __syncthreads();
   }
 
+  if constexpr (BF16_OUT) {
+    bf16* c = reinterpret_cast<bf16*>(C);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const size_t row = m0 + wm * 64 + mt * 16 + g;
+        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(c + row * N + col) =
+            pack_f2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<uint32_t*>(c + (row + 8) * N + col) =
+            pack_f2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+    return;
+  }
   Acc* c = reinterpret_cast<Acc*>(C);
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -128,6 +152,15 @@ extern "C" int k5_gemm_bf16(const void* a, const void* b, void* c, int M, int N,
                             int K, void* stream) {
   dim3 grid(N / TN, M / TM);
   gemm_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)a, (const uint8_t*)b, c, N, 2 * K);
+  return (int)cudaGetLastError();
+}
+
+// T2: a (M, K) bf16, b (N, K) bf16 -> c (M, N) bf16.
+extern "C" int k5_gemm_bf16_out(const void* a, const void* b, void* c, int M,
+                                int N, int K, void* stream) {
+  dim3 grid(N / TN, M / TM);
+  gemm_kernel<false, true><<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)a, (const uint8_t*)b, c, N, 2 * K);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,20 @@ prologue / visual blocks / epilogue is kept. With :class:`SparseParams`
 order in the prologue, every visual self-attention runs NABLA
 (``ops/nabla.py``, kernel K6) and the epilogue restores the order; text
 blocks and cross-attention stay dense.
+
+Tensor parallelism: a model built with ``tp=TensorParallel(...)`` (see
+``parallel/sharding.py`` ``shard_dit`` and ``fast_init_dit_shard``) is one
+rank's share, and :func:`dit_forward` computes what the JAX DiT computes
+under a ``(1, 1, tp)`` mesh. Each visual block's self- and cross-attention
+project the rank's num_heads / tp heads (Q/K/V column parallel, with their
+biases; the QK RMSNorm is per head and stays local), attend over them, and
+sum the row-parallel out layer over the group before adding its bias once;
+the FF is the Megatron FF with K8 (``models/nn.py`` ``feed_forward``). The
+residual stream, the modulations, the embeddings, RoPE, the text blocks and
+the out layer are replicated: every rank computes them whole. The JAX
+package shards the residual over the sequence between blocks
+(``constrain_seq``), a placement that changes no arithmetic; plain
+Megatron keeps it replicated, as here.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from kandinsky5_tpu_torch.models.nn import (
     apply_gate_sum,
     apply_rotary,
     apply_scale_shift_norm,
+    feed_forward,
     linear,
     modulated_feed_forward,
     modulation,
@@ -40,12 +55,13 @@ from kandinsky5_tpu_torch.models.nn import (
     rms_norm,
     rope_1d,
     rope_3d,
+    row_parallel_linear,
     text_embeddings,
     time_embeddings,
     unpatchify,
     visual_embeddings,
 )
-from kandinsky5_tpu_torch.ops.attention import attention
+from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS, attention
 from kandinsky5_tpu_torch.ops.fractal import fractal_flatten, fractal_unflatten
 from kandinsky5_tpu_torch.ops.nabla import nabla_attention
 from kandinsky5_tpu_torch.utils import default_device
@@ -72,16 +88,19 @@ class TransformerEncoderBlock(nn.Module):
 
 
 class TransformerDecoderBlock(nn.Module):
-    """Visual block: AdaLN self-attention + cross-attention + modulated FF."""
+    """Visual block: AdaLN self-attention + cross-attention + modulated FF;
+    with ``tp > 1`` one rank's share of its attention and FF."""
 
-    def __init__(self, cfg: DiTParams, device=None, dtype=None):
+    def __init__(self, cfg: DiTParams, device=None, dtype=None, tp: int = 1):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.visual_modulation = Modulation(cfg.time_dim, cfg.model_dim, 9,
                                             **kw)
-        self.self_attention = Attention(cfg.model_dim, cfg.head_dim, **kw)
-        self.cross_attention = Attention(cfg.model_dim, cfg.head_dim, **kw)
-        self.feed_forward = FeedForward(cfg.model_dim, cfg.ff_dim, **kw)
+        self.self_attention = Attention(cfg.model_dim, cfg.head_dim, tp=tp,
+                                        **kw)
+        self.cross_attention = Attention(cfg.model_dim, cfg.head_dim, tp=tp,
+                                         **kw)
+        self.feed_forward = FeedForward(cfg.model_dim, cfg.ff_dim // tp, **kw)
 
 
 class OutLayer(nn.Module):
@@ -94,11 +113,21 @@ class OutLayer(nn.Module):
 
 
 class DiffusionTransformer3D(nn.Module):
-    """Parameter tree of the DiT; :func:`dit_forward` runs it."""
+    """Parameter tree of the DiT; :func:`dit_forward` runs it. With ``tp``
+    (a :class:`~kandinsky5_tpu_torch.parallel.TensorParallel`) the visual
+    blocks hold that rank's share and the forward runs its collectives
+    over ``tp``. ``model.tp`` is the group when it spans more than one rank,
+    else None: a group of one runs the single-device path, K2 included."""
 
-    def __init__(self, cfg: DiTParams, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg: DiTParams, device=None, dtype=torch.bfloat16,
+                 tp=None):
         super().__init__()
         self.cfg = cfg
+        n = 1 if tp is None else tp.size
+        self.tp = tp if n > 1 else None
+        if cfg.num_heads % n or cfg.ff_dim % n:
+            raise ValueError(f"{cfg.num_heads} heads and ff_dim {cfg.ff_dim} "
+                             f"do not split over {n} ranks")
         kw = dict(device=device, dtype=dtype)
         self.time_embeddings = TimeEmbeddings(cfg.model_dim, cfg.time_dim, **kw)
         self.text_embeddings = TextEmbeddings(cfg.in_text_dim, cfg.model_dim,
@@ -111,7 +140,7 @@ class DiffusionTransformer3D(nn.Module):
             TransformerEncoderBlock(cfg, **kw)
             for _ in range(cfg.num_text_blocks))
         self.visual_transformer_blocks = nn.ModuleList(
-            TransformerDecoderBlock(cfg, **kw)
+            TransformerDecoderBlock(cfg, tp=n, **kw)
             for _ in range(cfg.num_visual_blocks))
         self.out_layer = OutLayer(cfg, **kw)
 
@@ -133,8 +162,10 @@ def _mod_params(mod_vec, n: int):
 
 
 def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl,
-                    sparse: Optional[SparseParams] = None):
-    b, l, d = x.shape
+                    sparse: Optional[SparseParams] = None, tp=None):
+    """``num_heads`` is the heads this rank holds; with ``tp`` the out layer
+    is row parallel over it."""
+    b, l, _ = x.shape
     q, k, v = qkv_proj(p, x, num_heads)
     if rope is not None:
         cos, sin = rope
@@ -144,11 +175,11 @@ def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl,
         out = nabla_attention(q, k, v, sparse.sta, thr=sparse.P)
     else:
         out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
-    return linear(p.out_layer, out.reshape(b, l, d))
+    return row_parallel_linear(p.out_layer, out.reshape(b, l, -1), tp)
 
 
-def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl):
-    b, l, d = x.shape
+def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl, tp=None):
+    b, l, _ = x.shape
     bc, lc, _ = cond.shape
     q = linear(p.to_query, x).reshape(b, l, num_heads, -1)
     k = linear(p.to_key, cond).reshape(bc, lc, num_heads, -1)
@@ -156,36 +187,48 @@ def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl):
     q = rms_norm(q, p.query_norm.weight).to(x.dtype)
     k = rms_norm(k, p.key_norm.weight).to(x.dtype)
     out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
-    return linear(p.out_layer, out.reshape(b, l, d))
+    return row_parallel_linear(p.out_layer, out.reshape(b, l, -1), tp)
 
 
-def text_encoder_block(p, x, time_embed, rope, kv_mask, num_heads, attn_impl):
+def text_encoder_block(p, x, time_embed, rope, kv_mask, num_heads, attn_impl,
+                       mesh: bool = False):
+    """Text block; its weights are whole on every rank, so it runs no
+    collective. ``mesh``: the model runs under tensor parallelism, where K2
+    steps aside and the FF is the unfused chain, as in the JAX package
+    (whose K8 gate declines the 256 text rows)."""
     mod = modulation(p.text_modulation, time_embed)
     shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = _mod_params(mod, 6)
     out = apply_scale_shift_norm(x, scale_sa, shift_sa)
     out = _self_attention(p.self_attention, out, rope, num_heads, kv_mask,
                           attn_impl)
     x = apply_gate_sum(x, out, gate_sa)
+    if mesh:
+        out = feed_forward(p.feed_forward,
+                           apply_scale_shift_norm(x, scale_ff, shift_ff))
+        return apply_gate_sum(x, out, gate_ff)
     return modulated_feed_forward(p.feed_forward, x, scale_ff, shift_ff,
                                   gate_ff)
 
 
 def visual_decoder_block(p, visual, text, time_embed, rope, text_mask,
                          num_heads, attn_impl,
-                         sparse: Optional[SparseParams] = None):
+                         sparse: Optional[SparseParams] = None, tp=None):
+    """Visual block; with ``tp`` the rank's share (``num_heads`` / tp heads
+    of attention, ff_dim / tp of the FF) and its collectives."""
+    heads = num_heads if tp is None else num_heads // tp.size
     mod = modulation(p.visual_modulation, time_embed)
     (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
      shift_ff, scale_ff, gate_ff) = _mod_params(mod, 9)
     out = apply_scale_shift_norm(visual, scale_sa, shift_sa)
-    out = _self_attention(p.self_attention, out, rope, num_heads, None,
-                          attn_impl, sparse)
+    out = _self_attention(p.self_attention, out, rope, heads, None,
+                          attn_impl, sparse, tp)
     visual = apply_gate_sum(visual, out, gate_sa)
     out = apply_scale_shift_norm(visual, scale_ca, shift_ca)
-    out = _cross_attention(p.cross_attention, out, text, num_heads, text_mask,
-                           attn_impl)
+    out = _cross_attention(p.cross_attention, out, text, heads, text_mask,
+                           attn_impl, tp)
     visual = apply_gate_sum(visual, out, gate_ca)
     return modulated_feed_forward(p.feed_forward, visual, scale_ff, shift_ff,
-                                  gate_ff)
+                                  gate_ff, tp)
 
 
 def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
@@ -209,9 +252,10 @@ def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
 
     dev = x.device
     text_rope = rope_1d(torch.arange(text.shape[1], device=dev), cfg.head_dim)
+    mesh = model.tp is not None
     for blk in model.text_transformer_blocks:
         text = text_encoder_block(blk, text, time_embed, text_rope, text_mask,
-                                  cfg.num_heads, attn_impl)
+                                  cfg.num_heads, attn_impl, mesh)
     positions = tuple(torch.arange(g, device=dev) for g in grid)
     cos, sin = rope_3d(grid, positions, cfg.axes_dims, scale_factor)
     if to_fractal:
@@ -225,10 +269,15 @@ def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, r
                       text_mask, attn_impl: str = "auto",
                       sparse: Optional[SparseParams] = None):
     """The visual block stack as a Python loop."""
+    tp = model.tp
+    if tp is not None and (sparse is not None or attn_impl in INT8_IMPLS):
+        raise ValueError(
+            "NABLA and int8-QK attention under tensor parallelism are not "
+            "ported yet (ROADMAP.md, queue 1, item 1)")
     for blk in model.visual_transformer_blocks:
         visual = visual_decoder_block(blk, visual, text, time_embed, rope,
                                       text_mask, model.cfg.num_heads, attn_impl,
-                                      sparse)
+                                      sparse, tp)
     return visual
 
 

@@ -14,6 +14,13 @@ the JAX package's cast points:
 W8A8: :func:`quantize_linear` turns an ``nn.Linear`` into an
 :class:`Int8Linear` (int8 weight per out channel), which :func:`linear`
 runs with per-token int8 activations (``_linear_i8``).
+
+Tensor parallelism (the JAX package under a ``(1, 1, tp)`` mesh): an
+:class:`Attention` or :class:`FeedForward` built with ``tp > 1`` holds one
+rank's columns of Q/K/V and of the FF in layer and its rows of the out
+layers; :func:`row_parallel_linear` and :func:`feed_forward` sum the
+partial products over the group (a
+:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`).
 """
 
 from __future__ import annotations
@@ -27,7 +34,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from kandinsky5_tpu_torch.ops.ff import fused_ff_modulated
+from kandinsky5_tpu_torch.ops.ff import (
+    ff_supported,
+    fused_ff,
+    fused_ff_modulated,
+)
 
 # torch.nn.LayerNorm default eps
 LAYERNORM_EPS = 1e-5
@@ -79,17 +90,20 @@ class Modulation(nn.Module):
 
 
 class Attention(nn.Module):
-    """Self- or cross-attention projections with QK-RMSNorm."""
+    """Self- or cross-attention projections with QK-RMSNorm; with ``tp >
+    1`` one rank's share: dim / tp output rows of Q/K/V (whole heads) and
+    the out layer's dim / tp input columns."""
 
-    def __init__(self, dim, head_dim, device=None, dtype=None):
+    def __init__(self, dim, head_dim, device=None, dtype=None, tp: int = 1):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.to_query = nn.Linear(dim, dim, **kw)
-        self.to_key = nn.Linear(dim, dim, **kw)
-        self.to_value = nn.Linear(dim, dim, **kw)
+        local = dim // tp
+        self.to_query = nn.Linear(dim, local, **kw)
+        self.to_key = nn.Linear(dim, local, **kw)
+        self.to_value = nn.Linear(dim, local, **kw)
         self.query_norm = Norm(head_dim, **kw)
         self.key_norm = Norm(head_dim, **kw)
-        self.out_layer = nn.Linear(dim, dim, **kw)
+        self.out_layer = nn.Linear(local, dim, **kw)
 
 
 class Int8Linear(nn.Module):
@@ -310,28 +324,63 @@ def modulation(p, time_embed):
     return linear(p.out_layer, F.silu(time_embed.float()), dtype=torch.float32)
 
 
-def feed_forward(p, x):
-    """Linear -> exact GELU -> Linear, no biases."""
+def sharded_fused_ff(x, w1, w2, tp):
+    """The Megatron FF with K8 on each rank (the JAX ``_sharded_fused_ff``):
+    the rank's W1 rows (column parallel) and W2 columns (row parallel)
+    through ``ops.ff.fused_ff``, then the sum over the group. None when the
+    JAX package would not take it, for shapes its gate declines on the
+    rank's share (then the caller runs the chain)."""
+    if not ff_supported(x, w1, w2):
+        return None
+    return tp.all_reduce(fused_ff(x, w1, w2))
+
+
+def feed_forward(p, x, tp=None):
+    """Linear -> exact GELU -> Linear, no biases. With ``tp`` the layer
+    holds one rank's share and the result is summed over the group: K8 where
+    :func:`sharded_fused_ff` takes it, else the chain on the share."""
+    if tp is not None:
+        y = sharded_fused_ff(x, p.in_layer.weight, p.out_layer.weight, tp)
+        if y is not None:
+            return y
     h = F.gelu(linear(p.in_layer, x), approximate="none")
-    return linear(p.out_layer, h)
+    y = linear(p.out_layer, h)
+    return y if tp is None else tp.all_reduce(y)
 
 
-def modulated_feed_forward(p, x, scale, shift, gate):
+def row_parallel_linear(layer: nn.Linear, x, tp=None):
+    """y = x W^T + b where the layer holds one rank's input columns of W:
+    the partial product in the layer's dtype, its sum over ``tp``, then the
+    bias, added once (on every rank before the sum it would count tp
+    times). Without ``tp``, :func:`linear`."""
+    if tp is None:
+        return linear(layer, x)
+    ct = torch.promote_types(x.dtype, layer.weight.dtype)
+    y = tp.all_reduce(F.linear(x.to(ct), layer.weight.to(ct)))
+    if layer.bias is not None:
+        y = y + layer.bias.to(ct)
+    return y.to(x.dtype)
+
+
+def modulated_feed_forward(p, x, scale, shift, gate, tp=None):
     """apply_scale_shift_norm -> feed_forward -> apply_gate_sum as one op.
-    Runs as K2 (``ops/ff.py``) when both projections are plain bias-free
-    linears and the modulation is per batch item; K2's own wrapper takes
-    the plain version on the CPU. W8A8 projections (:class:`Int8Linear`)
-    take the unfused chain, as the JAX routing does. scale/shift/gate:
-    (B, 1, D)."""
+    On one device it runs as K2 (``ops/ff.py``) when both projections are
+    plain bias-free linears and the modulation is per batch item; K2's own
+    wrapper takes the plain version on the CPU. W8A8 projections
+    (:class:`Int8Linear`) take the unfused chain, as the JAX routing does.
+    Under tensor parallelism (``tp``) K2 steps aside, as in the JAX
+    package: the norm and the gate run plain and the FF through
+    :func:`feed_forward` over ``tp``. scale/shift/gate: (B, 1, D)."""
     b = x.shape[0]
-    if (isinstance(p.in_layer, nn.Linear) and isinstance(p.out_layer, nn.Linear)
+    if (tp is None and isinstance(p.in_layer, nn.Linear)
+            and isinstance(p.out_layer, nn.Linear)
             and p.in_layer.bias is None and p.out_layer.bias is None
             and scale.shape == (b, 1, x.shape[-1])):
         return fused_ff_modulated(x, scale[:, 0], shift[:, 0],
                                   p.in_layer.weight, p.out_layer.weight,
                                   gate[:, 0])
     out = apply_scale_shift_norm(x, scale, shift)
-    out = feed_forward(p, out)
+    out = feed_forward(p, out, tp)
     return apply_gate_sum(x, out, gate)
 
 

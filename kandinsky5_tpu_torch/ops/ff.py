@@ -1,15 +1,22 @@
-"""AdaLN-modulated feed-forward: kernel K2 beside its plain PyTorch version.
+"""The fused feed-forwards: kernels K2 and K8 beside their plain PyTorch
+versions.
 
-Counterpart of ``kandinsky5_tpu/ops/ff_pallas.py`` (``fused_ff_modulated``
-with ``use_gate=True``):
+Counterpart of ``kandinsky5_tpu/ops/ff_pallas.py``. K2 is
+``fused_ff_modulated`` with ``use_gate=True``:
 
     y = x + gate * [ gelu_erf(bf16(LN(x) * (1 + scale) + shift) @ W1^T) @ W2^T ]
 
-LayerNorm in fp32 with eps 1e-5 and no affine; the hidden activation is
-made in fp32 and cast to x.dtype before the second product; the second
-product accumulates in fp32; no biases. Weights are in the torch (out, in)
-layout of ``nn.Linear``: w1 (FF, D), w2 (D, FF). A CPU tensor goes to the
-plain version, a CUDA tensor to ``csrc/ff_mod.cu`` (or raises).
+LayerNorm in fp32 with eps 1e-5 and no affine. K8 is ``fused_ff``, the same
+FF with no LayerNorm, modulation, gate or residual:
+
+    y = bf16( sum over ff of bf16(gelu_erf(x @ W1^T)) @ W2^T )
+
+In both the hidden activation is made in fp32 and cast to x.dtype before the
+second product, the second product accumulates in fp32, and there are no
+biases. Weights are in the torch (out, in) layout of ``nn.Linear``: w1 (FF,
+D), w2 (D, FF). A CPU tensor goes to the plain version, a CUDA tensor to
+``csrc/ff_mod.cu`` (or raises). :func:`ff_supported` is the JAX package's
+gate for K8.
 """
 
 from __future__ import annotations
@@ -20,6 +27,10 @@ import torch.nn.functional as F
 from kandinsky5_tpu_torch.ops import _kernels
 
 LN_EPS = 1e-5
+# K8's routing gate, as in the JAX package: its row tile (rows below it stay
+# on the unfused chain) and its ff-chunk target
+_BS = 512
+_BF_TARGET = 2048
 
 
 def ff_mod_plain(x, scale, shift, w1, w2, gate):
@@ -56,3 +67,74 @@ def fused_ff_modulated(x, scale, shift, w1, w2, gate):
                     w1.data_ptr(), w2.data_ptr(), hidden.data_ptr(),
                     out.data_ptr(), b, l, d, ff)
     return out
+
+
+def _pick_bf(ff: int) -> int:
+    """Largest divisor of ff that is <= _BF_TARGET and lane-aligned (the JAX
+    package's ``_pick_bf``)."""
+    for bf in range(min(_BF_TARGET, ff), 127, -128):
+        if ff % bf == 0:
+            return bf
+    return ff
+
+
+def ff_supported(x, w1, w2) -> bool:
+    """Whether the JAX package sends this FF to its fused kernel
+    (``ff_pallas.ff_supported``): bf16 x and weights, D and FF multiples of
+    256, at least one 512-row tile and an ff chunk of at least 256. So the
+    256-row text blocks decline it. w1 (FF, D), w2 (D, FF)."""
+    if (x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16
+            or w2.dtype != torch.bfloat16):
+        return False
+    ff, d = w1.shape
+    if tuple(w2.shape) != (d, ff):
+        return False
+    rows = 1
+    for s in x.shape[:-1]:
+        rows *= s
+    return (x.shape[-1] == d and d % 256 == 0 and ff % 256 == 0
+            and rows >= _BS and _pick_bf(ff) >= 256)
+
+
+def ff_plain(x, w1, w2):
+    """Plain PyTorch K8: gelu_erf(x W1^T) in fp32, rounded to x.dtype, then
+    the fp32 product with W2 rounded once. x (..., D)."""
+    h = F.gelu(x.float() @ w1.float().T, approximate="none").to(x.dtype)
+    return (h.float() @ w2.float().T).to(x.dtype)
+
+
+def _ff_operands(name, x, w1, w2):
+    """Check K8's operands for the kernel and return x as (rows, D)."""
+    ff, d = w1.shape
+    if x.dtype != torch.bfloat16 or w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise ValueError(f"{name} takes bf16 x and weights")
+    if x.shape[-1] != d or tuple(w2.shape) != (d, ff) or d % 128 or ff % 128:
+        raise ValueError(f"{name} shapes: x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
+    x2 = x.reshape(-1, d)
+    _kernels.check_cuda(name, x=x2, w1=w1, w2=w2)
+    return x2
+
+
+def launch_ff(x, w1, w2, counter: str = "K8_ff"):
+    """One launch of K8's C entry (its up and down kernels) on CUDA
+    tensors, counted under ``counter``; the tools' T3 counts the same entry
+    as its own."""
+    x2 = _ff_operands(counter, x, w1, w2)
+    rows, d = x2.shape
+    ff = w1.shape[0]
+    hidden = torch.empty((rows, ff), dtype=x.dtype, device=x.device)
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    _kernels.launch("k5_ff", counter, x2.data_ptr(), w1.data_ptr(),
+                    w2.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows, d,
+                    ff)
+    return out.reshape(x.shape)
+
+
+def fused_ff(x, w1, w2):
+    """K8 wrapper: gelu_erf(x W1^T) W2^T. x (..., D) bf16, w1 (FF, D) and w2
+    (D, FF) bf16 with D and FF multiples of 128; any number of rows (the
+    kernel masks the ragged row tile, where the TPU kernel pads)."""
+    if x.device.type == "cpu":
+        return ff_plain(x, w1, w2)
+    return launch_ff(x, w1, w2)

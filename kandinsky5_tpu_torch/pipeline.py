@@ -16,7 +16,13 @@ and K6 whatever the impl; its text blocks then follow the impl.
 single-device default, "stream"; "tiled" is the reference's overlap-tiled
 decode (its parity gate and bench protocol). ``int8_conv=True`` runs the
 decoder's convs that the TPU kernel admits W8A8, as the JAX package's
-``KANDINSKY5_TPU_INT8_CONV`` does. ``get_T2V_pipeline`` and the Qwen/CLIP
+``KANDINSKY5_TPU_INT8_CONV`` does. ``tp`` (a
+:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`) makes this one rank
+of a tensor-parallel pipeline (the JAX package's ``get_T2V_pipeline(tp=)``
+mesh, tp axis only): the DiT is the rank's share (a full DiT is sharded
+here), every rank runs the same Euler loop on rank 0's noise, and rank 0
+alone decodes, tiled by default as the JAX package decodes on a mesh, and
+writes; the other ranks return None. ``get_T2V_pipeline`` and the Qwen/CLIP
 text towers wait for a later slice; the embedder passed in must offer
 ``encode(texts, type_of_content) -> TextEmbeddings`` (and
 ``expand_prompt`` when ``expand_prompts`` is set).
@@ -33,6 +39,7 @@ import torch
 from kandinsky5_tpu_torch.config import Config
 from kandinsky5_tpu_torch.models.dit import quantize_dit_params
 from kandinsky5_tpu_torch.models.vae import DECODE_MODES
+from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS
 from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
 
 DEFAULT_NEGATIVE = (
@@ -57,7 +64,20 @@ class TextEmbeddings(NamedTuple):
 class Kandinsky5T2VPipeline:
     def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
                  attn_impl: str = "auto", int8_linear: bool = False,
-                 decode_mode: Optional[str] = None, int8_conv: bool = False):
+                 decode_mode: Optional[str] = None, int8_conv: bool = False,
+                 tp=None):
+        if tp is not None:
+            if dit.tp is None:
+                from kandinsky5_tpu_torch.parallel.sharding import shard_dit
+
+                dit = shard_dit(dit, tp)
+            elif dit.tp is not tp:
+                raise ValueError("the DiT is sharded for another group")
+            tp = dit.tp  # None for a group of one
+        if tp is not None and (int8_linear or attn_impl in INT8_IMPLS):
+            raise ValueError("int8-QK attention and W8A8 under tensor "
+                             "parallelism are not ported yet (ROADMAP.md, "
+                             "queue 1, item 1)")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
@@ -69,7 +89,8 @@ class Kandinsky5T2VPipeline:
         self.conf = conf
         self.text_embedder = text_embedder
         self.vae = vae.replace(int8_conv=True) if int8_conv and vae else vae
-        self.decode_mode = decode_mode or "stream"
+        self.tp = tp
+        self.decode_mode = decode_mode or ("stream" if tp is None else "tiled")
         self.attn_impl = attn_impl
         self.resolution = conf.resolution
         if self.resolution not in RESOLUTIONS:
@@ -126,10 +147,11 @@ class Kandinsky5T2VPipeline:
         save_path: Optional[Union[str, List[str]]] = None,
         progress: bool = False,
         noise: Optional[torch.Tensor] = None,
-    ) -> np.ndarray:
+    ) -> Optional[np.ndarray]:
         """Generate (B, T, H, W, 3) uint8 frames; T = 1 for an image, else
         time_length * 24 // 4 + 1. ``noise`` (B, T', H/8, W/8, 16) replaces
-        the seeded noise."""
+        the seeded noise. Under ``tp`` rank 0 returns the frames and the
+        other ranks None."""
         num_steps = self.conf.model.num_steps if num_steps is None else num_steps
         guidance_weight = (self.conf.model.guidance_weight
                            if guidance_weight is None else guidance_weight)
@@ -157,16 +179,23 @@ class Kandinsky5T2VPipeline:
                 print(f"denoise step {i + 1}/{num_steps}", flush=True)
 
         _sync(self.device)
+        if self.tp is not None:
+            self.tp.reset_stats()
         t0 = time.perf_counter()
         latents = generate_latents(self.dit, spec, latent_shape, cond, uncond,
                                    seed=seed, noise=noise, on_step=on_step)
         finite = bool(torch.isfinite(latents).all())
         t1 = time.perf_counter()
+        self.timings = {"denoise_s": t1 - t0, "steps": num_steps,
+                        "cfg": spec.use_cfg, "latents_finite": finite}
+        if self.tp is not None:
+            self.timings.update(all_reduce_s=self.tp.seconds,
+                                all_reduce_calls=self.tp.calls,
+                                all_reduce_bytes=self.tp.bytes)
+            if self.tp.rank != 0:
+                return None
         frames = self.decode_latents(latents)
-        t2 = time.perf_counter()
-        self.timings = {"denoise_s": t1 - t0, "decode_s": t2 - t1,
-                        "steps": num_steps, "cfg": spec.use_cfg,
-                        "latents_finite": finite}
+        self.timings["decode_s"] = time.perf_counter() - t1
         if save_path is not None:
             self.timings["saved"] = self.save(frames, save_path, time_length)
         return frames

@@ -169,7 +169,8 @@ def generate_latents(model, spec: DenoiseSpec, shape, cond: dict,
     """Seed noise (or take ``noise``) and denoise. The noise is standard
     normal fp32 from ``generator`` (or one seeded with ``seed``) on the
     model's device; torch and JAX generators differ, so parity tests pass
-    ``noise`` explicitly."""
+    ``noise`` explicitly. Under tensor parallelism every rank integrates
+    rank 0's noise, broadcast, whatever seed the others were given."""
     device = next(model.parameters()).device
     if noise is None:
         if generator is None:
@@ -177,5 +178,7 @@ def generate_latents(model, spec: DenoiseSpec, shape, cond: dict,
                 0 if seed is None else seed)
         noise = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=device)
-    return denoise(model, spec, noise.to(device=device, dtype=torch.float32),
-                   cond, uncond, on_step=on_step)
+    noise = noise.to(device=device, dtype=torch.float32)
+    if model.tp is not None:
+        noise = model.tp.broadcast(noise.contiguous(), src=0)
+    return denoise(model, spec, noise, cond, uncond, on_step=on_step)

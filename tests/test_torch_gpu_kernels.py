@@ -1,4 +1,4 @@
-"""K1-K7 (K3 in all its modes), T1 and T5 on the card against their plain
+"""K1-K8 (K3 in all its modes), T1-T5 on the card against their plain
 PyTorch versions, at
 small shapes (ragged lengths, masks, kv lists) and at the shapes the 5 s
 distil and 10 s NABLA paths give them. K7 must equal K5 bit for bit, and
@@ -25,7 +25,12 @@ import torch
 
 from kandinsky5_tpu_torch.ops import _kernels
 from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused, conv3d_plain
-from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
+from kandinsky5_tpu_torch.ops.ff import (
+    ff_mod_plain,
+    ff_plain,
+    fused_ff,
+    fused_ff_modulated,
+)
 from kandinsky5_tpu_torch.ops.flash import (
     flash_fixed,
     flash_fixed_plain,
@@ -45,7 +50,10 @@ from kandinsky5_tpu_torch.tools.bench_i8_decomp import (
     i8_decomp,
     i8_decomp_plain,
 )
+from kandinsky5_tpu_torch.tools import bench_pallas_gemm
 from kandinsky5_tpu_torch.tools.bench_int8mm import gemm, gemm_plain, operands
+
+from . import _torch_tp_ranks
 
 pytestmark = pytest.mark.gpu
 
@@ -224,6 +232,44 @@ def test_k2_matches_plain(dev, b, l, d, ff):
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
 
 
+@pytest.mark.parametrize("lead,d,ff", [
+    ((600,), 256, 512), ((2, 300), 256, 1024), ((47616,), 1792, 7168 // 4),
+    ((1, 47616), 1792, 7168 // 2), ((47616,), 1792, 7168)])
+def test_k8_matches_plain(dev, lead, d, ff):
+    """K8 at ragged rows, leading dims and each tensor-parallel rank's
+    share of the 5 s FF (tp 4, 2, 1), at K2's bound: both sides round the
+    same hidden to bf16 and differ in the order of the fp32 sums."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((*lead, d), generator=g, device=dev).bfloat16()
+    w1 = (torch.randn((ff, d), generator=g, device=dev) / math.sqrt(d)).bfloat16()
+    w2 = (torch.randn((d, ff), generator=g, device=dev) / math.sqrt(ff)).bfloat16()
+    _kernels.reset_launches()
+    out = fused_ff(x, w1, w2)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and _kernels.LAUNCHES["K8_ff"] == 1
+    ref = ff_plain(x, w1, w2)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+    # the control: the last 128 hidden units (one tile) left out
+    assert _fails_bound(ff_plain(x, w1[:-128], w2[:, :-128]), ref, 6e-2, 1e-2)
+
+
+@pytest.mark.parametrize("name", ["T2_gemm", "T3_ff", "T4_ff_tiled"])
+@pytest.mark.parametrize("rows", [1024, 47616])
+def test_t2_t4_match_plain(dev, name, rows):
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, wo, w1, w2 = bench_pallas_gemm.operands(g, dev, rows)
+    case = {c[0]: c for c in bench_pallas_gemm.cases(x, wo, w1, w2)}[name]
+    _kernels.reset_launches()
+    out = case[1]()
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[name] == 1
+    ref = case[2]()
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+    assert _fails_bound(case[5](), ref, 6e-2, 1e-2)
+
+
 @pytest.mark.parametrize("t,h,w,cin,cout,time_padded", [
     (3, 8, 20, 128, 256, False), (5, 8, 20, 256, 128, True),
     (2, 64, 96, 512, 512, False)])
@@ -335,3 +381,37 @@ def test_launch_counters_count_kernel_launches(dev):
     assert _kernels.LAUNCHES["K3_conv3d_quant"] == 1
     assert _kernels.LAUNCHES["K3_quant_windows"] == 1
     assert _kernels.LAUNCHES["K3_conv3d"] == 1
+
+
+# a DiT whose visual FF K8 takes at tp 2 (256-wide model, 4 heads of 64,
+# ff 1024 -> 512 a rank, 512 visual tokens), small enough for a test
+TP_DIT = dict(in_visual_dim=16, out_visual_dim=16, in_text_dim=64,
+              in_text_dim2=32, time_dim=64, model_dim=256, ff_dim=1024,
+              num_text_blocks=1, num_visual_blocks=2, axes_dims=(16, 24, 24),
+              visual_cond=True)
+
+
+def test_tp_dit_on_one_card(dev):
+    """Two gloo ranks share the card: each runs its share of the bf16 DiT
+    (K1 on its 2 heads, K8 on its FF share, bf16 all-reduces through the
+    host) and both match the single-device forward (K2 FF) to bf16 rounding
+    through three blocks; K8 launches once per visual block, K2 never."""
+    from kandinsky5_tpu_torch.config import DiTParams
+    from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
+    from kandinsky5_tpu_torch.parallel import launch
+
+    cfg = DiTParams(**TP_DIT)
+    model = fast_init_dit_params(cfg, device=dev, seed=3)
+    ref = dit_forward(model, *_torch_tp_ranks.card_inputs(cfg, dev),
+                      scale_factor=(1.0, 2.0, 2.0)).float().cpu()
+    results = launch(_torch_tp_ranks.card_forward, 2, "gloo", "cuda",
+                     args=(TP_DIT, 3), timeout=600)
+    for out, launches, calls in results:
+        max_abs, rel = _err(out, ref)
+        assert rel < 2e-2, (max_abs, rel)
+        assert launches["K8_ff"] == cfg.num_visual_blocks
+        assert launches["K2_ff_mod"] == 0
+        assert launches["K1_flash_fixed"] == (cfg.num_text_blocks
+                                              + cfg.num_visual_blocks)
+        assert calls == 3 * cfg.num_visual_blocks
+    assert torch.equal(results[0][0], results[1][0])
