@@ -4,23 +4,28 @@
     python3 chip_smoke.py [--seconds 1|5|10] [--out DIR]
     python3 chip_smoke.py --tp-seeds 6,7,8   # phase 5's tp forwards and
                                              # controls at other seeds only
+    python3 chip_smoke.py --k1               # phase 2's K1 cases only
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
                source in parallel, sm_90a) and print ptxas' register /
-               shared-memory / spill report;
+               shared-memory / spill report and its warnings of serialized
+               wgmma;
   2. kernels — K1-K7 against their plain PyTorch versions on the card, in
-               bf16, at the shapes the 5 s and 10 s paths give them (every
+               bf16, at the shapes the 5 s and 10 s paths give them (K1
+               also at the tp = 2 and 4 ranks' shares of the 5 s shape's
+               heads and on a ragged, batched, masked case, each with its
+               achieved TFLOP/s and computed exp2 floor in the log; every
                decoder conv class for K3, plain and time_padded; K3's
                GroupNorm-fold + SiLU prologue at 128, 256 and 512 channels
                and with carried prefix planes; K3's W8A8 mode plain and with
                the prologue over several TPU W tiles, with a control that
                one scale for the whole tensor fails, and its window-max
                reduction; K6 at the 10 s shape under three masks: STA only,
-               ~15 % and ~35 % kept; K5 and K7 at K1's four shapes on one
-               shared pack_int8 call, K7 bit-equal to K5, K5's error
-               against K1 printed as the quantization error), the tools
-               kernels T5 (its four modes at the 5 s shape) and T1 (int8
+               ~15 % and ~35 % kept; K5 and K7 at K1's four main-path
+               shapes on one shared pack_int8 call, K7 bit-equal to K5,
+               K5's error against K1 printed as the quantization error), the
+               tools kernels T5 (its four modes at the 5 s shape) and T1 (int8
                exact, bf16, at 8192^3 and the DiT's projection shapes), K8 at
                each tensor-parallel rank's share of the 5 s FF (tp 1, 2,
                4) and the tools kernels T2-T4 at their tool's shapes,
@@ -299,8 +304,115 @@ def _sdpa(q, k, v, attn_mask=None):
                                                   attn_mask=attn_mask)
 
 
+def _max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def _clock_under(fn, seconds: float = 2.0) -> str:
+    """Run ``fn`` back to back for about ``seconds`` while ``nvidia-smi``
+    samples the SM clock and the power draw every 100 ms; their medians."""
+    import subprocess
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    rows = [[float(x) for x in line.split(",")] for line in out.splitlines()
+            if line.strip()][2:]  # the first samples precede the load
+    if not rows:
+        return "clock not sampled"
+    mid = len(rows) // 2
+    clk = sorted(r[0] for r in rows)[mid]
+    watts = sorted(r[1] for r in rows)[mid]
+    return f"SM clock {clk:.0f} MHz, {watts:.1f} W (medians of {len(rows)} samples)"
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _seeded(dev):
+    """Phase 2's generator and its maker of bf16 rows of unit RMS."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1234)
+
+    def normed(shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
+
+    return g, normed
+
+
+def phase_k1(dev, g, normed, results):
+    """K1 at visual self-attention's 5 s, 1 s and image sizes (47,616,
+    10,752 and 1,536 tokens), text self-attention (256 tokens, 77 valid),
+    the 5 s shape at the tp = 2 and 4 ranks' shares of the heads, and a
+    ragged, batched case (Lq 1000, Lk 700, a valid length per batch). The
+    log gives, beside the tensor-core bound, the achieved rate and an exp2
+    floor that is computed, not measured: one exp2 per (query, valid key)
+    at an assumed 16 per clock per SM (the special-function units' rate on
+    sm_90) at the card's highest SM clock; and the SM clock and power under
+    a steady run of the first case."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.flash import flash_fixed, flash_fixed_plain
+
+    exp2_rate = 16 * torch.cuda.get_device_properties(dev).multi_processor_count \
+        * _max_sm_clock_hz()
+    for b, lq, lk, h, valid in ((1, 47616, 47616, 28, None),
+                                (1, 10752, 10752, 28, None),
+                                (1, 1536, 1536, 28, None),
+                                (1, 256, 256, 28, (77,)),
+                                (1, 47616, 47616, 14, None),
+                                (1, 47616, 47616, 7, None),
+                                (2, 1000, 700, 3, (466, 140))):
+        q, k = normed((b, lq, h, 64)), normed((b, lk, h, 64))
+        v = torch.randn((b, lk, h, 64), generator=g, device=dev).bfloat16()
+        mask = None
+        if valid is not None:
+            mask = torch.arange(lk, device=dev)[None] \
+                < torch.tensor(valid, device=dev)[:, None]
+        n_keys = lk * b if valid is None else sum(valid)
+        shape = (f"({b},{lq},{h},64)" if lq == lk else
+                 f"({b},{lq}/{lk},{h},64)") + (" mask" if valid else "")
+        _compare("K1_flash_fixed", shape,
+                 lambda: flash_fixed(q, k, v, mask),
+                 lambda: flash_fixed_plain(q, k, v, mask), results,
+                 work=(4.0 * lq * n_keys * h * 64,
+                       _nbytes(q, k, v, q, mask)),
+                 reps=3 if lq > 10000 else 20,
+                 control_fn=lambda: flash_fixed_plain(q * 0, k, v, mask),
+                 library_fn=_sdpa(q, k, v, None if mask is None
+                                  else mask[:, None, None, :]))
+        r = results["K1_flash_fixed"][-1]
+        r["tflops"] = 4.0 * lq * n_keys * h * 64 / r["ms"] / 1e9
+        exp2_floor = lq * n_keys * h / exp2_rate * 1e3
+        log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
+            f"% of the tensor-core bound); exp2 floor {exp2_floor:.3f} ms "
+            f"at the highest SM clock ({100 * exp2_floor / r['ms']:.1f} %); "
+            f"{r['ms'] / r['library_ms']:.2f}x SDPA")
+        if len(results["K1_flash_fixed"]) == 1:
+            log("    under a steady run of K1: "
+                + _clock_under(lambda: flash_fixed(q, k, v, mask)))
+        del q, k, v
 
 
 def phase_kernels(dev, results):
@@ -309,37 +421,10 @@ def phase_kernels(dev, results):
 
     from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused, conv3d_plain
     from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
-    from kandinsky5_tpu_torch.ops.flash import (
-        flash_fixed,
-        flash_fixed_plain,
-        flash_online,
-        flash_online_plain,
-    )
+    from kandinsky5_tpu_torch.ops.flash import flash_online, flash_online_plain
 
-    g = torch.Generator(device=dev).manual_seed(1234)
-
-    def normed(shape):
-        x = torch.randn(shape, generator=g, device=dev)
-        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
-
-    # K1: visual self-attention at 5 s, 1 s and image size (47,616, 10,752
-    # and 1,536 tokens), text self-attention (256 tokens, partly padded)
-    for lq, masked in ((47616, False), (10752, False), (1536, False),
-                       (256, True)):
-        q, k = normed((1, lq, 28, 64)), normed((1, lq, 28, 64))
-        v = torch.randn((1, lq, 28, 64), generator=g, device=dev).bfloat16()
-        mask = (torch.arange(lq, device=dev) < 77)[None] if masked else None
-        n_keys = 77 if masked else lq
-        _compare("K1_flash_fixed", f"(1,{lq},28,64){' mask' if masked else ''}",
-                 lambda: flash_fixed(q, k, v, mask),
-                 lambda: flash_fixed_plain(q, k, v, mask), results,
-                 work=(4.0 * lq * n_keys * 28 * 64,
-                       _nbytes(q, k, v, q, mask)),
-                 reps=3 if lq > 10000 else 20,
-                 control_fn=lambda: flash_fixed_plain(q * 0, k, v, mask),
-                 library_fn=_sdpa(q, k, v, None if mask is None
-                                  else mask[:, None, None, :]))
-        del q, k, v
+    g, normed = _seeded(dev)
+    phase_k1(dev, g, normed, results)
 
     # K2: the visual blocks' modulated FF at 5 s and 1 s, the text blocks'
     d, ff = 1792, 7168
@@ -630,9 +715,9 @@ def phase_k6(dev, g, normed, results):
 
 
 def phase_int8(dev, g, normed, results):
-    """K5 and K7 at K1's four shapes, on one pack_int8 call shared with
-    their plain version (the sides differ only in exp2's last bits and sum
-    order), K7 held bit-equal to K5 and K5 against K1 (the quantization
+    """K5 and K7 at K1's four main-path shapes, on one pack_int8 call
+    shared with their plain version (the sides differ only in exp2's last
+    bits and sum order), K7 held bit-equal to K5 and K5 against K1 (the quantization
     error on this card); T5's four modes at the 5 s shape; T1's two
     instances at the JAX tool's 8192^3 and the DiT's projection shapes."""
     import torch
@@ -1752,6 +1837,9 @@ def main() -> int:
                     "5's tp forwards and controls with each seed's weights "
                     "and inputs, and print their readings (a study of "
                     "TP_BOUND; no smoke result)")
+    ap.add_argument("--k1", action="store_true",
+                    help="build, then run only phase 2's K1 cases and print "
+                    "their readings (no smoke result)")
     args = ap.parse_args()
     seconds5 = 1 if args.seconds == 10 else args.seconds
     seconds10 = 10 if args.seconds == 10 else 2
@@ -1783,12 +1871,18 @@ def main() -> int:
         info = _kernels.BUILD_INFO
         for line in info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
+                    or "spill" in line or "Performance Loss" in line:
                 log("  " + line.strip())
         log(f"  build {info['seconds']:.1f} s")
         _kernels.library()
         if args.tp_seeds:
             return tp_seed_study(dev, [int(v) for v in args.tp_seeds.split(",")])
+        if args.k1:
+            results = {}
+            phase_k1(dev, *_seeded(dev), results)
+            log(gpu_line())
+            log(json.dumps({"K1_flash_fixed": results["K1_flash_fixed"]}))
+            return 0 if all(r["ok"] for r in results["K1_flash_fixed"]) else 1
 
         log("phase 2: kernels vs plain versions (bf16, main-path shapes)")
         t = time.perf_counter()
@@ -1852,7 +1946,8 @@ def main() -> int:
             entry["cases"] = [{k: r[k] for k in (
                 "shape", "max_abs", "rel", "ms", "plain_ms", "bound_ms",
                 "library_ms", "yardstick_ms") + tuple(
-                    x for x in ("rel_l2_vs_k1", "max_abs_vs_k5") if x in r)}
+                    x for x in ("rel_l2_vs_k1", "max_abs_vs_k5", "tflops")
+                    if x in r)}
                 for r in rs]
         kernels.append(entry)
     log(gpu_line())

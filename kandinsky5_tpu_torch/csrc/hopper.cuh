@@ -1,0 +1,248 @@
+// Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
+// mbarriers, TMA tile loads described by a CUtensorMap, wgmma shared-memory
+// descriptors for 128-byte-swizzled tiles, the wgmma products themselves,
+// named barriers and register reallocation.
+//
+// Tiles are rows of exactly 128 bytes (64 bf16) written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
+// c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the swizzle
+// pattern (a function of the absolute shared address) is the one wgmma's
+// 128B layout expects.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace k5 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---- mbarrier --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Arrive once and announce ``bytes`` of TMA traffic on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Make barrier initialisation and generic-proxy shared-memory writes visible
+// to the async proxy (TMA, wgmma).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- TMA ---------------------------------------------------------------------
+
+// Load one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory; completion is counted in bytes on ``bar``.
+// Elements outside the tensor are written as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1 in bits
+// 62-63). Offsets are in bytes; the hardware takes them in 16-byte units.
+//   K-major tile (rows of 64 bf16 along K): lbo unused (16), sbo = 1024, the
+//     stride between groups of 8 rows; step 16 deep along K by adding 32
+//     bytes to the start address.
+//   MN-major tile (rows of 64 bf16 along N, one row per k): sbo = 1024, the
+//     stride between groups of 8 k; lbo = the distance to the next 64 columns
+//     of N; step 16 deep along K by adding 16 rows = 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that an in-flight wgmma reads or writes: the compiler may not
+// move their uses across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define K5_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define K5_F16(a, i) K5_F4(a, i), K5_F4(a, i + 4), K5_F4(a, i + 8), K5_F4(a, i + 12)
+
+// D (64x128, fp32) = or += A (64x16, K-major smem) . B (16x128, K-major smem),
+// bf16 operands. ``accumulate`` = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : K5_F16(d, 0), K5_F16(d, 16), K5_F16(d, 32), K5_F16(d, 48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64x72, fp32) += A (64x16 bf16, registers: the m16n8k16 A fragment of
+// each warp's 16 rows) . B (16x72, MN-major smem, transposed on read).
+__device__ __forceinline__ void wgmma_m64n72k16_rs(float (&d)[36], uint32_t a0,
+                                                   uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : K5_F16(d, 0), K5_F16(d, 16), K5_F4(d, 32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+#undef K5_F16
+#undef K5_F4
+
+// ---- warp specialisation -------------------------------------------------------
+
+// Named barrier ``id`` (1-15; 0 is __syncthreads) over ``n`` threads.
+template <int N>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- host: tensor maps -------------------------------------------------------
+
+// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the CUDA
+// runtime's entry-point query, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// Tensor map of a bf16 (B, L, H, 64) tensor as 4-D (64, H, L, B), innermost
+// first, read in boxes of (64, 1, rows, 1): ``rows`` consecutive positions of
+// one head, 128 bytes each, 128-byte swizzled. Rows past L are zero-filled and
+// never read the next batch. Returns 0 or a nonzero CUresult.
+inline int bhld_map(CUtensorMap* map, const void* base, int B, int L, int H,
+                    int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)H * 128,
+                                 (cuuint64_t)L * H * 128};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace k5

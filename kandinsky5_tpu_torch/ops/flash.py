@@ -101,6 +101,10 @@ def flash_fixed(q, k, v, kv_mask: Optional[torch.Tensor] = None):
             raise ValueError(f"K1 kv_mask must be (B, Lk), got {kv_mask.shape}")
         mask = kv_mask.to(torch.uint8).contiguous()
     _kernels.check_cuda("K1", q=q, k=k, v=v, mask=mask)
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K1: {key} is not 16-byte aligned (its TMA "
+                             "tensor map needs it)")
     out = torch.empty_like(q)
     _kernels.launch("k5_flash_fixed", "K1_flash_fixed", q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), _kernels.ptr(mask),

@@ -87,6 +87,14 @@ _NOT_KERNELS = ("Command Buffer Full", "cuLaunch", "cuda", "aten::") \
     + tuple(RANGES)
 
 
+def group_of(kernel: str) -> str:
+    """The group of :data:`GROUPS` a kernel's profiler name falls under
+    (its first match), else "other"."""
+    key = kernel.lower()
+    return next((g for g, pats in GROUPS if any(p in key for p in pats)),
+                "other")
+
+
 def busy_and_span(intervals) -> dict:
     """Device occupancy of one trace from its activities' (start, end)
     intervals (any unit): ``span`` from the first start to the last end,
@@ -171,9 +179,7 @@ def measure(label: str, fn, reps: int) -> None:
               f"{occ['summed'] / 1e3:.1f} ms, exceeds the span)", flush=True)
     grouped: dict = {}
     for key, (ms, n) in rows.items():
-        name = next((g for g, pats in GROUPS
-                     if any(p in key.lower() for p in pats)), "other")
-        acc = grouped.setdefault(name, [0.0, 0])
+        acc = grouped.setdefault(group_of(key), [0.0, 0])
         acc[0] += ms
         acc[1] += n
     for name, (ms, n) in sorted(grouped.items(), key=lambda kv: -kv[1][0]):

@@ -87,8 +87,12 @@ def _normed(g, shape, dev):
 
 @pytest.mark.parametrize("b,lq,lk,h,masked", [
     (2, 300, 300, 3, True), (1, 256, 256, 28, True), (1, 1000, 700, 2, False),
-    (1, 47616, 47616, 28, False)])
+    (2, 1000, 700, 3, True), (1, 47616, 47616, 28, False),
+    (1, 47616, 47616, 14, False), (1, 47616, 47616, 7, False)])
 def test_k1_matches_plain(dev, b, lq, lk, h, masked):
+    """K1 against its plain version: ragged lengths against the 128-row
+    and 128-key tiles, a key mask with a valid length per batch, and the
+    5 s shape at the tp = 1 / 2 / 4 ranks' shares of the heads."""
     g = torch.Generator(device=dev).manual_seed(0)
     q = _normed(g, (b, lq, h, 64), dev)
     k = _normed(g, (b, lk, h, 64), dev)
@@ -103,6 +107,18 @@ def test_k1_matches_plain(dev, b, lq, lk, h, masked):
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
     assert _fails_bound(flash_fixed_plain(q * 0, k, v, mask), ref, 3e-2, 1e-2)
+
+
+def test_k1_rejects_unaligned(dev):
+    """K1 reads its inputs through TMA tensor maps, which need 16-byte
+    aligned base addresses: the wrapper raises rather than launch."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = _normed(g, (1, 128, 2, 64), dev)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_fixed(shifted, q, q)
 
 
 @pytest.mark.parametrize("b,lq,lk,h,masked", [

@@ -8,7 +8,11 @@ import pytest
 
 from types import SimpleNamespace
 
-from kandinsky5_tpu_torch.tools.profile_step import busy_and_span, device_times
+from kandinsky5_tpu_torch.tools.profile_step import (
+    busy_and_span,
+    device_times,
+    group_of,
+)
 
 
 @pytest.mark.parametrize("intervals,span,busy,summed", [
@@ -44,3 +48,24 @@ def test_device_times_skips_ranges_and_host_rows():
         row("aten::mm", 9.0), row("void elementwise_kernel", 3.0, 4)])
     assert device_times(prof) == {"flash_int8_kernel<0>": (70.0, 1),
                                   "void elementwise_kernel": (3.0, 4)}
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void (anonymous namespace)::flash_fixed_kernel<false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, unsigned char const*, float const*, "
+     "__nv_bfloat16*, int, int, int)", "K1 flash_fixed"),
+    ("void (anonymous namespace)::flash_fixed_kernel<true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, unsigned char const*, float const*, "
+     "__nv_bfloat16*, int, int, int)", "K1 flash_fixed"),
+    ("void (anonymous namespace)::flash_int8_kernel<0>(signed char const*)",
+     "K5 flash_int8"),
+    ("void (anonymous namespace)::flash_int8_pipe_kernel(signed char const*)",
+     "K7 flash_int8_pipe"),
+    ("void at::native::elementwise_kernel<128, 2>()",
+     "elementwise / reduce / copy (norms, casts, gates, RoPE)"),
+    ("some_unlisted_kernel", "other"),
+])
+def test_group_of_files_kernels(kernel, group):
+    """K1's wgmma kernel (both mask instances) is filed under K1's row,
+    not under another attention kernel's or a library group."""
+    assert group_of(kernel) == group
