@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tp-seeds 6,7,8   # phase 5's tp forwards and
                                              # controls at other seeds only
     python3 chip_smoke.py --k1               # phase 2's K1 cases only
+    python3 chip_smoke.py --k3               # phase 2's K3 cases only
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -21,7 +22,10 @@ Phases, each of which must pass (any failure exits nonzero):
                and with carried prefix planes; K3's W8A8 mode plain and with
                the prologue over several TPU W tiles, with a control that
                one scale for the whole tensor fails, and its window-max
-               reduction; K6 at the 10 s shape under three masks: STA only,
+               reduction; K3 on ragged tiles (H, W not multiples of its
+               8 x 16 tile, one output frame, every plane carried, a batch
+               of two), each with a control that must fail; every K3 case
+               with its TFLOP/s (TOP/s), share of bound and cuDNN's time; K6 at the 10 s shape under three masks: STA only,
                ~15 % and ~35 % kept; K5 and K7 at K1's four main-path
                shapes on one shared pack_int8 call, K7 bit-equal to K5,
                K5's error against K1 printed as the quantization error), the
@@ -170,8 +174,9 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 CONF5 = "config_5s_distil.yaml"
 CONF10 = "config_10s_distil.yaml"
-# the case of each kernel that its JSON entry reports
-HEADLINE = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": -1,
+# the case of each kernel that its JSON entry reports (K3_conv3d: the last
+# decoder class, 128->128 12x512x768 time_padded, before the ragged cases)
+HEADLINE = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": 15,
             "K3_conv3d_fused": 0, "K3_conv3d_quant": 1, "K3_quant_windows": 0,
             "K4_flash_online": 0, "K5_flash_int8": 0, "K6_sparse_nabla": 1,
             "K7_flash_int8_pipe": 0, "K8_ff": 1, "T1_gemm_i8": 0,
@@ -227,13 +232,14 @@ def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
 
 def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
              control_fn=None, library_fn=None, info=None, yardstick_fn=None,
-             check=None, control_label=None):
+             check=None, control_label=None,
+             yardstick_label="bf16 SDPA: not the same function"):
     """Check ``kernel_fn`` against ``plain_fn`` and time both (and
     ``library_fn``, one PyTorch call computing the same function, if
     given; ``yardstick_fn``, a call that computes a different function,
-    is timed and labelled as such). ``work`` = (bf16 flops, bytes[, int8
-    ops]) of the call for its bound. ``check(out, ref)`` -> bool replaces
-    the tolerance test (the control must fail it too)."""
+    is timed and labelled ``yardstick_label``). ``work`` = (bf16 flops,
+    bytes[, int8 ops]) of the call for its bound. ``check(out, ref)`` ->
+    bool replaces the tolerance test (the control must fail it too)."""
     import torch
 
     out = kernel_fn()
@@ -278,8 +284,7 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     b_ms, b_by = bound_ms(*work)
     lib_note = "" if lib_ms is None else f" library {lib_ms:.3f} ms"
     if yard_ms is not None:
-        lib_note += (f" yardstick {yard_ms:.3f} ms (bf16 SDPA: not the same "
-                     "function)")
+        lib_note += f" yardstick {yard_ms:.3f} ms ({yardstick_label})"
     tol_note = ("flips only" if check is not None else "exact"
                 if name in ("T1_gemm_i8", "K3_quant_windows")
                 else f"tol {atol:.3g}")
@@ -290,7 +295,8 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     results.setdefault(name, []).append(dict(
         shape=shape, max_abs=max_abs, rel=rel, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, yardstick_ms=yard_ms,
-        ok=ok, **(info or {})))
+        yardstick=yardstick_label if yard_ms is not None else None, ok=ok,
+        **(info or {})))
     torch.cuda.empty_cache()
 
 
@@ -417,9 +423,7 @@ def phase_k1(dev, g, normed, results):
 
 def phase_kernels(dev, results):
     import torch
-    import torch.nn.functional as F
 
-    from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused, conv3d_plain
     from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
     from kandinsky5_tpu_torch.ops.flash import flash_online, flash_online_plain
 
@@ -442,36 +446,7 @@ def phase_kernels(dev, results):
         del x
     del w1, w2
 
-    # K3: every decoder conv class (vae.py:336-385) at the streaming
-    # decode's chunk lengths, in both modes; the library call is cuDNN's
-    # conv3d on an input padded beforehand, channels-last like K3's
-    classes = [(512, 512, 64, 96, 4), (512, 512, 128, 192, 7),
-               (512, 512, 256, 384, 13), (512, 256, 256, 384, 13),
-               (256, 256, 256, 384, 13), (256, 256, 512, 768, 12),
-               (256, 128, 512, 768, 12), (128, 128, 512, 768, 12)]
-    for cin, cout, hh, ww, t in classes:
-        wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
-              / math.sqrt(27 * cin)).bfloat16()
-        bias = torch.randn((cout,), generator=g, device=dev).bfloat16()
-        for padded in (False, True):
-            tin = t + 2 if padded else t
-            x = torch.randn((1, tin, hh, ww, cin), generator=g,
-                            device=dev).bfloat16()
-            xp = F.pad(x.permute(0, 4, 1, 2, 3),
-                       (1, 1, 1, 1, 0 if padded else 2, 0), mode="replicate")
-            xp = xp.contiguous(memory_format=torch.channels_last_3d)
-            _compare("K3_conv3d",
-                     f"{cin}->{cout} {t}x{hh}x{ww}"
-                     f"{' time_padded' if padded else ''}",
-                     lambda: causal_conv3d_fused(x, wt, bias, padded),
-                     lambda: conv3d_plain(x, wt, bias, padded), results,
-                     work=(2.0 * 27 * t * hh * ww * cin * cout,
-                           _nbytes(x, wt, bias)
-                           + 2 * t * hh * ww * cout),
-                     reps=2, library_fn=lambda: F.conv3d(xp, wt, bias))
-            del x, xp
-
-    phase_k3_modes(dev, g, results)
+    phase_k3(dev, g, results)
 
     # K4: the streaming mid attention's first full chunk: 4 frames of
     # 64x96 latents against 4 carried + 4 chunk frames, ids and buffer mask.
@@ -507,6 +482,131 @@ def phase_kernels(dev, results):
         raise Failure(f"kernels outside tolerance: {bad}")
 
 
+def _cudnn_conv(x, wt, bias, time_padded: bool):
+    """cuDNN's conv3d on ``x`` padded beforehand (replicate), channels-last
+    like K3's input: the library call timed beside K3."""
+    import torch
+    import torch.nn.functional as F
+
+    xp = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 0 if time_padded else 2, 0),
+               mode="replicate")
+    xp = xp.contiguous(memory_format=torch.channels_last_3d)
+    return lambda: F.conv3d(xp, wt, bias)
+
+
+def _k3_rate(results, name, macs: float, int8: bool = False):
+    """Log the last K3 case's rate, its share of the bound and its time
+    against cuDNN's conv3d in the same run (bf16 cuDNN beside W8A8: not the
+    same function)."""
+    r = results[name][-1]
+    r["tflops"] = 2.0 * macs / r["ms"] / 1e9
+    lib = r["library_ms"] or r["yardstick_ms"]
+    log(f"    {r['tflops']:.1f} {'TOP/s' if int8 else 'TFLOP/s'} "
+        f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound); cuDNN"
+        f"{' bf16' if int8 else ''} {lib:.3f} ms, kernel {r['ms'] / lib:.2f}x")
+
+
+def _k3_zero_padded(x, wt, bias, time_padded: bool, rows_cols: bool = True):
+    """Control for K3's edges: the plain conv with zeros where the kernel
+    replicates (the edge rows and columns, or the two leading frames)."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 4, 1, 2, 3).float()
+    if rows_cols:
+        xc = F.pad(xc, (0, 0, 0, 0, 0 if time_padded else 2, 0), mode="replicate")
+        y = F.conv3d(xc, wt.float(), bias.float(), padding=(0, 1, 1))
+    else:
+        xc = F.pad(xc, (1, 1, 1, 1, 0, 0), mode="replicate")
+        y = F.conv3d(xc, wt.float(), bias.float(), padding=(0 if time_padded else 2, 0, 0))
+        y = y[:, :, :x.shape[1] - (2 if time_padded else 0)]
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+
+
+def phase_k3(dev, g, results):
+    """K3 (``csrc/conv3d.cu``) at every decoder conv class (vae.py:336-385)
+    at the streaming decode's chunk lengths, unpadded and ``time_padded``;
+    its other modes (:func:`phase_k3_modes`); and ragged cases that the
+    kernel's 8 x 16 output tile must mask, each with a control that must
+    fail the bound: H and W that are not multiples of the tile (control:
+    zeros in place of the replicated edges), one output frame (control:
+    zeros in place of the two replicated leading frames), the prologue with
+    every input plane carried (control: every plane transformed) and a
+    batch of two (control: the items swapped). The library call is cuDNN's
+    conv3d on an input padded (and transformed) beforehand."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    def weights(cin, cout):
+        wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
+              / math.sqrt(27 * cin)).bfloat16()
+        return wt, torch.randn((cout,), generator=g, device=dev).bfloat16()
+
+    classes = [(512, 512, 64, 96, 4), (512, 512, 128, 192, 7),
+               (512, 512, 256, 384, 13), (512, 256, 256, 384, 13),
+               (256, 256, 256, 384, 13), (256, 256, 512, 768, 12),
+               (256, 128, 512, 768, 12), (128, 128, 512, 768, 12)]
+    for cin, cout, hh, ww, t in classes:
+        wt, bias = weights(cin, cout)
+        for padded in (False, True):
+            tin = t + 2 if padded else t
+            x = torch.randn((1, tin, hh, ww, cin), generator=g,
+                            device=dev).bfloat16()
+            macs = 27.0 * t * hh * ww * cin * cout
+            _compare("K3_conv3d",
+                     f"{cin}->{cout} {t}x{hh}x{ww}"
+                     f"{' time_padded' if padded else ''}",
+                     lambda: conv_mod.causal_conv3d_fused(x, wt, bias, padded),
+                     lambda: conv_mod.conv3d_plain(x, wt, bias, padded), results,
+                     work=(2.0 * macs, _nbytes(x, wt, bias) + 2 * t * hh * ww * cout),
+                     reps=2, library_fn=_cudnn_conv(x, wt, bias, padded))
+            _k3_rate(results, "K3_conv3d", macs)
+            del x
+
+    phase_k3_modes(dev, g, results)
+
+    def ragged(name, b, cin, cout, t, hh, ww, padded, control, label,
+               prefix=None):
+        """One ragged case; with ``prefix``, the prologue (SiLU) with that
+        many carried planes."""
+        wt, bias = weights(cin, cout)
+        x = torch.randn((b, t, hh, ww, cin), generator=g, device=dev).bfloat16()
+        t_out = t - 2 if padded else t
+        macs = 27.0 * b * t_out * hh * ww * cin * cout
+        kw, xt = {}, x
+        if prefix is not None:
+            kw = dict(scale=1 + 0.2 * torch.randn((cin,), generator=g, device=dev),
+                      shift=0.1 * torch.randn((cin,), generator=g, device=dev),
+                      act=True, prefix_planes=prefix)
+            xt = conv_mod.conv_prologue(x, kw["scale"], kw["shift"], True, prefix)
+        _compare(name, f"{b}x {cin}->{cout} {t_out}x{hh}x{ww}"
+                 f"{' time_padded' if padded else ''} ragged ({label})",
+                 lambda: conv_mod.causal_conv3d_fused(x, wt, bias, padded, **kw),
+                 lambda: conv_mod.conv3d_plain(x, wt, bias, padded, **kw), results,
+                 work=(2.0 * macs, _nbytes(x, wt, bias) + 2 * b * t_out * hh * ww * cout),
+                 reps=3, control_fn=lambda: control(x, wt, bias, kw),
+                 control_label=label, library_fn=_cudnn_conv(xt, wt, bias, padded))
+        _k3_rate(results, name, macs)
+        del x, xt
+
+    ragged("K3_conv3d", 1, 256, 256, 4, 61, 93, False,
+           lambda x, wt, b, kw: _k3_zero_padded(x, wt, b, False),
+           "zeros at the h and w edges")
+    ragged("K3_conv3d", 1, 128, 128, 5, 125, 187, True,
+           lambda x, wt, b, kw: _k3_zero_padded(x, wt, b, True),
+           "zeros at the h and w edges")
+    ragged("K3_conv3d", 1, 512, 512, 1, 64, 96, False,
+           lambda x, wt, b, kw: _k3_zero_padded(x, wt, b, False, rows_cols=False),
+           "zeros as the two leading frames")
+    ragged("K3_conv3d_fused", 1, 128, 128, 3, 128, 192, True,
+           lambda x, wt, b, kw: conv_mod.conv3d_plain(
+               x, wt, b, True, **dict(kw, prefix_planes=0)),
+           "every plane transformed", prefix=3)
+    ragged("K3_conv3d", 2, 256, 256, 5, 64, 96, True,
+           lambda x, wt, b, kw: conv_mod.conv3d_plain(x, wt, b, True).flip(0),
+           "the batch items swapped")
+
+
 def _flips_only(x, wt, flips: int = 8):
     """The check of K3's W8A8 mode against its plain version (see TOL):
     equal outputs except for at most ``flips`` flipped codes, each moving
@@ -532,9 +632,10 @@ def phase_k3_modes(dev, g, results):
     tiles of 192), the latter with a control that one scale for the whole
     tensor fails; the window-max reduction alone at that shape. The
     library call is cuDNN's conv3d on an input transformed and padded
-    beforehand; no PyTorch call is an int8 conv3d or a window max."""
+    beforehand; no PyTorch call is an int8 conv3d or a window max, so bf16
+    cuDNN is timed beside W8A8 as a yardstick, and so is K3's bf16 instance
+    on the same inputs."""
     import torch
-    import torch.nn.functional as F
 
     from kandinsky5_tpu_torch.ops import conv as conv_mod
 
@@ -549,10 +650,7 @@ def phase_k3_modes(dev, g, results):
 
     def cudnn(x, wt, bias, tp, sc, sh, prefix=0):
         xt = conv_mod.conv_prologue(x, sc, sh, True, prefix)
-        xp = F.pad(xt.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 0 if tp else 2, 0),
-                   mode="replicate")
-        xp = xp.contiguous(memory_format=torch.channels_last_3d)
-        return lambda: F.conv3d(xp, wt, bias)
+        return _cudnn_conv(xt, wt, bias, tp)
 
     for cin, cout, t, hh, ww, tp in ((128, 128, 17, 512, 768, False),
                                      (256, 256, 9, 256, 384, False),
@@ -570,6 +668,7 @@ def phase_k3_modes(dev, g, results):
                  work=(2.0 * 27 * t_out * hh * ww * cin * cout,
                        _nbytes(x, wt, bias, sc, sh) + 2 * t_out * hh * ww * cout),
                  reps=2, library_fn=cudnn(x, wt, bias, tp, sc, sh, kw["prefix_planes"]))
+        _k3_rate(results, "K3_conv3d_fused", 27.0 * t_out * hh * ww * cin * cout)
         del x
 
     real_scales = conv_mod.window_scales
@@ -607,7 +706,16 @@ def phase_k3_modes(dev, g, results):
                  work=(0.0, _nbytes(x, w8, bias) + 2 * t * hh * ww * cout, ops),
                  reps=2, check=_flips_only(xt, wt),
                  control_fn=control if fuse else None,
-                 info=dict(windows=t * (hh // 8) * (ww // bw)))
+                 info=dict(windows=t * (hh // 8) * (ww // bw)),
+                 yardstick_fn=_cudnn_conv(xt, wt, bias, False),
+                 yardstick_label="bf16 cuDNN conv3d: not the same function")
+        _k3_rate(results, "K3_conv3d_quant", ops / 2, int8=True)
+        bf16 = {k: v for k, v in kw.items() if k != "quant"}
+        r = results["K3_conv3d_quant"][-1]
+        r["bf16_k3_ms"] = _time_ms(
+            lambda: conv_mod.causal_conv3d_fused(x, wt, bias, **bf16), 2)
+        log(f"    K3's bf16 instance on the same inputs {r['bf16_k3_ms']:.3f} ms: "
+            f"W8A8 {r['ms'] / r['bf16_k3_ms']:.2f}x")
         if fuse:
             _compare("K3_quant_windows", f"{cin} ch {t}x{hh}x{ww} bw {bw} "
                      "with the prologue",
@@ -1840,6 +1948,10 @@ def main() -> int:
     ap.add_argument("--k1", action="store_true",
                     help="build, then run only phase 2's K1 cases and print "
                     "their readings (no smoke result)")
+    ap.add_argument("--k3", action="store_true",
+                    help="build, then run only phase 2's K3 cases (classes, "
+                    "modes, ragged cases) and print their readings (no smoke "
+                    "result)")
     args = ap.parse_args()
     seconds5 = 1 if args.seconds == 10 else args.seconds
     seconds10 = 10 if args.seconds == 10 else 2
@@ -1883,6 +1995,12 @@ def main() -> int:
             log(gpu_line())
             log(json.dumps({"K1_flash_fixed": results["K1_flash_fixed"]}))
             return 0 if all(r["ok"] for r in results["K1_flash_fixed"]) else 1
+        if args.k3:
+            results = {}
+            phase_k3(dev, _seeded(dev)[0], results)
+            log(gpu_line())
+            log(json.dumps(results))
+            return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
 
         log("phase 2: kernels vs plain versions (bf16, main-path shapes)")
         t = time.perf_counter()
@@ -1937,7 +2055,7 @@ def main() -> int:
             entry["max_abs_err_is"] = "relative to the largest plain output"
         if h["yardstick_ms"] is not None:
             entry["yardstick_ms"] = h["yardstick_ms"]
-            entry["yardstick"] = "bf16 scaled_dot_product_attention (not the same function)"
+            entry["yardstick"] = h["yardstick"]
         if name == "K6_sparse_nabla":
             entry["cases"] = [{k: r[k] for k in (
                 "shape", "density", "ms", "plain_ms", "bound_ms",
@@ -1946,7 +2064,8 @@ def main() -> int:
             entry["cases"] = [{k: r[k] for k in (
                 "shape", "max_abs", "rel", "ms", "plain_ms", "bound_ms",
                 "library_ms", "yardstick_ms") + tuple(
-                    x for x in ("rel_l2_vs_k1", "max_abs_vs_k5", "tflops")
+                    x for x in ("rel_l2_vs_k1", "max_abs_vs_k5", "tflops",
+                                "bf16_k3_ms")
                     if x in r)}
                 for r in rs]
         kernels.append(entry)

@@ -164,11 +164,11 @@ flash_fixed_kernel(const __grid_constant__ CUtensorMap tq,
   const uint8_t* mrow = MASK ? mask + (size_t)b * Lk : nullptr;
   const int turn = 1 + w, next_turn = 1 + (w + 1) % NWG;
 
-  const uint64_t dq = sw128_desc(smem_u32(Qs + w * 64 * 128), 16, 1024);
-  auto dk = [&](int s) { return sw128_desc(smem_u32(ring + s * STAGE), 16, 1024); };
+  const uint64_t dq = smem_desc(smem_u32(Qs + w * 64 * 128), 16, 1024, 1);
+  auto dk = [&](int s) { return smem_desc(smem_u32(ring + s * STAGE), 16, 1024, 1); };
   auto dv = [&](int s) {
     uint8_t* vs = ring + s * STAGE + TILE;
-    return sw128_desc(smem_u32(vs), (uint32_t)(ones - vs), 1024);
+    return smem_desc(smem_u32(vs), (uint32_t)(ones - vs), 1024, 1);
   };
 
   float sacc[64];

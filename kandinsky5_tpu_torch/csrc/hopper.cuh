@@ -3,11 +3,13 @@
 // descriptors for 128-byte-swizzled tiles, the wgmma products themselves,
 // named barriers and register reallocation.
 //
-// Tiles are rows of exactly 128 bytes (64 bf16) written by TMA with
+// K1's tiles are rows of exactly 128 bytes (64 bf16) written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
 // c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the swizzle
 // pattern (a function of the absolute shared address) is the one wgmma's
-// 128B layout expects.
+// 128B layout expects. K3's weight tiles are rows of 64 bytes with the 64B
+// swizzle (the same rule at half the width), and its activation operand is
+// non-swizzled (``smem_desc``).
 #pragma once
 
 #include <cuda.h>
@@ -82,6 +84,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 3-D tensor map at (c0, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
@@ -89,19 +103,29 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 
 // ---- wgmma -----------------------------------------------------------------
 
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1 in bits
-// 62-63). Offsets are in bytes; the hardware takes them in 16-byte units.
-//   K-major tile (rows of 64 bf16 along K): lbo unused (16), sbo = 1024, the
-//     stride between groups of 8 rows; step 16 deep along K by adding 32
-//     bytes to the start address.
-//   MN-major tile (rows of 64 bf16 along N, one row per k): sbo = 1024, the
-//     stride between groups of 8 k; lbo = the distance to the next 64 columns
-//     of N; step 16 deep along K by adding 16 rows = 2048 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (in bytes; the hardware takes them in 16-byte units) and the layout
+// ``mode`` in bits 62-63: 0 no swizzle, 1 128B, 2 64B, 3 32B swizzle.
+//   128B swizzle, K-major tile (rows of 64 bf16 along K): lbo unused (16),
+//     sbo = 1024, the stride between groups of 8 rows; step 16 deep along K
+//     by adding 32 bytes to the start address.
+//   128B swizzle, MN-major tile (rows of 64 bf16 along N, one row per k):
+//     sbo = 1024, the stride between groups of 8 k; lbo = the distance to the
+//     next 64 columns of N; step 16 deep along K by adding 16 rows = 2048
+//     bytes.
+//   64B swizzle, K-major (rows of 64 bytes written by TMA with
+//     CU_TENSOR_MAP_SWIZZLE_64B, the tile on a 512-byte boundary): lbo unused
+//     (16), sbo = 512; step 32 bytes along K by adding 32 bytes to the start
+//     address.
+//   No swizzle, K-major: the operand is made of core matrices of 8 rows x 16
+//     bytes, each stored as 128 contiguous bytes (row r at 16 r); lbo = the
+//     distance between core matrices adjacent in K, sbo = between those
+//     adjacent in M (or N), i.e. between groups of 8 rows.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t smem_addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t mode) {
   return (uint64_t)((smem_addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)mode << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -127,6 +151,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -165,6 +195,27 @@ __device__ __forceinline__ void wgmma_m64n72k16_rs(float (&d)[36], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define K5_R4(a, i) "+r"(a[i]), "+r"(a[i + 1]), "+r"(a[i + 2]), "+r"(a[i + 3])
+#define K5_R16(a, i) K5_R4(a, i), K5_R4(a, i + 4), K5_R4(a, i + 8), K5_R4(a, i + 12)
+
+// D (64x128, int32) = or += A (64x32, K-major smem) . B (32x128, K-major
+// smem), s8 operands, exact.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t da,
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : K5_R16(d, 0), K5_R16(d, 16), K5_R16(d, 32), K5_R16(d, 48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef K5_R16
+#undef K5_R4
 #undef K5_F16
 #undef K5_F4
 
@@ -242,6 +293,25 @@ inline int bhld_map(CUtensorMap* map, const void* base, int B, int L, int H,
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Tensor map of a (taps, rows, K) tensor with K contiguous, as 3-D (K, rows,
+// taps), read in boxes of (box_k, box_rows, 1) whose rows are 64 bytes
+// (box_k elements), 64-byte swizzled. Returns 0 or a nonzero CUresult.
+inline int kmajor_sw64_map(CUtensorMap* map, const void* base,
+                           CUtensorMapDataType type, int elem_bytes, int K,
+                           int rows, int taps, int box_k, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)taps};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * elem_bytes,
+                                 (cuuint64_t)rows * K * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_k, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return (int)fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -4,12 +4,13 @@ full width with random weights: the 5 s distil path (dense attention) for
 tokens, 241 frames) for ``--seconds 10``.
 
     python -m kandinsky5_tpu_torch.tools.profile_step [--seconds 1|5|10]
-        [--attn auto|flash_int8|flash_int8_pipe] [--int8-linear] [--dit-only]
-        [--decode stream|tiled] [--int8-conv] [--fuse-gn auto|on|off]
+        [--attn auto|flash_int8|flash_int8_pipe] [--int8-linear]
+        [--dit-only | --decode-only] [--decode stream|tiled] [--int8-conv]
+        [--fuse-gn auto|on|off]
 
 ``--attn`` picks the DiT's attention (K1, K5 or K7 for self-attention) and
 ``--int8-linear`` makes its visual projections W8A8; ``--dit-only`` skips
-the decode. ``--decode`` picks the streaming decode (the default) or the
+the decode and ``--decode-only`` the DiT forward. ``--decode`` picks the streaming decode (the default) or the
 reference's overlap-tiled one (GroupNorm folded into K3), ``--int8-conv``
 runs the decoder's convs W8A8, and ``--fuse-gn`` sets the VAE's ``fuse_gn``
 (auto: fused in the tiled decode, unfused in the streaming one; on or off
@@ -205,6 +206,8 @@ def main() -> None:
                     choices=("auto", "flash_int8", "flash_int8_pipe"))
     ap.add_argument("--int8-linear", action="store_true")
     ap.add_argument("--dit-only", action="store_true")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="skip the DiT forward: profile the decode alone")
     ap.add_argument("--decode", default="stream", choices=("stream", "tiled"))
     ap.add_argument("--int8-conv", action="store_true")
     ap.add_argument("--fuse-gn", default="auto", choices=("auto", "on", "off"))
@@ -230,6 +233,9 @@ def main() -> None:
     sparse = _build_sparse(spec, token_grid(cfg, latent), dev)
     g = torch.Generator(device=dev).manual_seed(0)
 
+    if args.decode_only:
+        decode(args, t_lat, h_lat, w_lat, g, dev)
+        return
     dit = fast_init_dit_params(cfg, device=dev, seed=0)
     if args.int8_linear:
         dit = quantize_dit_params(dit)
@@ -255,7 +261,11 @@ def main() -> None:
     if args.dit_only:
         print(gpu_line())
         return
+    decode(args, t_lat, h_lat, w_lat, g, dev)
 
+
+def decode(args, t_lat: int, h_lat: int, w_lat: int, g, dev) -> None:
+    """Profile one VAE decode of seeded latents (the DiT released)."""
     fuse_gn = {"auto": None, "on": True, "off": False}[args.fuse_gn]
     vae = HunyuanVideoVAE(init_vae_params(device=dev, seed=1),
                           fuse_gn=fuse_gn, int8_conv=args.int8_conv)

@@ -22,6 +22,7 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from kandinsky5_tpu_torch.ops import _kernels
 from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused, conv3d_plain
@@ -286,12 +287,27 @@ def test_t2_t4_match_plain(dev, name, rows):
     assert _fails_bound(case[5](), ref, 6e-2, 1e-2)
 
 
-@pytest.mark.parametrize("t,h,w,cin,cout,time_padded", [
-    (3, 8, 20, 128, 256, False), (5, 8, 20, 256, 128, True),
-    (2, 64, 96, 512, 512, False)])
-def test_k3_matches_plain(dev, t, h, w, cin, cout, time_padded):
+def _k3_zero_padded(x, wt, bias, time_padded):
+    """Control for K3's edges: the plain conv with zeros where the kernel
+    replicates the edge rows and columns (and, unpadded, the first frame)."""
+    xc = x.permute(0, 4, 1, 2, 3).float()
+    if not time_padded:
+        xc = F.pad(xc, (0, 0, 0, 0, 2, 0))
+    y = F.conv3d(xc, wt.float(), bias.float(), padding=(0, 1, 1))
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+
+
+@pytest.mark.parametrize("b,t,h,w,cin,cout,time_padded", [
+    (1, 3, 8, 20, 128, 256, False), (1, 5, 8, 20, 256, 128, True),
+    (1, 2, 64, 96, 512, 512, False), (1, 1, 5, 13, 128, 128, False),
+    (1, 3, 13, 35, 256, 128, True), (2, 3, 9, 21, 128, 256, False)])
+def test_k3_matches_plain(dev, b, t, h, w, cin, cout, time_padded):
+    """K3 in bf16, with ragged tiles: H and W that are not multiples of the
+    kernel's 8 x 16 output tile, a single output frame, a batch of two.
+    Control: zeros in place of the replicated edges (and leading frames)
+    fail the bound."""
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((1, t, h, w, cin), generator=g, device=dev).bfloat16()
+    x = torch.randn((b, t, h, w, cin), generator=g, device=dev).bfloat16()
     wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
           / math.sqrt(27 * cin)).bfloat16()
     bias = torch.randn((cout,), generator=g, device=dev).bfloat16()
@@ -300,11 +316,15 @@ def test_k3_matches_plain(dev, t, h, w, cin, cout, time_padded):
     ref = conv3d_plain(x, wt, bias, time_padded=time_padded)
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+    assert _fails_bound(_k3_zero_padded(x, wt, bias, time_padded), ref, 6e-2,
+                        1e-2)
+    if b > 1:  # the batch items swapped
+        assert _fails_bound(out.flip(0), ref, 6e-2, 1e-2)
 
 
-def _k3_inputs(dev, t, h, w, cin, cout, seed=3):
+def _k3_inputs(dev, t, h, w, cin, cout, seed=3, b=1):
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn((1, t, h, w, cin), generator=g, device=dev)
+    x = (torch.randn((b, t, h, w, cin), generator=g, device=dev)
          * (1 + torch.arange(w, device=dev)[:, None] / w)).bfloat16()
     wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
           / math.sqrt(27 * cin)).bfloat16()
@@ -314,16 +334,20 @@ def _k3_inputs(dev, t, h, w, cin, cout, seed=3):
     return x, wt, bias, scale, shift
 
 
-@pytest.mark.parametrize("t,h,w,cin,cout,time_padded,prefix,act", [
-    (3, 8, 20, 128, 256, False, 0, True), (5, 8, 64, 256, 128, True, 2, True),
-    (2, 64, 96, 512, 512, False, 0, False)])
-def test_k3_fused_matches_plain(dev, t, h, w, cin, cout, time_padded, prefix,
+@pytest.mark.parametrize("b,t,h,w,cin,cout,time_padded,prefix,act", [
+    (1, 3, 8, 20, 128, 256, False, 0, True), (1, 5, 8, 64, 256, 128, True, 2, True),
+    (1, 2, 64, 96, 512, 512, False, 0, False), (1, 1, 5, 13, 128, 128, False, 0, True),
+    (1, 4, 11, 27, 128, 256, True, 4, True), (2, 3, 9, 21, 256, 128, True, 1, True)])
+def test_k3_fused_matches_plain(dev, b, t, h, w, cin, cout, time_padded, prefix,
                                 act):
     """The GroupNorm-fold (+ SiLU) prologue, with carried prefix planes in
-    one case. Kernel and plain version transform with the same fp32
-    operations and round once to bf16, so they differ only in summation
-    order. Control: the plain conv without the prologue fails the bound."""
-    x, wt, bias, scale, shift = _k3_inputs(dev, t, h, w, cin, cout)
+    some cases (in one, every input plane is carried), on ragged tiles, one
+    output frame and a batch of two. Kernel and plain version transform with
+    the same fp32 operations and round once to bf16, so they differ only in
+    summation order. Control: the plain conv without the prologue fails the
+    bound; where every plane is carried (and the prologue touches nothing),
+    the plain conv that transforms every plane fails it."""
+    x, wt, bias, scale, shift = _k3_inputs(dev, t, h, w, cin, cout, b=b)
     kw = dict(time_padded=time_padded, scale=scale, shift=shift, act=act,
               prefix_planes=prefix)
     out = causal_conv3d_fused(x, wt, bias, **kw)
@@ -331,8 +355,43 @@ def test_k3_fused_matches_plain(dev, t, h, w, cin, cout, time_padded, prefix,
     ref = conv3d_plain(x, wt, bias, **kw)
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
-    assert _fails_bound(conv3d_plain(x, wt, bias, time_padded=time_padded),
-                        ref, 6e-2, 1e-2)
+    control = (conv3d_plain(x, wt, bias, **dict(kw, prefix_planes=0))
+               if prefix == t else
+               conv3d_plain(x, wt, bias, time_padded=time_padded))
+    assert _fails_bound(control, ref, 6e-2, 1e-2)
+
+
+def test_k3_prologue_exact_on_every_bf16(dev):
+    """The prologue inside K3 equals torch's on the card bit for bit (up to
+    the sign of zero) for every finite bf16 input below 1e30 under 128
+    (scale, shift) pairs: the conv's only nonzero weight is an identity
+    matrix on the centre tap of the newest frame, so each output is its
+    input's transformed value. Control: the same values without SiLU
+    differ."""
+    from kandinsky5_tpu_torch.ops.conv import conv_prologue
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    vals = torch.arange(65536, dtype=torch.int32, device=dev).to(
+        torch.int16).view(torch.bfloat16)
+    vals = vals[vals.float().abs() < 1e30]
+    cols = 256
+    rows = -(-vals.numel() // cols)
+    x = torch.zeros(rows * cols, dtype=torch.bfloat16, device=dev)
+    x[:vals.numel()] = vals
+    c = 128
+    x = x.reshape(1, 1, rows, cols, 1).expand(1, 1, rows, cols, c).contiguous()
+    scale = torch.randn((c,), generator=g, device=dev) * 2
+    shift = torch.randn((c,), generator=g, device=dev) * 3
+    wt = torch.zeros((c, c, 3, 3, 3), device=dev)
+    wt[:, :, 2, 1, 1] = torch.eye(c, device=dev)
+    zero = torch.zeros(c, device=dev)
+    out = causal_conv3d_fused(x, wt.bfloat16(), zero, scale=scale, shift=shift,
+                              act=True)
+    torch.cuda.synchronize()
+    ref = conv_prologue(x, scale, shift, True)
+    o, r = out.float(), ref.float()
+    assert bool(((o == r) | (o.isnan() & r.isnan())).all())
+    assert not bool((o == conv_prologue(x, scale, shift, False).float()).all())
 
 
 def _assert_flips_only(out, ref, x, wt, flips=4):
@@ -349,13 +408,17 @@ def _assert_flips_only(out, ref, x, wt, flips=4):
 
 @pytest.mark.parametrize("t,h,w,cin,cout,time_padded,fuse", [
     (3, 16, 320, 128, 128, False, False), (3, 16, 320, 128, 128, False, True),
-    (6, 16, 384, 256, 256, True, True)])
+    (6, 16, 384, 256, 256, True, True), (3, 16, 144, 128, 128, False, False),
+    (2, 8, 576, 128, 128, False, True), (1, 16, 160, 128, 128, False, True)])
 def test_k3_quant_matches_plain(dev, monkeypatch, t, h, w, cin, cout,
                                 time_padded, fuse):
     """W8A8 over several TPU tiles in H and W (bw 64 at W 320, 96 at W 384
-    with 256 channels), plain and with the prologue (time_padded with two
-    prefix planes in the last case). Control: the plain version with one
-    scale for the whole tensor fails, so the windows matter."""
+    with 256 channels, 48 at W 144, 192 at W 576, 32 at W 160 with one
+    output frame), plain and with the prologue (time_padded with two prefix
+    planes in the third case). K3's output tile (8 rows x 16 columns) lies
+    in one scale tile at every bw, the widths that are not powers of two
+    included. Control: the plain version with one scale for the whole
+    tensor fails, so the windows matter."""
     from kandinsky5_tpu_torch.ops import conv as conv_mod
 
     assert conv_mod.quant_tile_width(w, cin, cout) < w

@@ -57,6 +57,17 @@ def test_device_times_skips_ranges_and_host_rows():
     ("void (anonymous namespace)::flash_fixed_kernel<true>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, unsigned char const*, float const*, "
      "__nv_bfloat16*, int, int, int)", "K1 flash_fixed"),
+    ("void (anonymous namespace)::conv3d_kernel<false, false>(CUtensorMap_st, "
+     "(anonymous namespace)::ConvArgs)", "K3 conv3d"),
+    ("void (anonymous namespace)::conv3d_kernel<true, false>(CUtensorMap_st, "
+     "(anonymous namespace)::ConvArgs)", "K3 conv3d fused GroupNorm + SiLU"),
+    ("void (anonymous namespace)::conv3d_kernel<false, true>(CUtensorMap_st, "
+     "(anonymous namespace)::ConvArgs)", "K3 conv3d W8A8"),
+    ("void (anonymous namespace)::conv3d_kernel<true, true>(CUtensorMap_st, "
+     "(anonymous namespace)::ConvArgs)", "K3 conv3d W8A8"),
+    ("void (anonymous namespace)::window_rowmax_kernel<true>(__nv_bfloat16 "
+     "const*, float const*, float const*, float*, int, int, int, int, int, "
+     "int)", "K3 W8A8 window scales"),
     ("void (anonymous namespace)::flash_int8_kernel<0>(signed char const*)",
      "K5 flash_int8"),
     ("void (anonymous namespace)::flash_int8_pipe_kernel(signed char const*)",
@@ -66,6 +77,8 @@ def test_device_times_skips_ranges_and_host_rows():
     ("some_unlisted_kernel", "other"),
 ])
 def test_group_of_files_kernels(kernel, group):
-    """K1's wgmma kernel (both mask instances) is filed under K1's row,
-    not under another attention kernel's or a library group."""
+    """K1's wgmma kernel (both mask instances) is filed under K1's row, and
+    K3's wgmma kernel under its three groups by mode (plain, prologue, W8A8,
+    beside the window scales), not under another kernel's or a library
+    group."""
     assert group_of(kernel) == group
