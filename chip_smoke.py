@@ -6,6 +6,7 @@
                                              # controls at other seeds only
     python3 chip_smoke.py --k1               # phase 2's K1 cases only
     python3 chip_smoke.py --k3               # phase 2's K3 cases only
+    python3 chip_smoke.py --k4 [--k6]        # phase 2's K4 (K6) cases only
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -25,8 +26,12 @@ Phases, each of which must pass (any failure exits nonzero):
                reduction; K3 on ragged tiles (H, W not multiples of its
                8 x 16 tile, one output frame, every plane carried, a batch
                of two), each with a control that must fail; every K3 case
-               with its TFLOP/s (TOP/s), share of bound and cuDNN's time; K6 at the 10 s shape under three masks: STA only,
-               ~15 % and ~35 % kept; K5 and K7 at K1's four main-path
+               with its TFLOP/s (TOP/s), share of bound and cuDNN's time; K4
+               at the smoke's headline chunk, the 1 s stream decode's two
+               chunks and a tiled decode's tile, each with its TFLOP/s,
+               share of bound, K/V rate through L2 and SDPA's time; K6 at
+               the 10 s shape under four masks: STA only, ~15 %, ~35 % and
+               ~90 % kept, beside flex_attention; K5 and K7 at K1's four main-path
                shapes on one shared pack_int8 call, K7 bit-equal to K5,
                K5's error against K1 printed as the quantization error), the
                tools kernels T5 (its four modes at the 5 s shape) and T1 (int8
@@ -421,11 +426,95 @@ def phase_k1(dev, g, normed, results):
         del q, k, v
 
 
+def k4_tiles_read(lq, lk, mask, q_ids, kv_ids) -> int:
+    """The 32-key K/V tiles K4's blocks read in one call (B = H = 1), from
+    the wrapper's own tables: a block reads its live tiles, less the fully
+    masked ones where it may skip them."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.flash import online_plan
+
+    _, plan, nxt = online_plan(1, lq, lk, mask, q_ids, kv_ids,
+                               q_ids.device)
+    n_live, skip = plan[0, :, 0].long(), plan[0, :, 1].bool()
+    if nxt is None:
+        return int(n_live.sum())
+    nt = nxt.shape[1] - 1
+    valid = nxt[0, :nt] == torch.arange(nt, device=nxt.device)
+    before = torch.cat([valid.new_zeros(1, dtype=torch.long),
+                        valid.long().cumsum(0)])
+    return int(torch.where(skip, before[n_live], n_live).sum())
+
+
+def phase_k4(dev, g, results):
+    """K4 at the VAE mid block's shapes (one head of 512, 64x96 latent
+    frames of 6,144 tokens): the smoke's headline chunk (4 frames against
+    4 carried + 4, 2 of the 4 carried slots valid), the 1 s stream
+    decode's two chunks (4 frames with nothing carried yet; 3 frames after
+    a full buffer), and a tiled decode's tile (5 frames, q = kv, no mask).
+    Each logs its TFLOP/s over the allowed (query, key) pairs, its share
+    of the tensor-core bound and SDPA's time in the same run (SDPA with
+    the same boolean mask: the same function but for the weights' bf16
+    rounding and a row with no allowed key). Unit q and k give scores of
+    standard deviation 1 (spread over several units across the keys), so
+    the weights are far from uniform."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.flash import flash_online, flash_online_plain
+
+    s = 6144
+    for t, past, filled in ((4, 4, 2), (4, 4, 0), (3, 4, 4), (5, 0, 0)):
+        q = torch.randn((1, t * s, 1, 512), generator=g, device=dev).bfloat16()
+        k = torch.randn((1, (past + t) * s, 1, 512), generator=g,
+                        device=dev).bfloat16()
+        v = torch.randn((1, (past + t) * s, 1, 512), generator=g,
+                        device=dev).bfloat16()
+        slot = torch.arange(past, device=dev)
+        kv_ids = torch.cat([slot.repeat_interleave(s), (past + torch.arange(
+            t, device=dev)).repeat_interleave(s)])[None]
+        q_ids = kv_ids[:, past * s:]
+        mask = None
+        if past:
+            mask = torch.cat([(slot >= past - filled).repeat_interleave(s),
+                              torch.ones(t * s, dtype=torch.bool,
+                                         device=dev)])[None]
+        # the (query, key) pairs the ids and the mask allow: the work K4
+        # does and the library call's boolean mask
+        allowed = q_ids[0, :, None] >= kv_ids[0, None, :]
+        if mask is not None:
+            allowed &= mask[0, None, :]
+        pairs = int(allowed.sum())
+        label = (f"q {t * s} kv {(past + t) * s} d 512"
+                 + (f", {filled} of {past} carried valid" if past
+                    else ", tiled tile (q = kv)"))
+        _compare("K4_flash_online", label,
+                 lambda: flash_online(q, k, v, mask, q_ids, kv_ids),
+                 lambda: flash_online_plain(q, k, v, mask, q_ids, kv_ids),
+                 results,
+                 work=(4.0 * pairs * 512,
+                       _nbytes(q, k, v, q, mask, q_ids, kv_ids)),
+                 control_fn=lambda: flash_online_plain(q * 0, k, v, mask,
+                                                       q_ids, kv_ids),
+                 library_fn=_sdpa(q, k, v, allowed[None, None]))
+        r = results["K4_flash_online"][-1]
+        r["tflops"] = 4.0 * pairs * 512 / r["ms"] / 1e9
+        r["kv_gb"] = k4_tiles_read(q.shape[1], k.shape[1], mask, q_ids,
+                                   kv_ids) * 2 * 32 * 1024 / 1e9
+        log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
+            f"% of the tensor-core bound); {r['ms'] / r['library_ms']:.2f}x "
+            f"SDPA; K/V tiles read {r['kv_gb']:.2f} GB, "
+            f"{r['kv_gb'] / r['ms']:.2f} TB/s through L2")
+        if len(results["K4_flash_online"]) == 1:
+            log("    under a steady run of K4: " + _clock_under(
+                lambda: flash_online(q, k, v, mask, q_ids, kv_ids)))
+        del q, k, v, allowed
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(dev, results):
     import torch
 
     from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
-    from kandinsky5_tpu_torch.ops.flash import flash_online, flash_online_plain
 
     g, normed = _seeded(dev)
     phase_k1(dev, g, normed, results)
@@ -448,32 +537,7 @@ def phase_kernels(dev, results):
 
     phase_k3(dev, g, results)
 
-    # K4: the streaming mid attention's first full chunk: 4 frames of
-    # 64x96 latents against 4 carried + 4 chunk frames, ids and buffer mask.
-    # Unit q and k give scores of standard deviation 1 (spread over several
-    # units across the 49,152 keys), so the weights are far from uniform.
-    s, past, t = 6144, 4, 4
-    q = torch.randn((1, t * s, 1, 512), generator=g, device=dev).bfloat16()
-    k = torch.randn((1, (past + t) * s, 1, 512), generator=g, device=dev).bfloat16()
-    v = torch.randn((1, (past + t) * s, 1, 512), generator=g, device=dev).bfloat16()
-    slot = torch.arange(past, device=dev)
-    kv_ids = torch.cat([slot.repeat_interleave(s),
-                        (past + torch.arange(t, device=dev)).repeat_interleave(s)])[None]
-    q_ids = kv_ids[:, past * s:]
-    mask = torch.cat([(slot >= 2).repeat_interleave(s),
-                      torch.ones(t * s, dtype=torch.bool, device=dev)])[None]
-    # the (query, key) pairs the ids and the mask allow: the work K4 does
-    # and the library call's boolean mask
-    allowed = (q_ids[0, :, None] >= kv_ids[0, None, :]) & mask[0, None, :]
-    _compare("K4_flash_online", f"q {t * s} kv {(past + t) * s} d 512",
-             lambda: flash_online(q, k, v, mask, q_ids, kv_ids),
-             lambda: flash_online_plain(q, k, v, mask, q_ids, kv_ids), results,
-             work=(4.0 * int(allowed.sum()) * 512,
-                   _nbytes(q, k, v, q, mask, q_ids, kv_ids)),
-             control_fn=lambda: flash_online_plain(q * 0, k, v, mask, q_ids,
-                                                   kv_ids),
-             library_fn=_sdpa(q, k, v, allowed[None, None]))
-    del q, k, v, allowed
+    phase_k4(dev, g, results)
     phase_k6(dev, g, normed, results)
     phase_int8(dev, g, normed, results)
     phase_ff_tools(dev, g, results)
@@ -761,10 +825,12 @@ def _flex_attention(q, k, v, mask):
 
 
 def phase_k6(dev, g, normed, results):
-    """K6 at the 10 s shape (1, 93,696, 28, 64) under three masks of the
+    """K6 at the 10 s shape (1, 93,696, 28, 64) under four masks of the
     (61, 4, 6) tile grid: STA only, STA plus seeded random blocks to ~15 %,
-    and to ~35 % kept. Beside it K1 at the same shape, dense (where
-    sparsity stops paying), and flex_attention as the library call."""
+    ~35 % and ~90 % kept (the density the 10 s request keeps with random
+    weights). Beside it K1 at the same shape, dense (where sparsity stops
+    paying), and flex_attention as the library call; each case logs its
+    TFLOP/s and share of the tensor-core bound."""
     import torch
 
     from kandinsky5_tpu_torch.ops.flash import flash_fixed
@@ -791,7 +857,7 @@ def phase_k6(dev, g, normed, results):
     else:
         log(f"  flex_attention compiled in {time.perf_counter() - t:.1f} s")
     for label, target in (("STA", None), ("STA+random", 0.15),
-                          ("STA+random", 0.35)):
+                          ("STA+random", 0.35), ("STA+random", 0.90)):
         mask.copy_(sta.expand(1, h, s1, s1))
         if target is not None:
             p = (target - float(sta.float().mean())) / (1 - float(sta.float().mean()))
@@ -817,6 +883,12 @@ def phase_k6(dev, g, normed, results):
                  library_fn=flex,
                  info=dict(density=density, k1_dense_ms=k1_ms,
                            k1_dense_bound_ms=k1_bound[0]))
+        r = results["K6_sparse_nabla"][-1]
+        r["tflops"] = 4.0 * 64 ** 3 * listed / r["ms"] / 1e9
+        lib = ("" if r["library_ms"] is None
+               else f"; {r['ms'] / r['library_ms']:.2f}x flex_attention")
+        log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
+            f"% of the tensor-core bound){lib}")
         del inds, nb, flex
     del q, k, v, mask
     torch.cuda.empty_cache()
@@ -1948,6 +2020,12 @@ def main() -> int:
     ap.add_argument("--k1", action="store_true",
                     help="build, then run only phase 2's K1 cases and print "
                     "their readings (no smoke result)")
+    ap.add_argument("--k4", action="store_true",
+                    help="build, then run only phase 2's K4 cases and print "
+                    "their readings (no smoke result)")
+    ap.add_argument("--k6", action="store_true",
+                    help="build, then run only phase 2's K6 cases and print "
+                    "their readings (no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -1998,6 +2076,16 @@ def main() -> int:
         if args.k3:
             results = {}
             phase_k3(dev, _seeded(dev)[0], results)
+            log(gpu_line())
+            log(json.dumps(results))
+            return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
+        if args.k4 or args.k6:
+            results = {}
+            g, normed = _seeded(dev)
+            if args.k4:
+                phase_k4(dev, g, results)
+            if args.k6:
+                phase_k6(dev, g, normed, results)
             log(gpu_line())
             log(json.dumps(results))
             return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
@@ -2059,7 +2147,7 @@ def main() -> int:
         if name == "K6_sparse_nabla":
             entry["cases"] = [{k: r[k] for k in (
                 "shape", "density", "ms", "plain_ms", "bound_ms",
-                "library_ms", "k1_dense_ms")} for r in rs]
+                "library_ms", "k1_dense_ms", "tflops")} for r in rs]
         elif len(rs) > 1:
             entry["cases"] = [{k: r[k] for k in (
                 "shape", "max_abs", "rel", "ms", "plain_ms", "bound_ms",

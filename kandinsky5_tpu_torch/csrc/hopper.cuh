@@ -3,13 +3,14 @@
 // descriptors for 128-byte-swizzled tiles, the wgmma products themselves,
 // named barriers and register reallocation.
 //
-// K1's tiles are rows of exactly 128 bytes (64 bf16) written by TMA with
-// CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
-// c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the swizzle
-// pattern (a function of the absolute shared address) is the one wgmma's
-// 128B layout expects. K3's weight tiles are rows of 64 bytes with the 64B
-// swizzle (the same rule at half the width), and its activation operand is
-// non-swizzled (``smem_desc``).
+// K1's, K4's and K6's tiles are rows of exactly 128 bytes (64 bf16) written
+// by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands
+// at chunk c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the
+// swizzle pattern (a function of the absolute shared address) is the one
+// wgmma's 128B layout expects; K4's 512-wide rows are 8 such tiles of 64
+// columns (slabs), one TMA box each. K3's weight tiles are rows of 64 bytes
+// with the 64B swizzle (the same rule at half the width), and its
+// activation operand is non-swizzled (``smem_desc``).
 #pragma once
 
 #include <cuda.h>
@@ -93,6 +94,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16, both addresses 16-byte aligned) of
+// contiguous global memory into shared memory; completion is counted in
+// bytes on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -192,6 +205,61 @@ __device__ __forceinline__ void wgmma_m64n72k16_rs(float (&d)[36], uint32_t a0,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
       : K5_F16(d, 0), K5_F16(d, 16), K5_F4(d, 32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64x32, fp32) = or += A (64x16, K-major smem) . B (16x32, K-major smem),
+// bf16 operands.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : K5_F16(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64x64, fp32) = or += A (64x16 bf16, registers: the m16n8k16 A fragment
+// of each warp's 16 rows) . B (16x64 smem; TRANS_B = 0: K-major, 1:
+// MN-major, transposed on read).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0,
+                                                   uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : K5_F16(d, 0), K5_F16(d, 16)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+// D (64x256, fp32) += A (64x16 bf16, registers as above) . B (16x256,
+// MN-major smem, transposed on read).
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], uint32_t a0,
+                                                    uint32_t a1, uint32_t a2,
+                                                    uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : K5_F16(d, 0), K5_F16(d, 16), K5_F16(d, 32), K5_F16(d, 48),
+        K5_F16(d, 64), K5_F16(d, 80), K5_F16(d, 96), K5_F16(d, 112)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 

@@ -9,156 +9,280 @@
 // over the keys of the first nb[i] blocks listed in kv_inds[i], with ONE
 // scalar shift for the call (score_bound, a device scalar), so no running
 // max and no rescale exist. p is rounded to bf16 for the PV product, but
-// the normalizer sums the unrounded fp32 p, as the TPU kernel does.
+// the normalizer sums the unrounded fp32 p, as the TPU kernel does. A row
+// with no listed block writes zeros.
 //
-// Bound on the H100: tensor-core throughput (4 * 64^3 FLOPs per listed
-// block: QK and PV) plus one exp2 per score; the bytes (q and out once,
-// each listed K/V block once per query block, mostly from L2 since
-// neighbouring query blocks list neighbouring tiles) come second.
-// Design, simple for now: one block = 4 warps = one (b*h, 64-row query
-// block); each warp keeps its 16 Q rows as mma.sync A fragments in
-// registers, scores stay in registers (C layout -> A layout, as in
-// flash_fixed.cu), and the listed K/V blocks stream through two
-// shared-memory stages filled by cp.async while the previous block is
-// computed. The block reads its own nb and list from global memory. The
-// TPU kernel's lane-packed K||V pages, 512-token step groups, SMEM-packed
-// lists of 8 banks and bank padding exist for the TPU's DMA engine and
-// are not carried over. Layout is the JAX public (B, S, H, 64), read with
-// the head stride directly. A faster design (wgmma fed by TMA, several
-// query blocks of one head sharing a CTA and their common KV blocks) is
-// later work.
+// Bound on the H100: the tensor cores (4 x 64^3 flops per listed block)
+// and, as for K1, the special-function units' exp2 (64 x 64 per listed
+// block at 16 per clock per SM: about as long as the products). The bytes,
+// each listed 16 KB K/V block once per query block (64 flops a byte), must
+// come from L2 and be shared: neighbouring query blocks list mostly the
+// same blocks (at 90 % kept, nearly all).
+// Design, K1's structure (csrc/flash_fixed.cu) walking lists:
+//   * a block takes four neighbouring query blocks of one head (a group,
+//     ops/sparse.py GROUP); the groups of a head run together, so its K and
+//     V (24 MB at the 10 s shape) stay in L2 while they are read, and
+//     longest first within the head (``order``, built by the wrapper from
+//     the lists' lengths);
+//   * one producer thread merges the group's ascending lists and feeds
+//     each distinct KV block once, by TMA (K and V tiles of 64 keys,
+//     128-byte swizzled), into an 8-stage ring on mbarriers, with a flag
+//     per stage saying which query blocks listed it: a block listed by
+//     several is read once for all of them;
+//   * four consumer warpgroups, one per query block, own 64 query rows
+//     each. Q is loaded by TMA, scaled and rounded to bf16 once into
+//     registers (the A fragments of the score product). Per stage it
+//     listed: S = Q K^T is wgmma m64n64k16 with Q from registers, one FADD
+//     and one ex2.approx per score, the row sum in registers over the
+//     unrounded p, p cvt to bf16x2 straight into the A registers of O += P
+//     V (wgmma m64n64k16, V read MN-major). The warpgroups' exp2 passes
+//     and products interleave; each frees every stage through its "empty"
+//     mbarrier, listed or not;
+//   * setmaxnreg moves registers from the producer to the consumers (112
+//     each, so four fit beside it; K1's in-warpgroup pipelining needs a
+//     second P array and does not fit, and gained 3 % with two warpgroups).
+// Layout is the public (B, S, H, 64), read through 4-D tensor maps (64, H,
+// S, B).
+#include <limits.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 using namespace k5;
 
-constexpr int D = 64, BQ = 64, BKV = 64, KST = D + 8;
+constexpr int D = 64, BQ = 64, BKV = 64;
+constexpr int NWG = 4;                  // consumer warpgroups = query blocks
+constexpr int NS = 8;                   // ring stages
+constexpr int THREADS = 128 * (NWG + 1);
+constexpr uint32_t TILE = BKV * 128;    // one K or V tile, bytes
+constexpr uint32_t STAGE = 2 * TILE;
+constexpr uint32_t Q_TILE = BQ * 128;
+constexpr uint32_t SMEM = 1024 + NWG * Q_TILE + NS * STAGE;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float QSCALE = LOG2E * 0.125f;  // log2(e) / sqrt(64)
 
-// Start the copies of KV block `blk` (64 rows of K and of V) into a stage.
-__device__ __forceinline__ void load_block(bf16* Ks, bf16* Vs, const bf16* kb,
-                                           const bf16* vb, int blk, size_t rs,
-                                           int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = tid + i * 128, row = idx >> 3, c8 = (idx & 7) * 8;
-    const size_t off = (size_t)(blk * BKV + row) * rs + c8;
-    cp_async16(Ks + row * KST + c8, kb + off);
-    cp_async16(Vs + row * KST + c8, vb + off);
+__global__ void __launch_bounds__(THREADS, 1)
+sparse_nabla_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const int* __restrict__ inds, const int* __restrict__ nbs,
+                    const int* __restrict__ order,
+                    const float* __restrict__ shift, bf16* __restrict__ out,
+                    int S, int H, int nq, int s1) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[NS], empty[NS], qbar;
+  __shared__ int stage_flags[NS];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = smem;
+  uint8_t* ring = Qs + NWG * Q_TILE;
+
+  const int ng = (nq + NWG - 1) / NWG;
+  const int gid = order[blockIdx.x];
+  const int grp = gid % ng, h = (gid / ng) % H, b = gid / (ng * H);
+  const int tid = threadIdx.x;
+  const size_t row0 = ((size_t)b * H + h) * nq + (size_t)grp * NWG;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * NWG);
+    }
+    mbar_init(&qbar, 1);
+    fence_barrier_init();
   }
-}
+  __syncthreads();
 
-__global__ void __launch_bounds__(128)
-sparse_nabla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ inds,
-                    const int* __restrict__ nbs, const float* __restrict__ shift,
-                    bf16* __restrict__ out, int S, int Sk, int H) {
-  __shared__ __align__(16) bf16 Ks[2][BKV * KST];
-  __shared__ __align__(16) bf16 Vs[2][BKV * KST];
-
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t row_id = ((size_t)b * H + h) * (S / BQ) + qb;
-  const int nb = nbs[row_id];
-  const int* list = inds + row_id * (Sk / BKV);
-  const size_t rs = (size_t)H * D;
-  const bf16* qb_ = q + ((size_t)b * S * H + h) * D;
-  const bf16* kb_ = k + ((size_t)b * Sk * H + h) * D;
-  const bf16* vb_ = v + ((size_t)b * Sk * H + h) * D;
-  const float shift2 = shift[0] * LOG2E;
-
-  if (nb > 0) load_block(Ks[0], Vs[0], kb_, vb_, __ldg(list), rs, tid);
-  cp_async_commit();
-
-  // q scaled into the log2 domain and rounded to bf16, as A fragments
-  const int r0 = qb * BQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[4][4];
+  const int wg = tid / 128;
+  if (wg == 0) {
+    // ---- producer: one thread merges the lists and keeps the ring full ----
+    regs_dealloc<24>();
+    if (tid == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      const int nblk = min(NWG, nq - grp * NWG);
+      mbar_expect_tx(&qbar, nblk * Q_TILE);
+      for (int w = 0; w < nblk; ++w)
+        tma_load_4d(Qs + w * Q_TILE, &tq, &qbar, 0, h, (grp * NWG + w) * BQ, b);
+      // the group's lists, merged: each distinct block once, in order
+      int n[NWG], idx[NWG];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const int rr[4] = {r0, r1, r0, r1}, cc[4] = {c, c, c + 8, c + 8};
+      for (int w = 0; w < NWG; ++w) {
+        n[w] = w < nblk ? nbs[row0 + w] : 0;
+        idx[w] = 0;
+      }
+      for (int i = 0;; ++i) {
+        int c[NWG], blk = INT_MAX;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = unpack_f2(ld32(qb_ + rr[e] * rs + cc[e]));
-      qa[kk][e] = pack_f2(f.x * QSCALE, f.y * QSCALE);
-    }
-  }
-
-  float o[8][4];
+        for (int w = 0; w < NWG; ++w) {
+          c[w] = idx[w] < n[w] ? inds[(row0 + w) * s1 + idx[w]] : INT_MAX;
+          blk = min(blk, c[w]);
+        }
+        const int s = i % NS;
+        mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+        if (blk == INT_MAX) {  // the end: a stage that carries no tile
+          stage_flags[s] = -1;
+          mbar_arrive(&full[s]);
+          break;
+        }
+        int flags = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < nb; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nb)
-      load_block(Ks[st ^ 1], Vs[st ^ 1], kb_, vb_, __ldg(list + j + 1), rs, tid);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* ks = Ks[st];
-    const bf16* vs = Vs[st];
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kp = ks + (nt * 8 + g) * KST + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma16816(s[nt], qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
-    }
-
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p00 = exp2f(s[nt][0] - shift2), p01 = exp2f(s[nt][1] - shift2);
-      const float p10 = exp2f(s[nt][2] - shift2), p11 = exp2f(s[nt][3] - shift2);
-      l0 += p00 + p01;
-      l1 += p10 + p11;
-      const int kk = nt >> 1, hi = (nt & 1) * 2;
-      pa[kk][hi] = pack_f2(p00, p01);
-      pa[kk][hi + 1] = pack_f2(p10, p11);
-    }
-
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int n = nt * 8 + g;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const bf16* vp = vs + (kk * 16 + 2 * t) * KST + n;
-        mma16816(o[nt], pa[kk], pack2(vp[0], vp[KST]),
-                 pack2(vp[8 * KST], vp[9 * KST]));
+        for (int w = 0; w < NWG; ++w) {
+          flags |= (c[w] == blk) << w;
+          idx[w] += c[w] == blk;
+        }
+        stage_flags[s] = flags;
+        uint8_t* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load_4d(st, &tk, &full[s], 0, h, blk * BKV, b);
+        tma_load_4d(st + TILE, &tv, &full[s], 0, h, blk * BKV, b);
       }
     }
-    __syncthreads();
+    return;
   }
 
+  // ---- consumers: warpgroup w owns query block NWG grp + w ----
+  regs_alloc<112>();
+  const int w = wg - 1;
+  const int tw = tid - 128 * wg;
+  const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+  const float nshift = -shift[0] * LOG2E;
+  const int qrow = (grp * NWG + w) * BQ;
+
+  // Q scaled into the log2 domain and rounded to bf16, as the A fragments
+  // of the score product: register 4 kk + r holds (row g + 8 (r & 1), cols
+  // 16 kk + 2 t + 8 (r >> 1) ..+1) of this warp's 16 rows, read from the
+  // 128-byte-swizzled tile (16-byte chunk c of row r at chunk c ^ (r % 8))
+  mbar_wait(&qbar, 0);
+  uint32_t qa[16];
+  {
+    const uint8_t* qt = Qs + w * Q_TILE;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int row = warp * 16 + g + 8 * (r & 1);
+      const int col = 16 * (r >> 2) + 2 * t + 8 * ((r >> 1) & 1);
+      const uint32_t raw = *reinterpret_cast<const uint32_t*>(
+          qt + row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+      const float2 f = unpack_f2(raw);
+      qa[r] = pack_f2(f.x * QSCALE, f.y * QSCALE);
+    }
+  }
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  float sacc[32];
+  uint32_t p[16];
+
+  auto qk = [&](int st) {
+    const uint64_t dk = smem_desc(smem_u32(ring + st * STAGE), 16, 1024, 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_rs<0>(sacc, qa[4 * kk], qa[4 * kk + 1], qa[4 * kk + 2],
+                            qa[4 * kk + 3], dk + 2 * kk, kk);
+  };
+  auto pv = [&](int st) {
+    const uint64_t dv =
+        smem_desc(smem_u32(ring + st * STAGE + TILE), TILE, 1024, 1);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_m64n64k16_rs<1>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                            p[4 * kk + 3], dv + 128 * kk, 1);
+  };
+  // the weights of S: sacc[4 n8 + e] is (row g + 8 (e / 2), key 8 n8 + 2 t +
+  // e % 2); the row sums add the unrounded p
+  auto weights = [&]() {
+#pragma unroll
+    for (int n8 = 0; n8 < BKV / 8; ++n8) {
+      const float x0 = ex2(sacc[4 * n8] + nshift);
+      const float x1 = ex2(sacc[4 * n8 + 1] + nshift);
+      const float x2 = ex2(sacc[4 * n8 + 2] + nshift);
+      const float x3 = ex2(sacc[4 * n8 + 3] + nshift);
+      l0 += x0 + x1;
+      l1 += x2 + x3;
+      const int r = 4 * (n8 >> 1) + 2 * (n8 & 1);
+      p[r] = pack_f2(x0, x1);
+      p[r + 1] = pack_f2(x2, x3);
+    }
+  };
+
+  for (int i = 0;; ++i) {
+    const int s = i % NS;
+    mbar_wait(&full[s], (i / NS) & 1);
+    const int flags = stage_flags[s];
+    if (flags < 0) break;
+    if (flags & (1 << w)) {
+      fence_regs(sacc);
+      wgmma_fence();
+      qk(s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      weights();
+      fence_regs(p);
+      fence_regs(o);
+      wgmma_fence();
+      pv(s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  if (qrow >= S) return;
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  const int r0 = qrow + warp * 16 + g, r1 = r0 + 8;
+  const size_t rs = (size_t)H * D;
   bf16* ob = out + ((size_t)b * S * H + h) * D;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(ob + r0 * rs + c) = pack_f2(o[nt][0] * i0, o[nt][1] * i0);
-    *reinterpret_cast<uint32_t*>(ob + r1 * rs + c) = pack_f2(o[nt][2] * i1, o[nt][3] * i1);
+  for (int n8 = 0; n8 < D / 8; ++n8) {
+    const int col = n8 * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(ob + r0 * rs + col) =
+        pack_f2(o[4 * n8] * i0, o[4 * n8 + 1] * i0);
+    *reinterpret_cast<uint32_t*>(ob + r1 * rs + col) =
+        pack_f2(o[4 * n8 + 2] * i1, o[4 * n8 + 3] * i1);
   }
 }
 
 }  // namespace
 
-// q (B, S, H, 64), k/v (B, Sk, H, 64) bf16 contiguous, S and Sk multiples of
-// 64; inds (B, H, S/64, Sk/64) and nb (B, H, S/64) int32; shift (1,) fp32.
+// q (B, S, H, 64), k/v (B, Sk, H, 64) bf16, 16-byte aligned, S and Sk
+// multiples of 64; inds (B, H, S/64, Sk/64) and nb (B, H, S/64) int32 (a
+// row's first nb blocks; the merge consumes every entry once in any order,
+// and shares loads when they ascend); order (B * H * ceil(S / 256)) int32, a
+// permutation of the groups of four query blocks; shift (1,) fp32. Returns
+// the first CUDA error (a tensor map that cannot be encoded returns its
+// CUresult).
 extern "C" int k5_sparse_nabla(const void* q, const void* k, const void* v,
                                const void* inds, const void* nb,
-                               const void* shift, void* out, int B, int S,
-                               int Sk, int H, void* stream) {
-  dim3 grid(S / BQ, H, B);
-  sparse_nabla_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)inds,
-      (const int*)nb, (const float*)shift, (bf16*)out, S, Sk, H);
+                               const void* order, const void* shift, void* out,
+                               int B, int S, int Sk, int H, void* stream) {
+  CUtensorMap tq, tk, tv;
+  int err = bhld_map(&tq, q, B, S, H, BQ);
+  if (err == 0) err = bhld_map(&tk, k, B, Sk, H, BKV);
+  if (err == 0) err = bhld_map(&tv, v, B, Sk, H, BKV);
+  if (err != 0) return err;
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !ready[dev]) {
+    e = cudaFuncSetAttribute(sparse_nabla_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) ready[dev] = true;
+  }
+  const int nq = S / BQ, ng = (nq + NWG - 1) / NWG;
+  if (B * H * ng == 0) return 0;
+  sparse_nabla_kernel<<<B * H * ng, THREADS, SMEM, (cudaStream_t)stream>>>(
+      tq, tk, tv, (const int*)inds, (const int*)nb, (const int*)order,
+      (const float*)shift, (bf16*)out, S, H, nq, Sk / BKV);
   return (int)cudaGetLastError();
 }

@@ -42,7 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "k5_flash_fixed": [_P] * 6 + [_I] * 4 + [_P],
-    "k5_flash_online": [_P] * 7 + [_I] * 4 + [_P],
+    "k5_flash_online": [_P] * 8 + [_I] * 4 + [_P],
     "k5_ff_mod": [_P] * 8 + [_I] * 4 + [_P],
     "k5_ff": [_P] * 5 + [_I] * 3 + [_P],
     "k5_ff_chunked": [_P] * 6 + [_I] * 5 + [_P],
@@ -50,7 +50,7 @@ _SIGNATURES = {
     "k5_conv3d_fused": [_P] * 6 + [_I] * 8 + [_P],
     "k5_conv3d_window_scale": [_P] * 6 + [_I] * 9 + [_P],
     "k5_conv3d_quant": [_P] * 9 + [_I] * 10 + [_P],
-    "k5_sparse_nabla": [_P] * 7 + [_I] * 4 + [_P],
+    "k5_sparse_nabla": [_P] * 8 + [_I] * 4 + [_P],
     "k5_flash_int8": [_P] * 7 + [_I] * 4 + [_P],
     "k5_flash_int8_pipe": [_P] * 7 + [_I] * 4 + [_P],
     "k5_i8_decomp": [_P] * 6 + [_I] * 5 + [_P],
@@ -178,3 +178,12 @@ def check_cuda(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} is not on a CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def check_tma_aligned(name: str, **tensors) -> None:
+    """Raise unless every given tensor's base address is 16-byte aligned,
+    as a TMA tensor map over it needs."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned (its TMA "
+                             "tensor map needs it)")

@@ -101,10 +101,7 @@ def flash_fixed(q, k, v, kv_mask: Optional[torch.Tensor] = None):
             raise ValueError(f"K1 kv_mask must be (B, Lk), got {kv_mask.shape}")
         mask = kv_mask.to(torch.uint8).contiguous()
     _kernels.check_cuda("K1", q=q, k=k, v=v, mask=mask)
-    for key, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"K1: {key} is not 16-byte aligned (its TMA "
-                             "tensor map needs it)")
+    _kernels.check_tma_aligned("K1", q=q, k=k, v=v)
     out = torch.empty_like(q)
     _kernels.launch("k5_flash_fixed", "K1_flash_fixed", q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), _kernels.ptr(mask),
@@ -142,6 +139,61 @@ def flash_online_plain(q, k, v, kv_mask=None, q_ids=None, kv_ids=None):
     return out
 
 
+# K4's tiles: 64 query rows a block, 32 keys a tile (csrc/flash_online.cu)
+K4_BLOCK_Q, K4_BLOCK_K = 64, 32
+# the code of a key no query may see (masked, or past Lk)
+_NO_KEY = 2 ** 31 - 1
+
+
+def online_plan(b: int, lq: int, lk: int, kv_mask=None, q_ids=None,
+                kv_ids=None, device=None):
+    """K4's work tables, on the device, with no host sync:
+
+      codes (B, nt * 32) int32: the kv id of each valid key (0 without ids),
+        ``_NO_KEY`` where kv_mask removes it or past Lk; a query with id q
+        sees a key iff its code <= q (q = 0 without ids);
+      plan (B, nqb, 2) int32: per 64-row query block, the number of live
+        32-key tiles (a prefix: the TPU kernel's liveness rule, a tile is
+        dead where the block's largest q id is below its smallest kv id,
+        ``flash_pallas._flash_bhld``), and 1 where the kernel may also skip
+        tiles whose keys kv_mask removes entirely: every row of the block
+        has an allowed key (the first valid key's id is at most the block's
+        first q id), so such a tile changes no output;
+      nxt (B, nt + 1) int32 or None (no mask): the first tile at or after t
+        that holds a valid key (nt where none does).
+
+    nt = ceil(lk / 32), nqb = ceil(lq / 64)."""
+    bq, bk = K4_BLOCK_Q, K4_BLOCK_K
+    nt, nqb = -(-lk // bk), -(-lq // bq)
+    if kv_ids is not None:
+        codes = kv_ids.to(torch.int32)
+    else:
+        codes = torch.zeros((b, lk), dtype=torch.int32, device=device)
+    if kv_mask is not None:
+        codes = torch.where(kv_mask.bool(), codes, _NO_KEY)
+    codes = torch.cat([codes, codes.new_full((b, nt * bk - lk), _NO_KEY)], 1)
+    if q_ids is not None:
+        last = (torch.arange(1, nqb + 1, device=device) * bq).clamp_max(lq) - 1
+        qmax = q_ids.to(torch.int32)[:, last].contiguous()
+        kmin = kv_ids.to(torch.int32)[:, ::bk].contiguous()
+        n_live = torch.searchsorted(kmin, qmax, right=True).to(torch.int32)
+        q_first = q_ids.to(torch.int32)[:, ::bq]
+    else:
+        n_live = torch.full((b, nqb), nt, dtype=torch.int32, device=device)
+        q_first = torch.zeros((b, nqb), dtype=torch.int32, device=device)
+    nxt = None
+    skip = torch.zeros_like(n_live)
+    if kv_mask is not None:
+        valid = codes.view(b, nt, bk).lt(_NO_KEY).any(-1)
+        idx = torch.arange(nt, dtype=torch.int32, device=device)
+        nxt = torch.where(valid, idx, nt)
+        nxt = torch.cat([nxt, nxt.new_full((b, 1), nt)], dim=1)
+        nxt = nxt.flip(-1).cummin(-1).values.flip(-1).contiguous()
+        skip = (codes.amin(-1, keepdim=True) <= q_first).to(torch.int32)
+    plan = torch.stack([n_live, skip], dim=-1).contiguous()
+    return codes.contiguous(), plan, nxt
+
+
 def flash_online(q, k, v, kv_mask=None, q_ids=None, kv_ids=None):
     """K4 wrapper. q (B, Lq, H, 512), k/v (B, Lk, H, 512) bf16; kv_mask
     (B, Lk) bool; q_ids (B, Lq) / kv_ids (B, Lk) non-decreasing int ids."""
@@ -156,23 +208,25 @@ def flash_online(q, k, v, kv_mask=None, q_ids=None, kv_ids=None):
         raise ValueError(f"K4 takes bf16 heads of 512, got {q.dtype} d={d}")
     if k.shape != (b, lk, h, d) or v.shape != k.shape:
         raise ValueError(f"K4 shape mismatch: {q.shape} {k.shape} {v.shape}")
-    mask = None
-    if kv_mask is not None:
-        if kv_mask.shape != (b, lk):
-            raise ValueError(f"K4 kv_mask must be (B, Lk), got {kv_mask.shape}")
-        mask = kv_mask.to(torch.uint8).contiguous()
-    qi = ki = None
-    if q_ids is not None:
-        if q_ids.shape != (b, lq) or kv_ids.shape != (b, lk):
-            raise ValueError("K4 ids must be (B, Lq) and (B, Lk)")
-        qi = q_ids.to(torch.int32).contiguous()
-        ki = kv_ids.to(torch.int32).contiguous()
-    _kernels.check_cuda("K4", q=q, k=k, v=v, mask=mask, q_ids=qi, kv_ids=ki)
+    if kv_mask is not None and kv_mask.shape != (b, lk):
+        raise ValueError(f"K4 kv_mask must be (B, Lk), got {kv_mask.shape}")
+    if q_ids is not None and (q_ids.shape != (b, lq)
+                              or kv_ids.shape != (b, lk)):
+        raise ValueError("K4 ids must be (B, Lq) and (B, Lk)")
+    _kernels.check_cuda("K4", q=q, k=k, v=v)
+    for key, t in (("kv_mask", kv_mask), ("q_ids", q_ids), ("kv_ids", kv_ids)):
+        if t is not None and not t.is_cuda:
+            raise ValueError(f"K4: {key} is not on a CUDA device")
+    _kernels.check_tma_aligned("K4", q=q, k=k, v=v)
+    with record_function("k4_plan"):
+        codes, plan, nxt = online_plan(b, lq, lk, kv_mask, q_ids, kv_ids,
+                                       q.device)
+        qi = None if q_ids is None else q_ids.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     _kernels.launch("k5_flash_online", "K4_flash_online", q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), _kernels.ptr(mask),
-                    _kernels.ptr(qi), _kernels.ptr(ki), out.data_ptr(),
-                    b, lq, lk, h)
+                    k.data_ptr(), v.data_ptr(), codes.data_ptr(),
+                    plan.data_ptr(), _kernels.ptr(nxt), _kernels.ptr(qi),
+                    out.data_ptr(), b, lq, lk, h)
     return out
 
 

@@ -72,10 +72,35 @@ def sparse_attention_plain(q, k, v, kv_inds, kv_nb, shift=None):
     return out
 
 
+# query blocks a K6 block takes (csrc/sparse_nabla.cu NWG)
+GROUP = 4
+
+
+def group_order(kv_nb):
+    """K6's schedule: the kernel takes the query blocks of one (batch, head)
+    ``GROUP`` at a time (blocks G g .. G g + G - 1, a group); returns the
+    groups' linear ids ((b H + h) NG + g, NG = ceil(S / 64 / G)) as
+    (B H NG,) int32, head by head (so the groups running together share
+    one head's K and V in L2) and longest first within a head by the
+    group's listed blocks (stable), on the device."""
+    b, h, nq = kv_nb.shape
+    n = kv_nb.to(torch.int32)
+    pad = -nq % GROUP
+    if pad:
+        n = torch.cat([n, n.new_zeros((b, h, pad))], dim=-1)
+    work = n.view(b * h, -1, GROUP).sum(-1)
+    order = torch.sort(work, dim=-1, descending=True, stable=True).indices
+    heads = torch.arange(b * h, device=kv_nb.device)[:, None] * work.shape[1]
+    return (order + heads).flatten().to(torch.int32)
+
+
 def sparse_attention(q, k, v, kv_inds, kv_nb):
     """K6 wrapper. q (B, S, H, 64), k/v (B, Sk, H, 64) bf16 with S and Sk
     multiples of 64; kv_inds (B, H, S/64, Sk/64) and kv_nb (B, H, S/64)
-    integer kv lists."""
+    integer kv lists. The kernel reads a block listed by several rows of
+    a group once when the lists are ascending, as
+    ``nabla.block_mask_to_kv_lists`` builds them; any order gives the same
+    result."""
     b, s, h, d = q.shape
     sk = k.shape[1]
     if s % BLOCK or sk % BLOCK:
@@ -95,9 +120,11 @@ def sparse_attention(q, k, v, kv_inds, kv_nb):
     inds = kv_inds.to(torch.int32).contiguous()
     nb = kv_nb.to(torch.int32).contiguous()
     _kernels.check_cuda("K6", q=q, k=k, v=v, kv_inds=inds, kv_nb=nb)
+    _kernels.check_tma_aligned("K6", q=q, k=k, v=v)
+    order = group_order(nb)
     out = torch.empty_like(q)
     _kernels.launch("k5_sparse_nabla", "K6_sparse_nabla", q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), inds.data_ptr(),
-                    nb.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                    b, s, sk, h)
+                    nb.data_ptr(), order.data_ptr(), shift.data_ptr(),
+                    out.data_ptr(), b, s, sk, h)
     return out

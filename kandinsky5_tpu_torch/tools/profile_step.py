@@ -70,7 +70,7 @@ GROUPS = [
      ("imma", "s8s8", "_s8_", "i8i8", "int8")),
     ("library GEMM/conv (projections, 1x1, conv_in/out, dense cross)",
      ("gemm", "nvjet", "xmma", "cutlass", "sm90", "sm80", "fprop", "cublas")),
-    ("sort / scan (NABLA mask: row sort, cumsum, kv-list sort)",
+    ("sort / scan (NABLA mask: row sort, cumsum, kv-list sort; K4's tables)",
      ("sort", "scan")),
     ("elementwise / reduce / copy (norms, casts, gates, RoPE)",
      ("elementwise", "reduce", "copy", "pad", "cat", "index", "softmax",
@@ -79,6 +79,7 @@ GROUPS = [
 # profiler ranges (record_function name prefix -> what they hold) whose
 # device time is printed apart
 RANGES = {"nabla_mask.": "NABLA mask build",
+          "k4_plan": "K4's work tables (ops/flash.online_plan)",
           "pack_int8": "int8-QK pre-pass",
           "int8_linear": "W8A8 linears (quantize x, torch._int_mm, dequant)"}
 # profiler rows that are host-side API calls, markers or the ranges above

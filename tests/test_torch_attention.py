@@ -14,9 +14,12 @@ from kandinsky5_tpu.ops.flash_pallas import flash_attention as jax_flash
 from kandinsky5_tpu_torch.ops import attention as tatt
 from kandinsky5_tpu_torch.ops import _kernels
 from kandinsky5_tpu_torch.ops.flash import (
+    K4_BLOCK_K,
+    K4_BLOCK_Q,
     flash_attention,
     flash_fixed_plain,
     flash_online_plain,
+    online_plan,
     score_bound,
 )
 
@@ -167,3 +170,97 @@ def test_cpu_tensors_never_launch():
     q5 = torch.from_numpy(rand(rng, 1, 64, 1, 512))
     flash_attention(q5, q5, q5)
     assert all(n == 0 for n in _kernels.LAUNCHES.values())
+
+
+def _k4_visits(n_live, skip, nxt):
+    """The tiles K4's producer walks for one block, from its plan row and
+    the batch's nxt row (csrc/flash_online.cu)."""
+    seen, t = [], 0
+    while True:
+        if skip:
+            t = int(nxt[t])
+        if t >= n_live:
+            return seen
+        seen.append(t)
+        t += 1
+
+
+@pytest.mark.parametrize("s,past,t,filled", [
+    (64, 4, 4, 2), (96, 4, 3, 4), (128, 2, 2, 0), (40, 3, 5, 1),
+    (100, 4, 3, 2)])
+def test_k4_liveness_matches_jax_rule(s, past, t, filled):
+    """K4's live tiles per 64-row block (``online_plan``'s first column, a
+    prefix) against the TPU kernel's liveness table
+    (``flash_pallas._flash_bhld``: the block's largest q id >= the tile's
+    smallest kv id, ids padded with 2**30) on the same ids, at K4's blocks
+    of 64 queries and 32 keys. Where Lq is ragged (the last two cases) the
+    JAX padding makes its last block live everywhere; the port reads the
+    last real row, so there it may visit fewer tiles, never more."""
+    q_ids, kv_ids, mask = _stream_layout(s, past, t, filled)
+    lq, lk = q_ids.shape[1], kv_ids.shape[1]
+    bq, bk = K4_BLOCK_Q, K4_BLOCK_K
+    _, plan, _ = online_plan(1, lq, lk, torch.from_numpy(mask),
+                             torch.from_numpy(q_ids), torch.from_numpy(kv_ids))
+    qi = jnp.pad(jnp.asarray(q_ids), ((0, 0), (0, -lq % bq)),
+                 constant_values=2 ** 30)
+    ki = jnp.pad(jnp.asarray(kv_ids), ((0, 0), (0, -lk % bk)),
+                 constant_values=2 ** 30)
+    qmax = qi.reshape(1, -1, bq).max(axis=-1)
+    kmin = ki.reshape(1, -1, bk).min(axis=-1)
+    live = np.asarray(qmax[:, :, None] >= kmin[:, None, :])[0]
+    nt = live.shape[1]
+    got = np.arange(nt)[None] < plan[0, :, 0].numpy()[:, None]
+    if lq % bq == 0:
+        np.testing.assert_array_equal(got, live)
+    else:
+        np.testing.assert_array_equal(got[:-1], live[:-1])
+        assert not (got[-1] & ~live[-1]).any()
+
+
+def test_k4_plan_codes_skips_and_walk():
+    """``online_plan``'s key codes (the kv id of a valid key, 2**31 - 1
+    where the mask removes it or past Lk), its skip flags (set exactly
+    where every row of the block has an allowed key) and the walk they
+    give (csrc/flash_online.cu's producer): every tile that holds a key
+    some row of the block may see is visited, a block with a row that
+    sees no key visits all its live tiles (so that row's output is the
+    mean of V over them), and a block that skips visits only live tiles
+    holding a valid key. The layout: 2 carried slots, both masked, then
+    2 chunk frames of 100 tokens, the first frame's keys masked too."""
+    s, past, t = 100, 2, 2
+    q_ids, kv_ids, mask = _stream_layout(s, past, t, 0)
+    mask[0, past * s:(past + 1) * s] = False
+    lq, lk = q_ids.shape[1], kv_ids.shape[1]
+    codes, plan, nxt = online_plan(1, lq, lk, torch.from_numpy(mask),
+                                   torch.from_numpy(q_ids),
+                                   torch.from_numpy(kv_ids))
+    bq, bk = K4_BLOCK_Q, K4_BLOCK_K
+    nt = -(-lk // bk)
+    want = np.full(nt * bk, 2 ** 31 - 1, np.int64)
+    want[:lk] = np.where(mask[0], kv_ids[0], 2 ** 31 - 1)
+    np.testing.assert_array_equal(codes[0].numpy(), want)
+    allowed = (q_ids[0][:, None] >= kv_ids[0][None]) & mask[0][None]
+    for qb in range(-(-lq // bq)):
+        rows = allowed[qb * bq:(qb + 1) * bq]
+        n_live, skip = (int(x) for x in plan[0, qb])
+        assert skip == int(rows.any(1).all())
+        seen = _k4_visits(n_live, skip, nxt[0].numpy())
+        needed = {j // bk for j in np.flatnonzero(rows.any(0))}
+        assert needed <= set(seen)
+        if skip:
+            assert seen == [j for j in range(n_live)
+                            if mask[0, j * bk:(j + 1) * bk].any()]
+        else:
+            assert seen == list(range(n_live))
+
+
+def test_k4_plan_without_mask_or_ids():
+    """No mask: no nxt and no skips; no ids: every tile live and every
+    valid key coded 0."""
+    ids = torch.arange(3).repeat_interleave(70)[None]
+    codes, plan, nxt = online_plan(1, 210, 210, None, ids, ids)
+    assert nxt is None and not plan[..., 1].any()
+    codes, plan, nxt = online_plan(2, 100, 90, None, None, None)
+    assert nxt is None and plan.shape == (2, 2, 2)
+    assert (plan[..., 0] == 3).all()
+    assert (codes[:, :90] == 0).all() and (codes[:, 90:] == 2 ** 31 - 1).all()

@@ -122,6 +122,25 @@ def test_k1_rejects_unaligned(dev):
         flash_fixed(shifted, q, q)
 
 
+@pytest.mark.parametrize("kernel", ["K4", "K6"])
+def test_k4_k6_reject_unaligned(dev, kernel):
+    """K4 and K6 read their inputs through TMA tensor maps too: an
+    unaligned base raises rather than launch."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    d = 512 if kernel == "K4" else 64
+    q = _normed(g, (1, 128, 1, d), dev)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "K4":
+            flash_online(shifted, q, q)
+        else:
+            inds, nb = block_mask_to_kv_lists(
+                torch.ones((1, 1, 2, 2), dtype=torch.bool, device=dev))
+            sparse_attention(shifted, q, q, inds, nb)
+
+
 @pytest.mark.parametrize("b,lq,lk,h,masked", [
     (2, 300, 300, 3, True), (1, 256, 256, 28, True), (1, 1000, 700, 2, False),
     (1, 47616, 47616, 28, False)])
@@ -209,22 +228,74 @@ def test_k6_matches_plain(dev, b, grid, h, extra):
                         3e-2, 1e-2)
 
 
-@pytest.mark.parametrize("t,s,past,filled", [(2, 64, 4, 2), (1, 200, 4, 0),
-                                             (4, 6144, 4, 4)])
-def test_k4_matches_plain(dev, t, s, past, filled):
+@pytest.mark.parametrize("lengths", [
+    (40, 4, 3, 39, 7, 1, 40, 0), (4, 40, 5, 40, 3, 9, 1, 11), (40,) * 8,
+    (3, 5, 7, 9, 11, 13, 15, 17)])
+def test_k6_lists(dev, lengths):
+    """K6 on hand-made lists of 40 KV blocks per row (s1 = 40): odd
+    lengths, dense rows (every block listed), rows 10x apart in one head,
+    an empty row, and neighbouring rows that share few blocks (each row's
+    blocks drawn at random), over two heads (the second with the lengths
+    rotated) and two batches."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    s1, b, h = 40, 2, 2
+    nq = s1
+    s = nq * 64
+    rows = []
+    for hi in range(b * h):
+        for r in range(nq):
+            n = lengths[(r + hi) % len(lengths)]
+            row = torch.zeros(s1, dtype=torch.bool, device=dev)
+            row[torch.randperm(s1, generator=g, device=dev)[:n]] = True
+            rows.append(row)
+    mask = torch.stack(rows).view(b, h, nq, s1)
+    inds, nb = block_mask_to_kv_lists(mask)
+    q = _normed(g, (b, s, h, 64), dev)
+    k = _normed(g, (b, s, h, 64), dev)
+    v = torch.randn((b, s, h, 64), generator=g, device=dev).bfloat16()
+    out = sparse_attention(q, k, v, inds, nb)
+    torch.cuda.synchronize()
+    ref = sparse_attention_plain(q, k, v, inds, nb)
+    empty = (nb == 0).nonzero().tolist()
+    for bi, hi, r in empty:
+        assert torch.all(out[bi, r * 64:(r + 1) * 64, hi] == 0)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    assert _fails_bound(sparse_attention_plain(q * 0, k, v, inds, nb), ref,
+                        3e-2, 1e-2)
+
+
+def _stream_case(dev, b, h, t, s, past, filled, seed=1):
     """The streaming mid attention's layout: `past` carried frames (the
-    newest `filled` valid) then `t` chunk frames, frame-causal ids."""
-    g = torch.Generator(device=dev).manual_seed(1)
+    newest `filled[i]` valid in batch i) then `t` chunk frames of `s`
+    tokens, frame-causal ids."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     lq, lk = t * s, (past + t) * s
-    q = torch.randn((1, lq, 1, 512), generator=g, device=dev).bfloat16()
-    k = torch.randn((1, lk, 1, 512), generator=g, device=dev).bfloat16()
-    v = torch.randn((1, lk, 1, 512), generator=g, device=dev).bfloat16()
+    q = torch.randn((b, lq, h, 512), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, lk, h, 512), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, lk, h, 512), generator=g, device=dev).bfloat16()
     slot = torch.arange(past, device=dev)
-    kv_ids = torch.cat([slot.repeat_interleave(s),
-                        (past + torch.arange(t, device=dev)).repeat_interleave(s)])[None]
-    q_ids = kv_ids[:, past * s:]
-    mask = torch.cat([(slot >= past - filled).repeat_interleave(s),
-                      torch.ones(t * s, dtype=torch.bool, device=dev)])[None]
+    kv_ids = torch.cat([slot.repeat_interleave(s), (past + torch.arange(
+        t, device=dev)).repeat_interleave(s)])[None].expand(b, lk).contiguous()
+    q_ids = kv_ids[:, past * s:].contiguous()
+    mask = torch.stack([torch.cat([
+        (slot >= past - f).repeat_interleave(s),
+        torch.ones(t * s, dtype=torch.bool, device=dev)]) for f in filled])
+    return q, k, v, mask, q_ids, kv_ids
+
+
+@pytest.mark.parametrize("b,h,t,s,past,filled", [
+    (1, 1, 2, 64, 4, (2,)), (1, 1, 1, 200, 4, (0,)), (1, 1, 3, 100, 2, (1,)),
+    (2, 2, 2, 96, 3, (3, 1)), (1, 1, 4, 6144, 4, (0,)),
+    (1, 1, 3, 6144, 4, (4,)), (1, 1, 4, 6144, 4, (4,))])
+def test_k4_matches_plain(dev, b, h, t, s, past, filled):
+    """K4 at the streaming mid attention's layout: Lq not a multiple of
+    the 64-row block (200, 300), two batches with their own buffer masks
+    and two heads, a chunk whose past slots are all masked (the first
+    chunk of a decode, whose masked tiles the kernel skips), and the 1 s
+    stream decode's chunks at 512x768 (4 frames with nothing carried, 3
+    frames after a full buffer) with a 4-frame chunk after a full buffer."""
+    q, k, v, mask, q_ids, kv_ids = _stream_case(dev, b, h, t, s, past, filled)
     out = flash_online(q, k, v, mask, q_ids, kv_ids)
     torch.cuda.synchronize()
     ref = flash_online_plain(q, k, v, mask, q_ids, kv_ids)
@@ -232,6 +303,49 @@ def test_k4_matches_plain(dev, t, s, past, filled):
     assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
     uniform = flash_online_plain(q * 0, k, v, mask, q_ids, kv_ids)
     assert _fails_bound(uniform, ref, 3e-2, 1e-2)
+
+
+@pytest.mark.parametrize("t,h,w", [(5, 64, 96), (2, 24, 40)])
+def test_k4_tiled_decode_tile(dev, t, h, w):
+    """K4 as the tiled decode's mid block calls it: q = kv, frame ids, no
+    mask: a 512x768 tile of the 1 s and 5 s decodes (5 latent frames), and
+    a small ragged one (frames of 960 tokens)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = t * h * w
+    q, k, v = (torch.randn((1, n, 1, 512), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    ids = torch.arange(t, device=dev).repeat_interleave(h * w)[None]
+    out = flash_online(q, k, v, None, ids, ids)
+    torch.cuda.synchronize()
+    ref = flash_online_plain(q, k, v, None, ids, ids)
+    max_abs, rel = _err(out, ref)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    assert _fails_bound(flash_online_plain(q * 0, k, v, None, ids, ids), ref,
+                        3e-2, 1e-2)
+
+
+def test_k4_row_without_allowed_key(dev):
+    """A row with no allowed key (its own frame and every carried slot
+    masked) scores -1e30 everywhere, so its weights are all exp(0) = 1 and
+    its output is the mean of V over the tiles its block visits: the keys
+    of frames up to its own (frames are 128 tokens, so the 32-key tiles,
+    the 64-row blocks and the earlier kernel's 64-key tiles and 32-row
+    blocks all see the same live keys). The kernel must not skip that
+    block's masked tiles; the next frame's rows, which have allowed keys,
+    match the plain version. Control: the plain version's answer for the
+    row (the mean over every key) must fail the bound."""
+    s, past, t = 128, 2, 2
+    q, k, v, mask, q_ids, kv_ids = _stream_case(dev, 1, 1, t, s, past, (0,))
+    mask[0, past * s:(past + 1) * s] = False
+    out = flash_online(q, k, v, mask, q_ids, kv_ids)
+    torch.cuda.synchronize()
+    ref = flash_online_plain(q, k, v, mask, q_ids, kv_ids)
+    max_abs, rel = _err(out[:, s:], ref[:, s:])
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    want = v[:, :(past + 1) * s].float().mean(1, keepdim=True).expand(1, s, 1, 512)
+    max_abs, rel = _err(out[:, :s], want)
+    assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
+    assert _fails_bound(ref[:, :s], want, 3e-2, 1e-2)
 
 
 @pytest.mark.parametrize("b,l,d,ff", [(2, 300, 256, 512), (1, 47616, 1792, 7168)])

@@ -37,6 +37,8 @@ from kandinsky5_tpu_torch.ops.nabla import (
     sta_mask,
 )
 from kandinsky5_tpu_torch.ops.sparse import (
+    GROUP,
+    group_order,
     sparse_attention,
     sparse_attention_plain,
 )
@@ -202,6 +204,29 @@ def test_sparse_wrapper_checks_and_cpu_never_launches():
         sparse_attention(x[:, :100], x, x, inds, nb)
     with pytest.raises(ValueError):
         sparse_attention(x, x, x, inds[..., :1], nb)
+
+
+@pytest.mark.parametrize("b,h,nq", [(1, 3, 9), (2, 2, 10), (1, 1, 1)])
+def test_k6_group_order(b, h, nq):
+    """K6's schedule (``group_order``): every group of GROUP query blocks
+    once, head by head, and within a head longest first by the group's
+    listed blocks, ties in block order."""
+    rng = np.random.default_rng(b * 100 + nq)
+    nb = torch.from_numpy(rng.integers(0, 6, (b, h, nq)).astype(np.int32))
+    order = group_order(nb).numpy()
+    ng = -(-nq // GROUP)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(b * h * ng))
+    padded = np.pad(nb.numpy(), ((0, 0), (0, 0), (0, ng * GROUP - nq)))
+    work = padded.reshape(b * h * ng, GROUP).sum(-1)
+    heads = order // ng
+    assert (np.diff(heads) >= 0).all()
+    for hd in range(b * h):
+        ids = order[heads == hd]
+        w = work[ids]
+        assert (np.diff(w) <= 0).all()
+        assert all(ids[i] < ids[i + 1] for i in range(len(ids) - 1)
+                   if w[i] == w[i + 1])
 
 
 def test_port_sources_import_no_jax():

@@ -68,6 +68,12 @@ def test_device_times_skips_ranges_and_host_rows():
     ("void (anonymous namespace)::window_rowmax_kernel<true>(__nv_bfloat16 "
      "const*, float const*, float const*, float*, int, int, int, int, int, "
      "int)", "K3 W8A8 window scales"),
+    ("(anonymous namespace)::flash_online_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, int const*, int const*, int const*, "
+     "int const*, __nv_bfloat16*, int, int, int, int)", "K4 flash_online"),
+    ("(anonymous namespace)::sparse_nabla_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, int const*, int const*, int const*, "
+     "float const*, __nv_bfloat16*, int, int, int, int)", "K6 sparse_nabla"),
     ("void (anonymous namespace)::flash_int8_kernel<0>(signed char const*)",
      "K5 flash_int8"),
     ("void (anonymous namespace)::flash_int8_pipe_kernel(signed char const*)",
@@ -77,8 +83,8 @@ def test_device_times_skips_ranges_and_host_rows():
     ("some_unlisted_kernel", "other"),
 ])
 def test_group_of_files_kernels(kernel, group):
-    """K1's wgmma kernel (both mask instances) is filed under K1's row, and
+    """K1's wgmma kernel (both mask instances) is filed under K1's row,
     K3's wgmma kernel under its three groups by mode (plain, prologue, W8A8,
-    beside the window scales), not under another kernel's or a library
-    group."""
+    beside the window scales) and K4's and K6's wgmma kernels under theirs,
+    not under another kernel's or a library group."""
     assert group_of(kernel) == group
