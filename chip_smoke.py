@@ -6,6 +6,7 @@
                                              # controls at other seeds only
     python3 chip_smoke.py --k1               # phase 2's K1 cases only
     python3 chip_smoke.py --k3               # phase 2's K3 cases only
+    python3 chip_smoke.py --ff               # phase 2's K2, K8, T2-T4 cases
     python3 chip_smoke.py --k4 [--k6]        # phase 2's K4 (K6) cases only
 
 Phases, each of which must pass (any failure exits nonzero):
@@ -14,7 +15,12 @@ Phases, each of which must pass (any failure exits nonzero):
                shared-memory / spill report and its warnings of serialized
                wgmma;
   2. kernels — K1-K7 against their plain PyTorch versions on the card, in
-               bf16, at the shapes the 5 s and 10 s paths give them (K1
+               bf16, at the shapes the 5 s and 10 s paths give them (K2 at
+               47,616, 10,752, 93,696, 1,536 and 256 rows and a batch of two
+               whose row tiles straddle the items, with controls, each
+               with its TFLOP/s, share of bound and the bf16 library
+               chain's time, and its modulation pass alone within one bf16
+               ulp; K1
                also at the tp = 2 and 4 ranks' shares of the 5 s shape's
                heads and on a ragged, batched, masked case, each with its
                achieved TFLOP/s and computed exp2 floor in the log; every
@@ -164,6 +170,7 @@ TOOLS = ("T1_gemm_i8", "T1_gemm_bf16", "T2_gemm", "T3_ff", "T4_ff_tiled",
 # lies within an ulp of a rounding (``_flips_only``); the window scales must
 # equal their plain version exactly.
 TOL = {"K1_flash_fixed": (3e-2, 1e-2), "K2_ff_mod": (6e-2, 1e-2),
+       "K2_modulate": (0.0, 0.0),
        "K3_conv3d": (6e-2, 1e-2), "K3_conv3d_fused": (6e-2, 1e-2),
        "K3_conv3d_quant": (0.0, 0.0), "K3_quant_windows": (0.0, 0.0),
        "K4_flash_online": (3e-2, 1e-2),
@@ -238,13 +245,15 @@ def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
 def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
              control_fn=None, library_fn=None, info=None, yardstick_fn=None,
              check=None, control_label=None,
-             yardstick_label="bf16 SDPA: not the same function"):
+             yardstick_label="bf16 SDPA: not the same function",
+             check_label="flips only"):
     """Check ``kernel_fn`` against ``plain_fn`` and time both (and
     ``library_fn``, one PyTorch call computing the same function, if
     given; ``yardstick_fn``, a call that computes a different function,
     is timed and labelled ``yardstick_label``). ``work`` = (bf16 flops,
     bytes[, int8 ops]) of the call for its bound. ``check(out, ref)`` ->
-    bool replaces the tolerance test (the control must fail it too)."""
+    bool replaces the tolerance test (the control must fail it too;
+    ``check_label`` names it in the log)."""
     import torch
 
     out = kernel_fn()
@@ -290,7 +299,7 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
     lib_note = "" if lib_ms is None else f" library {lib_ms:.3f} ms"
     if yard_ms is not None:
         lib_note += f" yardstick {yard_ms:.3f} ms ({yardstick_label})"
-    tol_note = ("flips only" if check is not None else "exact"
+    tol_note = (check_label if check is not None else "exact"
                 if name in ("T1_gemm_i8", "K3_quant_windows")
                 else f"tol {atol:.3g}")
     log(f"  {name} {shape}: max_abs {max_abs:.3e} ({tol_note}) rel_l2 "
@@ -511,32 +520,108 @@ def phase_k4(dev, g, results):
     torch.cuda.empty_cache()
 
 
-def phase_kernels(dev, results):
+def _ff_rate(results, name, flops: float):
+    """Log the last FF case's rate, its share of the bound and its time
+    against the bf16 chain timed beside it (K8's library call, K2's
+    yardstick)."""
+    r = results[name][-1]
+    r["tflops"] = flops / r["ms"] / 1e9
+    chain = r["library_ms"] or r["yardstick_ms"]
+    log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
+        f"% of the bound); the bf16 chain {chain:.3f} ms, kernel "
+        f"{r['ms'] / chain:.2f}x")
+
+
+def _k2_chain(x, sc, sh, w1, w2, gt):
+    """K2's yardstick, timed only: the bf16 library chain F.layer_norm ->
+    modulation -> matmul -> GELU -> matmul -> gated residual (no single
+    PyTorch call computes K2)."""
+    import torch
+    import torch.nn.functional as F
+
+    d = x.shape[-1]
+    s1, s0, g1 = ((v[:, None] + a).bfloat16() for v, a in ((sc, 1.0),
+                                                           (sh, 0.0),
+                                                           (gt, 0.0)))
+    w1t, w2t = w1.t(), w2.t()
+    return lambda: x + g1 * torch.matmul(F.gelu(torch.matmul(
+        F.layer_norm(x, (d,), eps=1e-5) * s1 + s0, w1t)), w2t)
+
+
+def _within_ulp(out, ref) -> bool:
+    """Every bf16 output within one bf16 ulp of the plain one, or 2^-20
+    where the shift cancels the normed term to near zero."""
     import torch
 
-    from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
+    _, e = torch.frexp(ref.float())
+    bound = torch.ldexp(torch.ones_like(ref, dtype=torch.float32),
+                        e - 8).clamp_min(2.0 ** -20)
+    return bool(((out.float() - ref.float()).abs() <= bound).all())
 
-    g, normed = _seeded(dev)
-    phase_k1(dev, g, normed, results)
 
-    # K2: the visual blocks' modulated FF at 5 s and 1 s, the text blocks'
+def phase_k2(dev, g, results):
+    """K2 at the visual blocks' 5 s, 10 s and 1 s shapes (47,616, 93,696
+    and 10,752 rows), the image (1,536) and the text blocks (256), and a
+    batch of two whose L (1,000) is not a multiple of the 128-row tile, so
+    a tile holds rows of both items. Controls: the FF term left out (out =
+    x), and at B = 2 the items' gates swapped; each must fail the bound.
+    Each case logs its TFLOP/s, share of bound and the bf16 chain's time;
+    then the modulation pass alone on 47,616 rows in two items, each output
+    within one bf16 ulp of the plain version's (its control: the other
+    item's scale)."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops.ff import (
+        ff_mod_plain,
+        fused_ff_modulated,
+        modulate,
+        modulate_plain,
+    )
+
     d, ff = 1792, 7168
-    sc, sh, gt = (torch.randn((1, d), generator=g, device=dev) * 0.1
-                  for _ in range(3))
     w1 = (torch.randn((ff, d), generator=g, device=dev) / math.sqrt(d)).bfloat16()
     w2 = (torch.randn((d, ff), generator=g, device=dev) / math.sqrt(ff)).bfloat16()
-    for rows in (47616, 10752, 256):
-        x = torch.randn((1, rows, d), generator=g, device=dev).bfloat16()
-        _compare("K2_ff_mod", f"(1,{rows},{d})x{ff}",
+    for b, l in ((1, 47616), (1, 10752), (1, 256), (1, 1536), (2, 1000),
+                 (1, 93696)):
+        sc, sh, gt = (torch.randn((b, d), generator=g, device=dev) * 0.1
+                      for _ in range(3))
+        x = torch.randn((b, l, d), generator=g, device=dev).bfloat16()
+        if b == 2:
+            control, label = (lambda: ff_mod_plain(x, sc, sh, w1, w2,
+                                                   gt.flip(0)),
+                              "the two items' gates swapped")
+        else:
+            control, label = (lambda: x, "the FF term left out (out = x)")
+        flops = 4.0 * b * l * d * ff
+        _compare("K2_ff_mod", f"({b},{l},{d})x{ff}",
                  lambda: fused_ff_modulated(x, sc, sh, w1, w2, gt),
                  lambda: ff_mod_plain(x, sc, sh, w1, w2, gt), results,
-                 work=(4.0 * rows * d * ff,
-                       _nbytes(x, x, w1, w2, sc, sh, gt)))
+                 work=(flops, _nbytes(x, x, w1, w2, sc, sh, gt)),
+                 control_fn=control, control_label=label,
+                 yardstick_fn=_k2_chain(x, sc, sh, w1, w2, gt),
+                 yardstick_label="the bf16 chain LN -> modulation -> matmul "
+                 "-> GELU -> matmul -> gate: no single call")
+        _ff_rate(results, "K2_ff_mod", flops)
         del x
     del w1, w2
+    x = torch.randn((2, 23808, d), generator=g, device=dev).bfloat16()
+    sc, sh = (torch.randn((2, d), generator=g, device=dev) * 0.1
+              for _ in range(2))
+    _compare("K2_modulate", f"(2,23808,{d})",
+             lambda: modulate(x, sc, sh), lambda: modulate_plain(x, sc, sh),
+             results, work=(0.0, _nbytes(x, x, sc, sh)), check=_within_ulp,
+             check_label="one bf16 ulp",
+             control_fn=lambda: modulate_plain(x, sc.flip(0), sh),
+             control_label="the other item's scale")
+    del x
+    torch.cuda.empty_cache()
 
+
+def phase_kernels(dev, results):
+    g, normed = _seeded(dev)
+    phase_k1(dev, g, normed, results)
+    phase_k2(dev, g, results)
     phase_k3(dev, g, results)
-
     phase_k4(dev, g, results)
     phase_k6(dev, g, normed, results)
     phase_int8(dev, g, normed, results)
@@ -1018,6 +1103,7 @@ def phase_ff_tools(dev, g, results):
                  library_fn=bpg.ff_library(x, w1s, w2s), info=dict(tp=tp),
                  control_fn=lambda: ff_plain(x, w1s[:-128], w2s[:, :-128]),
                  control_label="the last 128 of the ff sum dropped")
+        _ff_rate(results, "K8_ff", 4.0 * rows * d * f)
         del w1s, w2s
     for name, kernel, plain, library, flops, control in bpg.cases(x, wo, w1,
                                                                   w2):
@@ -1027,6 +1113,8 @@ def phase_ff_tools(dev, g, results):
                  work=(flops, _nbytes(x, *weights) + 2 * rows * d),
                  library_fn=library, control_fn=control,
                  control_label="one tile of the reduction left out")
+        if name != "T2_gemm":
+            _ff_rate(results, name, flops)
     del x, wo, w1, w2
     torch.cuda.empty_cache()
 
@@ -2026,6 +2114,10 @@ def main() -> int:
     ap.add_argument("--k6", action="store_true",
                     help="build, then run only phase 2's K6 cases and print "
                     "their readings (no smoke result)")
+    ap.add_argument("--ff", action="store_true",
+                    help="build, then run only phase 2's K2 (with its "
+                    "modulation pass), K8 and T2-T4 cases and print their "
+                    "readings (no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -2076,6 +2168,14 @@ def main() -> int:
         if args.k3:
             results = {}
             phase_k3(dev, _seeded(dev)[0], results)
+            log(gpu_line())
+            log(json.dumps(results))
+            return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
+        if args.ff:
+            results = {}
+            g = _seeded(dev)[0]
+            phase_k2(dev, g, results)
+            phase_ff_tools(dev, g, results)
             log(gpu_line())
             log(json.dumps(results))
             return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1

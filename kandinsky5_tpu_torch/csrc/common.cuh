@@ -1,7 +1,7 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel but K1, K3, K4 and K6 (whose wgmma building blocks are in
-// hopper.cuh) is built around the warp-level tensor-core product
+// Every kernel but K1, K2/K8, K3, K4 and K6 (whose wgmma building blocks are
+// in hopper.cuh) is built around the warp-level tensor-core product
 // mma.sync.m16n8k16 (bf16 x bf16 -> fp32). Its register layouts, per lane
 // (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a[0] = (row g,   cols 2t..2t+1)
@@ -104,63 +104,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// 128x128 output tile of C = A . B^T with A (M, K) and B (N, K) both
-// K-contiguous in shared memory, 32 deep per stage. 256 threads = 8 warps
-// as 2 (M) x 4 (N); each warp owns a 64x32 sub-tile = 4x4 mma tiles.
-// ---------------------------------------------------------------------------
-constexpr int GM = 128, GN = 128, GK = 32, GST = GK + 8;  // smem row stride
-
-__device__ __forceinline__ void gemm_stage(const bf16* As, const bf16* Bs,
-                                           float acc[4][4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int kk = 0; kk < GK / 16; ++kk) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const bf16* p = As + (wm * 64 + mt * 16 + g) * GST + kk * 16 + 2 * t;
-      a[mt][0] = ld32(p);
-      a[mt][1] = ld32(p + 8 * GST);
-      a[mt][2] = ld32(p + 8);
-      a[mt][3] = ld32(p + 8 * GST + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const bf16* p = Bs + (wn * 32 + nt * 8 + g) * GST + kk * 16 + 2 * t;
-      b[nt][0] = ld32(p);
-      b[nt][1] = ld32(p + 8);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-  }
-}
-
-// Load the B stage (GN rows of the (N, K) matrix, GK columns from k0) into
-// registers: 128 rows x 4 uint4 = 512 uint4, two per thread.
-__device__ __forceinline__ void load_b_regs(const bf16* B, int ldb, int n0,
-                                            int k0, uint4 r[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int idx = threadIdx.x + i * 256;
-    int row = idx >> 2, c8 = (idx & 3) * 8;
-    r[i] = *reinterpret_cast<const uint4*>(B + (size_t)(n0 + row) * ldb + k0 + c8);
-  }
-}
-
-__device__ __forceinline__ void store_stage_regs(bf16* S, const uint4 r[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int idx = threadIdx.x + i * 256;
-    int row = idx >> 2, c8 = (idx & 3) * 8;
-    *reinterpret_cast<uint4*>(S + row * GST + c8) = r[i];
-  }
 }
 
 }  // namespace k5

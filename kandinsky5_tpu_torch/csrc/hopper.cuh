@@ -3,8 +3,8 @@
 // descriptors for 128-byte-swizzled tiles, the wgmma products themselves,
 // named barriers and register reallocation.
 //
-// K1's, K4's and K6's tiles are rows of exactly 128 bytes (64 bf16) written
-// by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands
+// K1's, K2/K8's, K4's and K6's tiles are rows of exactly 128 bytes (64 bf16)
+// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands
 // at chunk c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the
 // swizzle pattern (a function of the absolute shared address) is the one
 // wgmma's 128B layout expects; K4's 512-wide rows are 8 such tiles of 64
@@ -94,6 +94,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// The same for a 2-D tensor map at (c0, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -263,6 +273,28 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], uint32_t a0
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// D (64x256, fp32) = or += A (64x16, K-major smem) . B (16x256, K-major
+// smem), bf16 operands. ``accumulate`` = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da,
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : K5_F16(d, 0), K5_F16(d, 16), K5_F16(d, 32), K5_F16(d, 48),
+        K5_F16(d, 64), K5_F16(d, 80), K5_F16(d, 96), K5_F16(d, 112)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #define K5_R4(a, i) "+r"(a[i]), "+r"(a[i + 1]), "+r"(a[i + 2]), "+r"(a[i + 3])
 #define K5_R16(a, i) K5_R4(a, i), K5_R4(a, i + 4), K5_R4(a, i + 8), K5_R4(a, i + 12)
 
@@ -380,6 +412,24 @@ inline int kmajor_sw64_map(CUtensorMap* map, const void* base,
   return (int)fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Tensor map of a bf16 (rows, K) matrix whose rows lie ``ld`` elements apart
+// (K contiguous), as 2-D (K, rows), read in boxes of (64, box_rows): rows of
+// 128 bytes, 128-byte swizzled. Elements past K or past the last row are
+// zero-filled. Returns 0 or a nonzero CUresult.
+inline int kmajor_sw128_map(CUtensorMap* map, const void* base, int K, int rows,
+                            int ld, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

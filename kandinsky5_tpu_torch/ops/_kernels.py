@@ -31,8 +31,8 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K3_conv3d": 0,
-            "K3_conv3d_fused": 0, "K3_conv3d_quant": 0,
+LAUNCHES = {"K1_flash_fixed": 0, "K2_ff_mod": 0, "K2_modulate": 0,
+            "K3_conv3d": 0, "K3_conv3d_fused": 0, "K3_conv3d_quant": 0,
             "K3_quant_windows": 0, "K4_flash_online": 0, "K5_flash_int8": 0,
             "K6_sparse_nabla": 0, "K7_flash_int8_pipe": 0, "K8_ff": 0,
             "T1_gemm_i8": 0, "T1_gemm_bf16": 0, "T2_gemm": 0, "T3_ff": 0,
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "k5_flash_fixed": [_P] * 6 + [_I] * 4 + [_P],
     "k5_flash_online": [_P] * 8 + [_I] * 4 + [_P],
     "k5_ff_mod": [_P] * 8 + [_I] * 4 + [_P],
+    "k5_ff_modulate": [_P] * 4 + [_I] * 3 + [_P],
     "k5_ff": [_P] * 5 + [_I] * 3 + [_P],
     "k5_ff_chunked": [_P] * 6 + [_I] * 5 + [_P],
     "k5_conv3d": [_P] * 4 + [_I] * 6 + [_P],

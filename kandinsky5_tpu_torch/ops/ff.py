@@ -15,8 +15,10 @@ In both the hidden activation is made in fp32 and cast to x.dtype before the
 second product, the second product accumulates in fp32, and there are no
 biases. Weights are in the torch (out, in) layout of ``nn.Linear``: w1 (FF,
 D), w2 (D, FF). A CPU tensor goes to the plain version, a CUDA tensor to
-``csrc/ff_mod.cu`` (or raises). :func:`ff_supported` is the JAX package's
-gate for K8.
+``csrc/ff_mod.cu`` (or raises). On the card K2 is a modulation pass
+(:func:`modulate`: the normed, modulated x in bf16, made once per row) and
+two GEMMs on one wgmma mainloop; K8 is the two GEMMs. :func:`ff_supported`
+is the JAX package's gate for K8.
 """
 
 from __future__ import annotations
@@ -33,17 +35,54 @@ _BS = 512
 _BF_TARGET = 2048
 
 
-def ff_mod_plain(x, scale, shift, w1, w2, gate):
-    """Plain PyTorch K2. x (B, L, D); scale/shift/gate (B, D)."""
+def modulate_plain(x, scale, shift):
+    """Plain K2 modulation pass: bf16(LN(x) * (1 + scale) + shift) with the
+    LayerNorm in fp32 (the JAX package's ``apply_scale_shift_norm``). x (B,
+    L, D); scale/shift (B, D)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + LN_EPS)
     y = y * (scale.float()[:, None] + 1.0) + shift.float()[:, None]
-    xn = y.to(x.dtype)
+    return y.to(x.dtype)
+
+
+def ff_mod_plain(x, scale, shift, w1, w2, gate):
+    """Plain PyTorch K2. x (B, L, D); scale/shift/gate (B, D)."""
+    xn = modulate_plain(x, scale, shift)
     h = F.gelu(xn.float() @ w1.float().T, approximate="none").to(x.dtype)
     acc = h.float() @ w2.float().T
-    return (xf + gate.float()[:, None] * acc).to(x.dtype)
+    return (x.float() + gate.float()[:, None] * acc).to(x.dtype)
+
+
+def _mod_operands(name, x, vecs):
+    """Check x (B, L, D) bf16 and the (B, D) vectors for the kernels and
+    return the vectors as contiguous fp32."""
+    b, _, d = x.shape
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name} takes bf16 x")
+    if d % 128 or any(v.numel() != b * d for v in vecs):
+        raise ValueError(f"{name} shapes: x {tuple(x.shape)} vectors "
+                         f"{[tuple(v.shape) for v in vecs]}")
+    vecs = [v.reshape(b, d).float().contiguous() for v in vecs]
+    named = dict(x=x, **{f"vector{i}": v for i, v in enumerate(vecs)})
+    _kernels.check_cuda(name, **named)
+    _kernels.check_tma_aligned(name, **named)
+    return vecs
+
+
+def modulate(x, scale, shift):
+    """The modulation pass alone (K2's first kernel): x (B, L, D) bf16,
+    scale/shift (B, D) -> (B, L, D) bf16. A CPU tensor takes the plain
+    version."""
+    if x.device.type == "cpu":
+        return modulate_plain(x, scale, shift)
+    b, l, d = x.shape
+    sc, sh = _mod_operands("K2 modulation", x, (scale, shift))
+    out = torch.empty_like(x)
+    _kernels.launch("k5_ff_modulate", "K2_modulate", x.data_ptr(),
+                    sc.data_ptr(), sh.data_ptr(), out.data_ptr(), b, l, d)
+    return out
 
 
 def fused_ff_modulated(x, scale, shift, w1, w2, gate):
@@ -53,13 +92,13 @@ def fused_ff_modulated(x, scale, shift, w1, w2, gate):
         return ff_mod_plain(x, scale, shift, w1, w2, gate)
     b, l, d = x.shape
     ff = w1.shape[0]
-    if x.dtype != torch.bfloat16 or w1.dtype != x.dtype or w2.dtype != x.dtype:
+    if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
         raise ValueError("K2 takes bf16 x and weights")
-    if w1.shape != (ff, d) or w2.shape != (d, ff) or d % 128 or ff % 128:
+    if w1.shape != (ff, d) or w2.shape != (d, ff) or ff % 128:
         raise ValueError(f"K2 shapes: x {x.shape} w1 {w1.shape} w2 {w2.shape}")
-    vecs = [t.reshape(b, d).float().contiguous() for t in (scale, shift, gate)]
-    _kernels.check_cuda("K2", x=x, w1=w1, w2=w2, scale=vecs[0],
-                        shift=vecs[1], gate=vecs[2])
+    vecs = _mod_operands("K2", x, (scale, shift, gate))
+    _kernels.check_cuda("K2", w1=w1, w2=w2)
+    _kernels.check_tma_aligned("K2", w1=w1, w2=w2)
     hidden = torch.empty((b * l, ff), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _kernels.launch("k5_ff_mod", "K2_ff_mod", x.data_ptr(),
@@ -113,6 +152,7 @@ def _ff_operands(name, x, w1, w2):
                          f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
     x2 = x.reshape(-1, d)
     _kernels.check_cuda(name, x=x2, w1=w1, w2=w2)
+    _kernels.check_tma_aligned(name, x=x2, w1=w1, w2=w2)
     return x2
 
 

@@ -10,15 +10,16 @@ kernels replaced here, each beside its plain version and one PyTorch call:
   * T3 ``_ff_kernel``: the untiled fused FF, gelu_erf(x . W1) -> bf16, then
     . W2 in one fp32 sum, bf16 out. The TPU kernel keeps both weights
     resident (51.4 MB of VMEM); 227 KB of shared memory cannot, so the port
-    runs K8's entry (``csrc/ff_mod.cu`` modes 2 and 3): the up product
-    streams W1's 128 x 32 tiles through shared memory and writes the bf16
-    hidden to device memory, the down product streams W2's tiles the same
-    way and keeps its fp32 sum in registers.
+    runs K8's entry (``csrc/ff_mod.cu`` ``ff_gemm<2>`` and ``<3>``): the up
+    product streams W1's 256 x 64 tiles through a TMA ring in shared memory
+    and writes the bf16 hidden to device memory, the down product streams
+    W2's tiles the same way and keeps its fp32 sum in registers.
   * T4 ``_ff_tiled_kernel``: the ff-chunked fused FF (K8's ancestor, the
     same math) at bf 1024: per chunk, the (rows, 1024) hidden, then its down
     product added to an fp32 accumulator in device memory
-    (``k5_ff_chunked``, modes 2 and 4). The TPU row tile bs (256) sets VMEM
-    blocks and has no counterpart: every kernel here takes 128-row tiles.
+    (``k5_ff_chunked``: ``ff_gemm<2>`` and ``<4>``). The TPU row tile bs
+    (256) sets VMEM blocks and has no counterpart: the GEMMs here take
+    128-row tiles.
 
 The library call for T3 and T4 is ``matmul`` -> ``F.gelu`` -> ``matmul`` in
 bf16 (its hidden is rounded before the GELU as well). Weights are in the

@@ -59,7 +59,10 @@ GROUPS = [
     ("K7 flash_int8_pipe", ("flash_int8_pipe_kernel",)),
     ("K5 flash_int8", ("flash_int8_kernel",)),
     ("K1 flash_fixed", ("flash_fixed_kernel",)),
-    ("K2 ff_kernel", ("ff_kernel",)),
+    ("K2 modulated FF (modulation pass, up, down)",
+     ("ff_modulate_kernel", "ff_gemm<0>", "ff_gemm<1>")),
+    ("K8 plain FF (up, down; T4's down)",
+     ("ff_gemm<2>", "ff_gemm<3>", "ff_gemm<4>")),
     ("K3 conv3d W8A8", ("conv3d_kernel<false, true>",
                         "conv3d_kernel<true, true>")),
     ("K3 conv3d fused GroupNorm + SiLU", ("conv3d_kernel<true, false>",)),

@@ -1,6 +1,7 @@
 """K2's plain version (kandinsky5_tpu_torch/ops/ff.py) against the JAX
 package: the Pallas kernel ``fused_ff_modulated`` in interpret mode (bf16)
-and the XLA chain ``modulated_feed_forward`` (fp32)."""
+and the XLA chain ``modulated_feed_forward`` (fp32); its modulation pass
+against ``apply_scale_shift_norm``."""
 
 import numpy as np
 import pytest
@@ -8,10 +9,18 @@ import torch
 
 import jax.numpy as jnp
 
+import torch.nn.functional as F
+
+from kandinsky5_tpu.models.nn import apply_scale_shift_norm
 from kandinsky5_tpu.models.nn import modulated_feed_forward as jax_mff
 from kandinsky5_tpu.ops.ff_pallas import fused_ff_modulated as jax_fused
 from kandinsky5_tpu_torch.ops import _kernels
-from kandinsky5_tpu_torch.ops.ff import ff_mod_plain, fused_ff_modulated
+from kandinsky5_tpu_torch.ops.ff import (
+    ff_mod_plain,
+    fused_ff_modulated,
+    modulate,
+    modulate_plain,
+)
 
 from ._torch_parity import rand, to_np
 
@@ -69,3 +78,76 @@ def test_k2_wrapper_takes_plain_on_cpu():
                             _inputs(rng, 1, 8, 128, 256))
     fused_ff_modulated(x, sc, sh, w1.T.contiguous(), w2.T.contiguous(), g)
     assert _kernels.LAUNCHES["K2_ff_mod"] == 0
+
+
+def _bf16_ulp(t):
+    """The spacing of bf16 values at each element of t (8 bits of
+    mantissa): 2^(e - 8) for |t| in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("b,l,d", [(2, 131, 256), (1, 600, 384)])
+def test_modulate_plain_matches_apply_scale_shift_norm(b, l, d):
+    """The modulation pass in bf16, B = 2 with a ragged L: the same fp32
+    LayerNorm and modulation as the JAX package, rounded once to bf16.
+    The two frameworks sum the row statistics in other orders, which can
+    move a value that lies near a rounding boundary by one bf16 ulp; where
+    the shift cancels the unit-scale normed term to near zero, the bf16
+    ulp of the result is finer than the fp32 rounding of the terms, so
+    the bound is one bf16 ulp of the value or 2^-20, whichever is
+    larger."""
+    rng = np.random.default_rng(3)
+    x = rand(rng, b, l, d) * 3.0 + 0.5
+    sc, sh = rand(rng, b, d, scale=0.2), rand(rng, b, d, scale=0.2)
+    want = apply_scale_shift_norm(jnp.asarray(x, jnp.bfloat16),
+                                  jnp.asarray(sc[:, None]),
+                                  jnp.asarray(sh[:, None]))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = modulate_plain(xt, torch.from_numpy(sc), torch.from_numpy(sh))
+    assert got.dtype == torch.bfloat16 and got.shape == (b, l, d)
+    want_t = torch.from_numpy(to_np(want))
+    bound = _bf16_ulp(want_t).clamp_min(2.0 ** -20)
+    diff = (got.float() - want_t).abs()
+    assert bool((diff <= bound).all()), (diff / bound).max()
+    # the bound has teeth: the other batch item's shift moves rows by many
+    wrong = modulate_plain(xt, torch.from_numpy(sc),
+                           torch.from_numpy(sh).flip(0) if b == 2
+                           else torch.from_numpy(sh) + 0.1)
+    assert not bool(((wrong.float() - want_t).abs() <= bound).all())
+
+
+def _ff_mod_plain_single(x, scale, shift, w1, w2, gate):
+    """K2's plain version written as one function, before the modulation
+    pass became a function of its own."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + 1e-5)
+    y = y * (scale.float()[:, None] + 1.0) + shift.float()[:, None]
+    xn = y.to(x.dtype)
+    h = F.gelu(xn.float() @ w1.float().T, approximate="none").to(x.dtype)
+    acc = h.float() @ w2.float().T
+    return (xf + gate.float()[:, None] * acc).to(x.dtype)
+
+
+@pytest.mark.parametrize("b,l,dtype", [(2, 131, torch.bfloat16),
+                                       (1, 40, torch.float32)])
+def test_ff_mod_plain_composed_from_modulation_is_unchanged(b, l, dtype):
+    """ff_mod_plain built on modulate_plain gives the same bits as the
+    single function it replaces."""
+    rng = np.random.default_rng(4)
+    args = [torch.from_numpy(a) for a in _inputs(rng, b, l, 128, 256)]
+    x, sc, sh, g, w1, w2 = args
+    x, w1, w2 = x.to(dtype), w1.T.contiguous().to(dtype), w2.T.contiguous().to(dtype)
+    got = ff_mod_plain(x, sc, sh, w1, w2, g)
+    assert torch.equal(got, _ff_mod_plain_single(x, sc, sh, w1, w2, g))
+
+
+def test_modulate_wrapper_takes_plain_on_cpu():
+    _kernels.reset_launches()
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rand(rng, 2, 9, 128)).to(torch.bfloat16)
+    sc, sh = (torch.from_numpy(rand(rng, 2, 128)) for _ in range(2))
+    assert torch.equal(modulate(x, sc, sh), modulate_plain(x, sc, sh))
+    assert _kernels.LAUNCHES["K2_modulate"] == 0

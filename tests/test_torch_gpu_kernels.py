@@ -31,6 +31,8 @@ from kandinsky5_tpu_torch.ops.ff import (
     ff_plain,
     fused_ff,
     fused_ff_modulated,
+    modulate,
+    modulate_plain,
 )
 from kandinsky5_tpu_torch.ops.flash import (
     flash_fixed,
@@ -348,28 +350,67 @@ def test_k4_row_without_allowed_key(dev):
     assert _fails_bound(ref[:, :s], want, 3e-2, 1e-2)
 
 
-@pytest.mark.parametrize("b,l,d,ff", [(2, 300, 256, 512), (1, 47616, 1792, 7168)])
+@pytest.mark.parametrize("b,l,d,ff", [
+    (2, 300, 256, 512), (1, 47616, 1792, 7168), (2, 1000, 1792, 7168),
+    (1, 256, 1792, 7168), (1, 1536, 1792, 7168), (1, 200, 384, 640)])
 def test_k2_matches_plain(dev, b, l, d, ff):
+    """K2 at the 5 s shape, the text blocks' 256 rows, the image's 1,536,
+    batches of two whose L is not a multiple of the 128-row tile (a tile
+    holds rows of both items: the control swaps their gates), and widths
+    that are not multiples of the 256-column tile."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((b, l, d), generator=g, device=dev).bfloat16()
     scale, shift, gate = (torch.randn((b, d), generator=g, device=dev) * 0.1
                           for _ in range(3))
     w1 = (torch.randn((ff, d), generator=g, device=dev) / math.sqrt(d)).bfloat16()
     w2 = (torch.randn((d, ff), generator=g, device=dev) / math.sqrt(ff)).bfloat16()
+    _kernels.reset_launches()
     out = fused_ff_modulated(x, scale, shift, w1, w2, gate)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K2_ff_mod"] == 1
     ref = ff_mod_plain(x, scale, shift, w1, w2, gate)
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+    if b == 2:
+        swapped = ff_mod_plain(x, scale, shift, w1, w2, gate.flip(0))
+        assert _fails_bound(swapped, ref, 6e-2, 1e-2)
+
+
+@pytest.mark.parametrize("b,l,d", [(1, 47616, 1792), (2, 1000, 1792),
+                                   (2, 77, 384)])
+def test_modulate_matches_plain(dev, b, l, d):
+    """K2's modulation pass alone: the same fp32 operations as the plain
+    version but for the order of the row sums, so each bf16 output is
+    within one ulp of the plain one (or 2^-20 where the shift cancels the
+    normed term to near zero); the other item's scale must fail that."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn((b, l, d), generator=g, device=dev) * 3 + 0.5).bfloat16()
+    scale, shift = (torch.randn((b, d), generator=g, device=dev) * 0.1
+                    for _ in range(2))
+    _kernels.reset_launches()
+    out = modulate(x, scale, shift)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K2_modulate"] == 1
+    ref = modulate_plain(x, scale, shift)
+    _, e = torch.frexp(ref.float())
+    bound = torch.ldexp(torch.ones_like(ref, dtype=torch.float32),
+                        e - 8).clamp_min(2.0 ** -20)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+    if b == 2:
+        wrong = modulate_plain(x, scale.flip(0), shift)
+        assert not bool(((wrong.float() - ref.float()).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("lead,d,ff", [
     ((600,), 256, 512), ((2, 300), 256, 1024), ((47616,), 1792, 7168 // 4),
-    ((1, 47616), 1792, 7168 // 2), ((47616,), 1792, 7168)])
+    ((1, 47616), 1792, 7168 // 2), ((47616,), 1792, 7168), ((100,), 256, 512),
+    ((1, 77), 1792, 7168)])
 def test_k8_matches_plain(dev, lead, d, ff):
-    """K8 at ragged rows, leading dims and each tensor-parallel rank's
-    share of the 5 s FF (tp 4, 2, 1), at K2's bound: both sides round the
-    same hidden to bf16 and differ in the order of the fp32 sums."""
+    """K8 at ragged rows, leading dims, row counts below one 128-row tile
+    and each tensor-parallel rank's share of the 5 s FF (tp 4, 2, 1), at
+    K2's bound: both sides round the same hidden to bf16 and differ in the
+    order of the fp32 sums."""
     g = torch.Generator(device=dev).manual_seed(8)
     x = torch.randn((*lead, d), generator=g, device=dev).bfloat16()
     w1 = (torch.randn((ff, d), generator=g, device=dev) / math.sqrt(d)).bfloat16()

@@ -78,6 +78,19 @@ def test_device_times_skips_ranges_and_host_rows():
      "K5 flash_int8"),
     ("void (anonymous namespace)::flash_int8_pipe_kernel(signed char const*)",
      "K7 flash_int8_pipe"),
+    ("(anonymous namespace)::ff_modulate_kernel(__nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int)",
+     "K2 modulated FF (modulation pass, up, down)"),
+    ("void (anonymous namespace)::ff_gemm<0>(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Epi)", "K2 modulated FF (modulation pass, up, down)"),
+    ("void (anonymous namespace)::ff_gemm<1>(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Epi)", "K2 modulated FF (modulation pass, up, down)"),
+    ("void (anonymous namespace)::ff_gemm<2>(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Epi)", "K8 plain FF (up, down; T4's down)"),
+    ("void (anonymous namespace)::ff_gemm<3>(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Epi)", "K8 plain FF (up, down; T4's down)"),
+    ("void (anonymous namespace)::ff_gemm<4>(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Epi)", "K8 plain FF (up, down; T4's down)"),
     ("void at::native::elementwise_kernel<128, 2>()",
      "elementwise / reduce / copy (norms, casts, gates, RoPE)"),
     ("some_unlisted_kernel", "other"),
@@ -85,6 +98,8 @@ def test_device_times_skips_ranges_and_host_rows():
 def test_group_of_files_kernels(kernel, group):
     """K1's wgmma kernel (both mask instances) is filed under K1's row,
     K3's wgmma kernel under its three groups by mode (plain, prologue, W8A8,
-    beside the window scales) and K4's and K6's wgmma kernels under theirs,
-    not under another kernel's or a library group."""
+    beside the window scales), K4's and K6's wgmma kernels under theirs,
+    and the FF's modulation pass and GEMM epilogues under K2 (modes 0, 1)
+    or K8 (2-4; "gemm" in the name must not send them to the library
+    group), not under another kernel's or a library group."""
     assert group_of(kernel) == group
