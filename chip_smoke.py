@@ -7,6 +7,8 @@
     python3 chip_smoke.py --k1               # phase 2's K1 cases only
     python3 chip_smoke.py --k3               # phase 2's K3 cases only
     python3 chip_smoke.py --ff               # phase 2's K2, K8, T2-T4 cases
+    python3 chip_smoke.py --gemm             # phase 2's T1, T2, K8, T3, T4
+                                             # cases only
     python3 chip_smoke.py --k4 [--k6]        # phase 2's K4 (K6) cases only
 
 Phases, each of which must pass (any failure exits nonzero):
@@ -41,9 +43,12 @@ Phases, each of which must pass (any failure exits nonzero):
                shapes on one shared pack_int8 call, K7 bit-equal to K5,
                K5's error against K1 printed as the quantization error), the
                tools kernels T5 (its four modes at the 5 s shape) and T1 (int8
-               exact, bf16, at 8192^3 and the DiT's projection shapes), K8 at
-               each tensor-parallel rank's share of the 5 s FF (tp 1, 2,
-               4) and the tools kernels T2-T4 at their tool's shapes,
+               exact, bf16, at 8192^3, the DiT's projection shapes and two
+               ragged shapes, with a control: the last k step left out), K8
+               at each tensor-parallel rank's share of the 5 s FF (tp 1, 2,
+               4) and the tools kernels T2-T4 at their tool's shapes (T2
+               also ragged), each GEMM with its share of bound and its
+               factor against its library call,
                with max-abs and relative-L2 errors against stated
                tolerances, CUDA-event times of kernel, plain version and
                (where one PyTorch call computes the same function) that
@@ -70,8 +75,9 @@ Phases, each of which must pass (any failure exits nonzero):
                path answers two videos of the 5 s path's length with the
                bf16 video's prompt and seed: (a) attn_impl "flash_int8",
                K5 exactly (2 + 32) x 16 launches and K1 none; (b)
-               "flash_int8_pipe" with W8A8 projections, K7 544, K5 and K1
-               none, K2 2 x 16 (the text blocks); each frame PSNR against
+               "flash_int8_pipe" with W8A8 projections, K7 544, K5, K1 and
+               K2 none (the W8A8 visual FFs and the 256-row text FFs run
+               the chain, as in the JAX package); each frame PSNR against
                the bf16 video is printed (random weights: not gated). Then
                the decodes: the 5 s path video's latents tiled (2 temporal
                tiles at 1 s), with int8 convs streamed and tiled (PSNR
@@ -520,16 +526,19 @@ def phase_k4(dev, g, results):
     torch.cuda.empty_cache()
 
 
-def _ff_rate(results, name, flops: float):
-    """Log the last FF case's rate, its share of the bound and its time
-    against the bf16 chain timed beside it (K8's library call, K2's
-    yardstick)."""
+def _rate(results, name, ops: float, against: str = "the bf16 chain"):
+    """Log the last case's rate (TFLOP/s, or TOP/s for int8), its share of
+    the bound and its time against ``against``, the library call or
+    yardstick timed beside it (the bf16 chain for K8, K2 and T3-T4;
+    ``_int_mm`` or bf16 ``matmul`` for T1 and T2)."""
     r = results[name][-1]
-    r["tflops"] = flops / r["ms"] / 1e9
-    chain = r["library_ms"] or r["yardstick_ms"]
-    log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
-        f"% of the bound); the bf16 chain {chain:.3f} ms, kernel "
-        f"{r['ms'] / chain:.2f}x")
+    r["tflops"] = ops / r["ms"] / 1e9
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    lib = r["library_ms"] or r["yardstick_ms"]
+    r["factor"] = r["ms"] / lib
+    unit = "TOP/s" if name == "T1_gemm_i8" else "TFLOP/s"
+    log(f"    {r['tflops']:.1f} {unit} ({100 * r['bound_share']:.1f} % of the "
+        f"bound); {against} {lib:.3f} ms, kernel {r['factor']:.2f}x")
 
 
 def _k2_chain(x, sc, sh, w1, w2, gt):
@@ -601,7 +610,7 @@ def phase_k2(dev, g, results):
                  yardstick_fn=_k2_chain(x, sc, sh, w1, w2, gt),
                  yardstick_label="the bf16 chain LN -> modulation -> matmul "
                  "-> GELU -> matmul -> gate: no single call")
-        _ff_rate(results, "K2_ff_mod", flops)
+        _rate(results, "K2_ff_mod", flops)
         del x
     del w1, w2
     x = torch.randn((2, 23808, d), generator=g, device=dev).bfloat16()
@@ -625,7 +634,7 @@ def phase_kernels(dev, results):
     phase_k4(dev, g, results)
     phase_k6(dev, g, normed, results)
     phase_int8(dev, g, normed, results)
-    phase_ff_tools(dev, g, results)
+    phase_gemm(dev, g, results)
     bad = [(n, r["shape"]) for n, rs in results.items() for r in rs if not r["ok"]]
     if bad:
         raise Failure(f"kernels outside tolerance: {bad}")
@@ -983,8 +992,7 @@ def phase_int8(dev, g, normed, results):
     """K5 and K7 at K1's four main-path shapes, on one pack_int8 call
     shared with their plain version (the sides differ only in exp2's last
     bits and sum order), K7 held bit-equal to K5 and K5 against K1 (the quantization
-    error on this card); T5's four modes at the 5 s shape; T1's two
-    instances at the JAX tool's 8192^3 and the DiT's projection shapes."""
+    error on this card); T5's four modes at the 5 s shape."""
     import torch
 
     from kandinsky5_tpu_torch.ops.flash import (
@@ -998,14 +1006,6 @@ def phase_int8(dev, g, normed, results):
         i8_decomp,
         i8_decomp_plain,
     )
-    from kandinsky5_tpu_torch.tools.bench_int8mm import (
-        SHAPES,
-        gemm,
-        gemm_plain,
-        library_call,
-        operands,
-    )
-
     for lq, masked in ((47616, False), (10752, False), (1536, False),
                        (256, True)):
         q, k = normed((1, lq, 28, 64)), normed((1, lq, 28, 64))
@@ -1060,21 +1060,51 @@ def phase_int8(dev, g, normed, results):
         f"dequant {t['no_exp2'] - t['raw_pv']:.3f} ms, PV "
         f"{t['raw_pv'] - t['qk_only']:.3f} ms, QK + loads {t['qk_only']:.3f} ms")
     del q, k, v, q8, k8, coeff
+    torch.cuda.empty_cache()
 
-    for m, kk, n in SHAPES:
+
+# T1's ragged cases beside SHAPES (M, K, N): rows not a multiple of the
+# 128-row tile, and N not a multiple of the 256-column tile
+T1_RAGGED = ((1000, 1792, 1792), (1000, 320, 136))
+
+
+def phase_gemm(dev, g, results):
+    """T1 in both types at the JAX tool's 8192^3 and the DiT's three
+    projection shapes, then ragged (T1_RAGGED), beside ``torch._int_mm`` or
+    bf16 ``matmul``, each with a control: the plain product with the last
+    128-byte k step left out (128 int8 or 64 bf16 of K), which must fail
+    the check (the int8 instance must equal the exact product); then K8 at
+    each tp share and T2-T4 (``phase_ff_tools``, T2 also ragged). Each case
+    logs its rate, share of bound and factor against its library call."""
+    import torch
+
+    from kandinsky5_tpu_torch.tools.bench_int8mm import (
+        SHAPES,
+        gemm,
+        gemm_plain,
+        library_call,
+        operands,
+    )
+
+    for m, kk, n in SHAPES + T1_RAGGED:
         for name, dtype in (("T1_gemm_i8", torch.int8),
                             ("T1_gemm_bf16", torch.bfloat16)):
             a, b = operands(m, kk, n, dtype, g, dev)
             ops = 2.0 * m * n * kk
-            out_bytes = 4 * m * n
+            work = (0.0 if dtype == torch.int8 else ops,
+                    _nbytes(a, b) + 4 * m * n,
+                    ops if dtype == torch.int8 else 0.0)
+            step = 128 // a.element_size()
             _compare(name, f"({m},{kk},{n})", lambda: gemm(a, b),
-                     lambda: gemm_plain(a, b), results,
-                     work=(0.0 if dtype == torch.int8 else ops,
-                           _nbytes(a, b) + out_bytes,
-                           ops if dtype == torch.int8 else 0.0),
-                     reps=5, library_fn=library_call(a, b))
+                     lambda: gemm_plain(a, b), results, work=work,
+                     reps=5, library_fn=library_call(a, b),
+                     control_fn=lambda: gemm_plain(a[:, :-step], b[:, :-step]),
+                     control_label="the last 128-byte k step left out")
+            _rate(results, name, ops, "_int_mm" if dtype == torch.int8
+                  else "bf16 matmul")
             del a, b
     torch.cuda.empty_cache()
+    phase_ff_tools(dev, g, results)
 
 
 def phase_ff_tools(dev, g, results):
@@ -1103,18 +1133,28 @@ def phase_ff_tools(dev, g, results):
                  library_fn=bpg.ff_library(x, w1s, w2s), info=dict(tp=tp),
                  control_fn=lambda: ff_plain(x, w1s[:-128], w2s[:, :-128]),
                  control_label="the last 128 of the ff sum dropped")
-        _ff_rate(results, "K8_ff", 4.0 * rows * d * f)
+        _rate(results, "K8_ff", 4.0 * rows * d * f)
         del w1s, w2s
     for name, kernel, plain, library, flops, control in bpg.cases(x, wo, w1,
                                                                   w2):
         weights = (wo,) if name == "T2_gemm" else (w1, w2)
+        work = (flops, _nbytes(x, *weights) + 2 * rows * d)
         _compare(name, f"({rows},{d})x{bpg.FF if name != 'T2_gemm' else d}",
-                 kernel, plain, results,
-                 work=(flops, _nbytes(x, *weights) + 2 * rows * d),
+                 kernel, plain, results, work=work,
                  library_fn=library, control_fn=control,
                  control_label="one tile of the reduction left out")
-        if name != "T2_gemm":
-            _ff_rate(results, name, flops)
+        _rate(results, name, flops,
+              "bf16 matmul" if name == "T2_gemm" else "the bf16 chain")
+    # T2 ragged: 1,000 rows, and N = 136 (not a multiple of the column tile)
+    for xr, wr in ((x[:1000], wo), (x[:1000], wo[:136])):
+        m, n = xr.shape[0], wr.shape[0]
+        _compare("T2_gemm", f"({m},{d})x{n}", lambda: bpg.gemm(xr, wr),
+                 lambda: bpg.gemm_plain(xr, wr), results,
+                 work=(2.0 * m * n * d, _nbytes(xr, wr) + 2 * m * n),
+                 library_fn=bpg.gemm_library(xr, wr),
+                 control_fn=lambda: bpg.gemm_plain(xr[:, :-64], wr[:, :-64]),
+                 control_label="the last 128-byte k step left out")
+        _rate(results, "T2_gemm", 2.0 * m * n * d, "bf16 matmul")
     del x, wo, w1, w2
     torch.cuda.empty_cache()
 
@@ -1576,8 +1616,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
               "K7_flash_int8_pipe": 0}),
             ("b", dict(attn_impl="flash_int8_pipe", int8_linear=True),
              {"K7_flash_int8_pipe": n_attn, "K5_flash_int8": 0,
-              "K1_flash_fixed": 0,
-              "K2_ff_mod": cfg5.num_text_blocks * m5.num_steps})):
+              "K1_flash_fixed": 0, "K2_ff_mod": 0})):
         pipe = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae, **kw)
         _kernels.reset_launches()
         rep, vids = _answer(pipe, [_video(f"5s-int8-{tag}", seconds5,
@@ -1956,7 +1995,9 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
     log(f"  tp 1 (seed {seed}): forward {wall1:.3f} s, output {tuple(ref.shape)}, launches "
         f"K1 {got1['K1_flash_fixed']} K2 {got1['K2_ff_mod']} K8 "
         f"{got1['K8_ff']}")
-    want1 = {"K1_flash_fixed": n_text + n_vis, "K2_ff_mod": n_text + n_vis,
+    # K2 takes the visual blocks only: the 256-row text blocks run the
+    # chain, as the JAX package's gate declines them
+    want1 = {"K1_flash_fixed": n_text + n_vis, "K2_ff_mod": n_vis,
              "K8_ff": 0}
     wrong = {k: (got1[k], n) for k, n in want1.items() if got1[k] != n}
     if wrong or not bool(torch.isfinite(ref).all()):
@@ -2118,6 +2159,9 @@ def main() -> int:
                     help="build, then run only phase 2's K2 (with its "
                     "modulation pass), K8 and T2-T4 cases and print their "
                     "readings (no smoke result)")
+    ap.add_argument("--gemm", action="store_true",
+                    help="build, then run only phase 2's T1, T2, K8, T3 and "
+                    "T4 cases and print their readings (no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -2176,6 +2220,12 @@ def main() -> int:
             g = _seeded(dev)[0]
             phase_k2(dev, g, results)
             phase_ff_tools(dev, g, results)
+            log(gpu_line())
+            log(json.dumps(results))
+            return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
+        if args.gemm:
+            results = {}
+            phase_gemm(dev, _seeded(dev)[0], results)
             log(gpu_line())
             log(json.dumps(results))
             return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
@@ -2253,7 +2303,7 @@ def main() -> int:
                 "shape", "max_abs", "rel", "ms", "plain_ms", "bound_ms",
                 "library_ms", "yardstick_ms") + tuple(
                     x for x in ("rel_l2_vs_k1", "max_abs_vs_k5", "tflops",
-                                "bf16_k3_ms")
+                                "bound_share", "factor", "bf16_k3_ms")
                     if x in r)}
                 for r in rs]
         kernels.append(entry)

@@ -1,9 +1,9 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel but K1, K2/K8, K3, K4 and K6 (whose wgmma building blocks are
-// in hopper.cuh) is built around the warp-level tensor-core product
-// mma.sync.m16n8k16 (bf16 x bf16 -> fp32). Its register layouts, per lane
-// (g = lane / 4, t = lane % 4):
+// K5, K7 and T5 (every kernel but K1, K2/K8, K3, K4, K6, T1 and T2, whose
+// wgmma building blocks are in hopper.cuh) are built around the warp-level
+// tensor-core product mma.sync.m16n8k16 (bf16 x bf16 -> fp32). Its register
+// layouts, per lane (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a[0] = (row g,   cols 2t..2t+1)
 //                         a[1] = (row g+8, cols 2t..2t+1)
 //                         a[2] = (row g,   cols 2t+8..2t+9)

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
-// mbarriers, TMA tile loads described by a CUtensorMap, wgmma shared-memory
-// descriptors for 128-byte-swizzled tiles, the wgmma products themselves,
-// named barriers and register reallocation.
+// mbarriers, TMA tile loads (multicast within a cluster) and stores described
+// by a CUtensorMap, wgmma shared-memory descriptors for 128-byte-swizzled
+// tiles, the wgmma products themselves, named and cluster barriers and
+// register reallocation.
 //
-// K1's, K2/K8's, K4's and K6's tiles are rows of exactly 128 bytes (64 bf16)
+// K1's, K4's and K6's tiles and the shared GEMM's (gemm_sm90.cuh: K2, K8,
+// T1, T2) are rows of exactly 128 bytes (64 bf16, or 128 int8 in T1)
 // written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands
 // at chunk c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the
 // swizzle pattern (a function of the absolute shared address) is the one
@@ -122,6 +124,77 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// Store one box of shared memory (written by this CTA, then made visible to
+// the async proxy with fence_proxy_async) to a 2-D tensor map at (c0, c1).
+// Elements outside the tensor are not written. Completion is tracked by
+// bulk groups: bulk_commit, then bulk_wait_read (the shared memory may be
+// written again) or bulk_wait (the global writes are done).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- thread block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it (barrier initialisation included) are
+// visible cluster-wide after it, and no block's shared memory is released
+// while another block of the cluster may still reach into it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Arrive on the mbarrier at ``bar``'s shared-memory offset in block ``cta``
+// of the cluster (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+
+// tma_load_2d into the same shared-memory offset of every block of the
+// cluster in ``mask`` (bit i: block i), counting the bytes on the mbarrier
+// at ``bar``'s offset in each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -314,6 +387,29 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t da
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64x256, int32) = or += A (64x32, K-major smem) . B (32x256, K-major
+// smem), s8 operands, exact. The 128-byte k step of a 128B-swizzled tile
+// holds four of these, 32 bytes apart, as it holds four bf16 m64n256k16.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128], uint64_t da,
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : K5_R16(d, 0), K5_R16(d, 16), K5_R16(d, 32), K5_R16(d, 48),
+        K5_R16(d, 64), K5_R16(d, 80), K5_R16(d, 96), K5_R16(d, 112)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef K5_R16
 #undef K5_R4
 #undef K5_F16
@@ -415,21 +511,24 @@ inline int kmajor_sw64_map(CUtensorMap* map, const void* base,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// Tensor map of a bf16 (rows, K) matrix whose rows lie ``ld`` elements apart
-// (K contiguous), as 2-D (K, rows), read in boxes of (64, box_rows): rows of
-// 128 bytes, 128-byte swizzled. Elements past K or past the last row are
-// zero-filled. Returns 0 or a nonzero CUresult.
-inline int kmajor_sw128_map(CUtensorMap* map, const void* base, int K, int rows,
-                            int ld, int box_rows) {
+// Tensor map of a (rows, K) matrix of ``type`` (elements of ``elem_bytes``)
+// whose rows lie ``ld`` elements apart (K contiguous), as 2-D (K, rows), read
+// (or written) in boxes of (128 / elem_bytes, box_rows): rows of 128 bytes
+// (64 bf16, 128 int8), 128-byte swizzled. Elements past K or past the last
+// row are zero-filled on a load and skipped on a store. Returns 0 or a
+// nonzero CUresult.
+inline int kmajor_sw128_map(CUtensorMap* map, const void* base,
+                            CUtensorMapDataType type, int elem_bytes, int K,
+                            int rows, int ld, int box_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return (int)fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -364,9 +364,12 @@ def row_parallel_linear(layer: nn.Linear, x, tp=None):
 
 def modulated_feed_forward(p, x, scale, shift, gate, tp=None):
     """apply_scale_shift_norm -> feed_forward -> apply_gate_sum as one op.
-    On one device it runs as K2 (``ops/ff.py``) when both projections are
-    plain bias-free linears and the modulation is per batch item; K2's own
-    wrapper takes the plain version on the CPU. W8A8 projections
+    It goes to K2 (``ops/ff.py``) exactly where the JAX package sends it to
+    its fused kernel: one device, both projections plain bias-free linears,
+    per-item modulation, and shapes that :func:`ff_supported` admits (bf16,
+    D and FF multiples of 256, at least 512 rows; so the 256-row text
+    blocks and a DiT that is not bf16 run the chain). K2's own wrapper
+    takes the plain version on the CPU. W8A8 projections
     (:class:`Int8Linear`) take the unfused chain, as the JAX routing does.
     Under tensor parallelism (``tp``) K2 steps aside, as in the JAX
     package: the norm and the gate run plain and the FF through
@@ -375,7 +378,8 @@ def modulated_feed_forward(p, x, scale, shift, gate, tp=None):
     if (tp is None and isinstance(p.in_layer, nn.Linear)
             and isinstance(p.out_layer, nn.Linear)
             and p.in_layer.bias is None and p.out_layer.bias is None
-            and scale.shape == (b, 1, x.shape[-1])):
+            and scale.shape == (b, 1, x.shape[-1])
+            and ff_supported(x, p.in_layer.weight, p.out_layer.weight)):
         return fused_ff_modulated(x, scale[:, 0], shift[:, 0],
                                   p.in_layer.weight, p.out_layer.weight,
                                   gate[:, 0])

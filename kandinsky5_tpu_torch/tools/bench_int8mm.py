@@ -1,7 +1,8 @@
 """T1: does int8 pay on this card? The int8 (s8 x s8 -> s32) and bf16
-(bf16 x bf16 -> f32) instances of one hand-written tiled GEMM
-(``csrc/gemm_i8.cu``), timed at the JAX tool's 8192^3 and at the DiT's
-projection shapes, beside ``torch._int_mm`` and bf16 ``torch.matmul``.
+(bf16 x bf16 -> f32) instances of the port's shared wgmma GEMM
+(``csrc/gemm_sm90.cuh``, entries in ``csrc/gemm_i8.cu``), timed at the JAX
+tool's 8192^3 and at the DiT's projection shapes, beside ``torch._int_mm``
+and bf16 ``torch.matmul``.
 
 Port of ``tools/bench_int8mm.py`` (its Pallas ``_mm_kernel`` is the kernel
 replaced here). The JAX tool multiplies A (M, K) by B (K, N); here B is
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from kandinsky5_tpu_torch.ops import _kernels
+from kandinsky5_tpu_torch.ops.gemm import launch_gemm
 
 # (M, K, N): the JAX tool's shape, then the 5 s DiT's projections (47,616
 # tokens): attention 1792 -> 1792, FF in 1792 -> 7168, FF out 7168 -> 1792
@@ -35,26 +36,14 @@ def gemm_plain(a, b):
 
 
 def gemm(a, b):
-    """T1 wrapper: a (M, K), b (N, K), both int8 or both bf16; M and N
-    multiples of 128, K a multiple of 64 (int8) or 32 (bf16). A CPU tensor
+    """T1 wrapper: a (M, K), b (N, K), both int8 or both bf16; any M, N a
+    multiple of 8, K a multiple of 16 (int8) or 8 (bf16). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises."""
     if a.device.type == "cpu":
         return gemm_plain(a, b)
-    m, k = a.shape
-    n = b.shape[0]
     i8 = a.dtype == torch.int8
-    if a.dtype not in (torch.int8, torch.bfloat16) or b.dtype != a.dtype:
-        raise ValueError(f"T1 takes int8 or bf16 operands, got {a.dtype} {b.dtype}")
-    if b.shape != (n, k) or m % 128 or n % 128 or (k * a.element_size()) % 64:
-        raise ValueError(f"T1 shapes: a {tuple(a.shape)} b {tuple(b.shape)}")
-    _kernels.check_cuda("T1", a=a, b=b)
-    out = torch.empty((m, n), dtype=torch.int32 if i8 else torch.float32,
-                      device=a.device)
-    entry, counter = (("k5_gemm_i8", "T1_gemm_i8") if i8
-                      else ("k5_gemm_bf16", "T1_gemm_bf16"))
-    _kernels.launch(entry, counter, a.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), m, n, k)
-    return out
+    return launch_gemm("T1_gemm_i8" if i8 else "T1_gemm_bf16", a, b,
+                       torch.int8 if i8 else torch.bfloat16)
 
 
 def operands(m, k, n, dtype, generator, device):

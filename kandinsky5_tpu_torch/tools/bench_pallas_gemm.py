@@ -5,8 +5,9 @@ kernels replaced here, each beside its plain version and one PyTorch call:
 
   * T2 ``_gemm_kernel``: y = bf16(x . W), fp32 accumulation, at the DiT's
     serial out-projection shape (47616, 1792) x (1792, 1792). The port's
-    kernel is T1's bf16 GEMM (``csrc/gemm_i8.cu``) with a bf16 epilogue;
-    library call: bf16 ``torch.matmul``.
+    kernel is the shared wgmma GEMM (``csrc/gemm_sm90.cuh``, entry in
+    ``csrc/gemm_i8.cu``) with a bf16 epilogue; library call: bf16
+    ``torch.matmul``.
   * T3 ``_ff_kernel``: the untiled fused FF, gelu_erf(x . W1) -> bf16, then
     . W2 in one fp32 sum, bf16 out. The TPU kernel keeps both weights
     resident (51.4 MB of VMEM); 227 KB of shared memory cannot, so the port
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 
 from kandinsky5_tpu_torch.ops import _kernels
 from kandinsky5_tpu_torch.ops.ff import _ff_operands, ff_plain, launch_ff
+from kandinsky5_tpu_torch.ops.gemm import launch_gemm
 
 # the JAX tool's shapes: model width, FF width, tokens (5 s, 47,616)
 D, FF, S = 1792, 7168, 47616
@@ -55,21 +57,12 @@ def gemm_plain(x, w):
 
 
 def gemm(x, w):
-    """T2 wrapper: x (M, K) . w (N, K)^T -> (M, N) bf16; M and N multiples of
-    128, K of 32. A CPU tensor takes the plain version."""
+    """T2 wrapper: x (M, K) . w (N, K)^T -> (M, N) bf16; any M, N a multiple
+    of 8, K of 8. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     if x.device.type == "cpu":
         return gemm_plain(x, w)
-    m, k = x.shape
-    n = w.shape[0]
-    if x.dtype != torch.bfloat16 or w.dtype != x.dtype:
-        raise ValueError(f"T2 takes bf16 operands, got {x.dtype} {w.dtype}")
-    if tuple(w.shape) != (n, k) or m % 128 or n % 128 or k % 32:
-        raise ValueError(f"T2 shapes: x {tuple(x.shape)} w {tuple(w.shape)}")
-    _kernels.check_cuda("T2", x=x, w=w)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _kernels.launch("k5_gemm_bf16_out", "T2_gemm", x.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), m, n, k)
-    return out
+    return launch_gemm("T2_gemm", x, w, torch.bfloat16)
 
 
 def ff(x, w1, w2):
@@ -145,13 +138,13 @@ def operands(generator, device, rows: int = S):
 def cases(x, wo, w1, w2):
     """(name, kernel, plain, library call, bf16 FLOPs, control) of T2, T3
     and T4. The control is the plain version with one tile of the reduction
-    left out (the last 32 of T2's K, the last 128 hidden units of the FFs):
-    a check must tell it from the kernel."""
+    left out (the last 64 of T2's K, one 128-byte k step; the last 128
+    hidden units of the FFs): a check must tell it from the kernel."""
     rows = x.shape[0]
     return (
         ("T2_gemm", lambda: gemm(x, wo), lambda: gemm_plain(x, wo),
          gemm_library(x, wo), 2.0 * rows * D * D,
-         lambda: gemm_plain(x[:, :-32], wo[:, :-32])),
+         lambda: gemm_plain(x[:, :-64], wo[:, :-64])),
         ("T3_ff", lambda: ff(x, w1, w2), lambda: ff_plain(x, w1, w2),
          ff_library(x, w1, w2), 4.0 * rows * D * FF,
          lambda: ff_plain(x, w1[:-128], w2[:, :-128])),

@@ -60,9 +60,9 @@ GROUPS = [
     ("K5 flash_int8", ("flash_int8_kernel",)),
     ("K1 flash_fixed", ("flash_fixed_kernel",)),
     ("K2 modulated FF (modulation pass, up, down)",
-     ("ff_modulate_kernel", "ff_gemm<0>", "ff_gemm<1>")),
+     ("ff_modulate_kernel", "ff_epi<0>", "ff_epi<1>")),
     ("K8 plain FF (up, down; T4's down)",
-     ("ff_gemm<2>", "ff_gemm<3>", "ff_gemm<4>")),
+     ("ff_epi<2>", "ff_epi<3>", "ff_epi<4>")),
     ("K3 conv3d W8A8", ("conv3d_kernel<false, true>",
                         "conv3d_kernel<true, true>")),
     ("K3 conv3d fused GroupNorm + SiLU", ("conv3d_kernel<true, false>",)),

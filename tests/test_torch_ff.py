@@ -1,19 +1,24 @@
 """K2's plain version (kandinsky5_tpu_torch/ops/ff.py) against the JAX
 package: the Pallas kernel ``fused_ff_modulated`` in interpret mode (bf16)
 and the XLA chain ``modulated_feed_forward`` (fp32); its modulation pass
-against ``apply_scale_shift_norm``."""
+against ``apply_scale_shift_norm``; the route to K2 against the JAX
+package's gate ``ff_supported``, and a 256-row bf16 text block, which the
+gate declines, against JAX's chain."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import torch.nn.functional as F
 
 from kandinsky5_tpu.models.nn import apply_scale_shift_norm
 from kandinsky5_tpu.models.nn import modulated_feed_forward as jax_mff
+from kandinsky5_tpu.ops.ff_pallas import ff_supported as jax_ff_supported
 from kandinsky5_tpu.ops.ff_pallas import fused_ff_modulated as jax_fused
+from kandinsky5_tpu_torch.models import nn as tnn
 from kandinsky5_tpu_torch.ops import _kernels
 from kandinsky5_tpu_torch.ops.ff import (
     ff_mod_plain,
@@ -151,3 +156,92 @@ def test_modulate_wrapper_takes_plain_on_cpu():
     sc, sh = (torch.from_numpy(rand(rng, 2, 128)) for _ in range(2))
     assert torch.equal(modulate(x, sc, sh), modulate_plain(x, sc, sh))
     assert _kernels.LAUNCHES["K2_modulate"] == 0
+
+
+def _ff_block(w1, w2, dtype):
+    """A FeedForward holding the JAX-layout weights w1 (D, FF), w2 (FF, D)."""
+    d, ff = w1.shape
+    block = tnn.FeedForward(d, ff, dtype=dtype)
+    with torch.no_grad():
+        block.in_layer.weight.copy_(torch.from_numpy(w1.T.copy()))
+        block.out_layer.weight.copy_(torch.from_numpy(w2.T.copy()))
+    return block
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,l", [(1, 256), (1, 512), (2, 1000)],
+                         ids=["rows256", "rows512", "rows2x1000"])
+def test_modulated_feed_forward_routes_where_jax_does(monkeypatch, b, l,
+                                                      dtype, d):
+    """modulated_feed_forward calls K2's wrapper exactly where the JAX
+    package's ff_supported admits the shapes (bf16, D and FF multiples of
+    256, at least 512 rows) and runs the chain (norm -> FF -> gate)
+    elsewhere: the 256-row text blocks and fp32 never reach K2."""
+    rng = np.random.default_rng(6)
+    ff = 2 * d
+    x, sc, sh, g, w1, w2 = _inputs(rng, b, l, d, ff)
+    calls = []
+    real = tnn.fused_ff_modulated
+
+    def recorder(*args):
+        calls.append(tuple(args[0].shape))
+        return real(*args)
+
+    monkeypatch.setattr(tnn, "fused_ff_modulated", recorder)
+    block = _ff_block(w1, w2, dtype)
+    xt = torch.from_numpy(x).to(dtype)
+    vecs = [torch.from_numpy(v[:, None]) for v in (sc, sh, g)]
+    got = tnn.modulated_feed_forward(block, xt, *vecs)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    admitted = bool(jax_ff_supported(jax.ShapeDtypeStruct(x.shape, jdt),
+                                     jax.ShapeDtypeStruct(w1.shape, jdt),
+                                     jax.ShapeDtypeStruct(w2.shape, jdt)))
+    assert calls == ([(b, l, d)] if admitted else [])
+    assert admitted == (dtype == torch.bfloat16 and d == 256 and b * l >= 512)
+    if not admitted:
+        chain = tnn.apply_gate_sum(
+            xt, tnn.feed_forward(block, tnn.apply_scale_shift_norm(
+                xt, vecs[0], vecs[1])), vecs[2])
+        assert torch.equal(got, chain)
+
+
+def test_text_block_bf16_matches_jax_chain():
+    """A bf16 text block at its full shape, (1, 256, 1792) x 7168, which
+    JAX's gate declines: the port's chain against JAX's chain, relative L2
+    on the block output. Both round the normed input, the up product, the
+    hidden, the FF output and the output to bf16; they differ where JAX
+    evaluates GELU's steps in bf16 and in the order of sums (9.3e-4 with
+    this seed). K2's plain version skips two of those roundings (the up
+    product and the FF output) and lands at 1.2e-3 against JAX, so the
+    bound, 1.05e-3 (below the 2.2e-3 that K2's rounding gives at the full
+    text block on the card), tells the two apart."""
+    rng = np.random.default_rng(0)
+    d, ff = 1792, 7168
+    x = rand(rng, 1, 256, d)
+    sc, sh, g = (rand(rng, 1, 1, d, scale=0.2) for _ in range(3))
+    w1 = rand(rng, d, ff, scale=1 / np.sqrt(d))
+    w2 = rand(rng, ff, d, scale=1 / np.sqrt(ff))
+    bf = jnp.bfloat16
+    want = jax_mff({"in_layer": {"weight": jnp.asarray(w1, bf)},
+                    "out_layer": {"weight": jnp.asarray(w2, bf)}},
+                   jnp.asarray(x, bf), jnp.asarray(sc), jnp.asarray(sh),
+                   jnp.asarray(g))
+    want = torch.from_numpy(to_np(want)).float()
+    block = _ff_block(w1, w2, torch.bfloat16)
+    xt = torch.from_numpy(x).bfloat16()
+    vecs = [torch.from_numpy(v) for v in (sc, sh, g)]
+    got = tnn.modulated_feed_forward(block, xt, *vecs)
+    assert got.dtype == torch.bfloat16
+
+    def rel(a):
+        return ((a.float() - want).norm() / want.norm()).item()
+
+    bound = 1.05e-3
+    assert rel(got) < bound, rel(got)
+    # the control: K2's rounding on the same inputs must fail the bound
+    fused = ff_mod_plain(xt, *(v[:, 0] for v in vecs[:2]),
+                         block.in_layer.weight, block.out_layer.weight,
+                         vecs[2][:, 0])
+    assert rel(fused) > bound, rel(fused)

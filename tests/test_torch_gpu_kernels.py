@@ -189,20 +189,96 @@ def test_t5_modes_match_plain(dev, mode, lq, lk, h):
     assert rel < 1e-2 and max_abs < 1e-2 * scale, (max_abs, scale, rel)
 
 
-@pytest.mark.parametrize("m,k,n", [(256, 320, 384), (8192, 8192, 8192),
-                                   (47616, 1792, 7168)])
+@pytest.mark.parametrize("m,k,n", [
+    (256, 320, 384), (8192, 8192, 8192), (47616, 1792, 7168),
+    (47616, 7168, 1792), (1000, 1792, 1792), (1000, 320, 136), (77, 8192, 8)])
 def test_t1_matches_plain(dev, m, k, n):
     """T1's int8 instance equals the exact integer product; the bf16
     instance is within fp32 summation order of the fp32 product of the
-    same bf16 values (K2's bound)."""
+    same bf16 values (K2's bound). Full shapes with K up to 8192, and
+    ragged ones: M not a multiple of the 128-row tile, N not a multiple of
+    the 256-column tile, K not a multiple of the 128-byte k step. The
+    control, the product with the last 128-byte k step left out, must fail
+    each check."""
     g = torch.Generator(device=dev).manual_seed(7)
     a, b = operands(m, k, n, torch.int8, g, dev)
-    assert torch.equal(gemm(a, b), gemm_plain(a, b))
+    out = gemm(a, b)
+    ref = gemm_plain(a, b)
+    assert out.dtype == torch.int32 and torch.equal(out, ref)
+    assert not torch.equal(out, gemm_plain(a[:, :-128], b[:, :-128]))
+    del a, b, out, ref
     a, b = operands(m, k, n, torch.bfloat16, g, dev)
     out = gemm(a, b)
     torch.cuda.synchronize()
-    max_abs, rel = _err(out, gemm_plain(a, b))
+    ref = gemm_plain(a, b)
+    max_abs, rel = _err(out, ref)
+    assert out.dtype == torch.float32
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+    assert _fails_bound(gemm_plain(a[:, :-64], b[:, :-64]), ref, 6e-2, 1e-2)
+
+
+# (kernel, K) per schedule of the shared GEMM that an entry launches:
+# clusters of two storing by TMA (T1 int8 at K <= 2048, T2), clusters of two
+# storing directly (T1 int8 beyond, T1 bf16), single blocks (K8's products)
+GEMM_SCHEDULES = [("T1_gemm_i8", 1792), ("T2_gemm", 1792), ("T1_gemm_i8", 2304),
+                  ("T1_gemm_bf16", 1792), ("K8_ff", 1792)]
+
+
+@pytest.mark.parametrize("kind,k", GEMM_SCHEDULES)
+@pytest.mark.parametrize("m", [1100, 3000])
+def test_gemm_schedules_match_plain(dev, kind, k, m):
+    """Each schedule of the shared GEMM that an entry launches, on ragged
+    shapes: M = 1,100 leaves the last cluster's second row tile empty (9
+    row tiles) and gives a block a single tile, M = 3,000 gives blocks
+    several tiles each; int8 exact, bf16 within K2's bound."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = 520 if m < 2000 else 7168
+    dtype = torch.int8 if kind == "T1_gemm_i8" else torch.bfloat16
+    _kernels.reset_launches()
+    if kind == "K8_ff":
+        ff = 640 if m < 2000 else 7168  # a multiple of K8's 128
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        w1 = (torch.randn((ff, k), generator=g, device=dev)
+              / math.sqrt(k)).bfloat16()
+        w2 = (torch.randn((k, ff), generator=g, device=dev)
+              / math.sqrt(ff)).bfloat16()
+        out, ref = fused_ff(x, w1, w2), ff_plain(x, w1, w2)
+    else:
+        a, b = operands(m, k, n, dtype, g, dev)
+        if kind == "T2_gemm":
+            out = bench_pallas_gemm.gemm(a, b)
+            ref = bench_pallas_gemm.gemm_plain(a, b)
+        else:
+            out, ref = gemm(a, b), gemm_plain(a, b)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[kind] == 1
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        max_abs, rel = _err(out, ref)
+        assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
+
+
+@pytest.mark.parametrize("case", ["n_not_8", "k_not_16_bytes", "k_mismatch",
+                                  "unaligned"])
+def test_t1_t2_reject_bad_operands(dev, case):
+    """The wrappers raise on what the shared GEMM does not take: N not a
+    multiple of 8, K times the element size not a multiple of 16, B's K
+    unlike A's, a base pointer not 16-byte aligned."""
+    a = torch.zeros((256, 64), dtype=torch.bfloat16, device=dev)
+    b = torch.zeros((128, 64), dtype=torch.bfloat16, device=dev)
+    if case == "n_not_8":
+        b = b[:100]
+    elif case == "k_not_16_bytes":
+        a, b = a[:, :60].contiguous(), b[:, :60].contiguous()
+    elif case == "k_mismatch":
+        b = b[:, :32].contiguous()
+    else:
+        a = a.view(-1)[4:4 + 255 * 64].view(255, 64)
+    with pytest.raises(ValueError):
+        gemm(a, b)
+    with pytest.raises(ValueError):
+        bench_pallas_gemm.gemm(a, b)
 
 
 @pytest.mark.parametrize("b,grid,h,extra", [
@@ -427,8 +503,12 @@ def test_k8_matches_plain(dev, lead, d, ff):
 
 
 @pytest.mark.parametrize("name", ["T2_gemm", "T3_ff", "T4_ff_tiled"])
-@pytest.mark.parametrize("rows", [1024, 47616])
+@pytest.mark.parametrize("rows", [1024, 47616, 1000])
 def test_t2_t4_match_plain(dev, name, rows):
+    """T2-T4 at the tool's shapes and at 1,000 rows (not a multiple of the
+    128-row tile), each with the tool's control (one tile of the reduction
+    left out); T2 also at N = 136 (not a multiple of its 256-column
+    tile)."""
     g = torch.Generator(device=dev).manual_seed(9)
     x, wo, w1, w2 = bench_pallas_gemm.operands(g, dev, rows)
     case = {c[0]: c for c in bench_pallas_gemm.cases(x, wo, w1, w2)}[name]
@@ -440,6 +520,11 @@ def test_t2_t4_match_plain(dev, name, rows):
     max_abs, rel = _err(out, ref)
     assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
     assert _fails_bound(case[5](), ref, 6e-2, 1e-2)
+    if name == "T2_gemm":
+        w = wo[:136]
+        max_abs, rel = _err(bench_pallas_gemm.gemm(x, w),
+                            bench_pallas_gemm.gemm_plain(x, w))
+        assert rel < 1e-2 and max_abs < 6e-2, (max_abs, rel)
 
 
 def _k3_zero_padded(x, wt, bias, time_padded):

@@ -385,21 +385,26 @@ def _jax_tool(name):
 def test_t1_plain_matches_jax_mm_xla():
     """T1's plain version against the JAX tool's ``mm_xla`` (B transposed:
     the port takes B as (N, K)): int8 exactly, bf16 to fp32 summation
-    order (1e-5)."""
+    order (1e-5); at 128 x 256 and at the kernel's shape rules' edges (M =
+    1,000, not a multiple of its 128-row tile; N = 1792 and N = 136, not a
+    multiple of its 256-column tile; K = 320 int8 and 96 bf16, not a
+    multiple of its 128-byte k step)."""
     mm_xla = _jax_tool("bench_int8mm").mm_xla
     rng = np.random.default_rng(13)
-    a8 = rng.integers(-127, 128, (128, 320)).astype(np.int8)
-    b8 = rng.integers(-127, 128, (256, 320)).astype(np.int8)
-    got = gemm_plain(torch.from_numpy(a8), torch.from_numpy(b8))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(mm_xla(jnp.asarray(a8), jnp.asarray(b8.T))))
-    a, b = rand(rng, 128, 96), rand(rng, 256, 96)
-    ja, jb = jnp.asarray(a, jnp.bfloat16), jnp.asarray(b.T, jnp.bfloat16)
-    got = gemm_plain(torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16())
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(mm_xla(ja, jb)),
-                               rtol=1e-5, atol=1e-5)
+    for m, n in ((128, 256), (1000, 1792), (1000, 136)):
+        a8 = rng.integers(-127, 128, (m, 320)).astype(np.int8)
+        b8 = rng.integers(-127, 128, (n, 320)).astype(np.int8)
+        got = gemm_plain(torch.from_numpy(a8), torch.from_numpy(b8))
+        assert got.dtype == torch.int32 and got.shape == (m, n)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(mm_xla(jnp.asarray(a8), jnp.asarray(b8.T))))
+        a, b = rand(rng, m, 96), rand(rng, n, 96)
+        ja, jb = jnp.asarray(a, jnp.bfloat16), jnp.asarray(b.T, jnp.bfloat16)
+        got = gemm_plain(torch.from_numpy(a).bfloat16(),
+                         torch.from_numpy(b).bfloat16())
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        np.testing.assert_allclose(got.numpy(), np.asarray(mm_xla(ja, jb)),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -153,7 +153,8 @@ def test_qkv_proj_casts_after_rmsnorm():
 
 
 def test_modulated_feed_forward_plain_path():
-    """fp32 takes K2's plain version; compare with the JAX XLA chain."""
+    """fp32 takes the chain (K2 is for bf16 only, as in the JAX package);
+    compare with the JAX XLA chain."""
     rng = np.random.default_rng(5)
     ff = tnn.FeedForward(32, 64, dtype=torch.float32)
     j_in, ff.in_layer = _linear_pair(rng, 32, 64, bias=False)

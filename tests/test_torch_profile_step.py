@@ -81,16 +81,26 @@ def test_device_times_skips_ranges_and_host_rows():
     ("(anonymous namespace)::ff_modulate_kernel(__nv_bfloat16 const*, "
      "float const*, float const*, __nv_bfloat16*, int, int, int)",
      "K2 modulated FF (modulation pass, up, down)"),
-    ("void (anonymous namespace)::ff_gemm<0>(CUtensorMap_st, CUtensorMap_st, "
-     "(anonymous namespace)::Epi)", "K2 modulated FF (modulation pass, up, down)"),
-    ("void (anonymous namespace)::ff_gemm<1>(CUtensorMap_st, CUtensorMap_st, "
-     "(anonymous namespace)::Epi)", "K2 modulated FF (modulation pass, up, down)"),
-    ("void (anonymous namespace)::ff_gemm<2>(CUtensorMap_st, CUtensorMap_st, "
-     "(anonymous namespace)::Epi)", "K8 plain FF (up, down; T4's down)"),
-    ("void (anonymous namespace)::ff_gemm<3>(CUtensorMap_st, CUtensorMap_st, "
-     "(anonymous namespace)::Epi)", "K8 plain FF (up, down; T4's down)"),
-    ("void (anonymous namespace)::ff_gemm<4>(CUtensorMap_st, CUtensorMap_st, "
-     "(anonymous namespace)::Epi)", "K8 plain FF (up, down; T4's down)"),
+    ("void k5::sm90::gemm_kernel<__nv_bfloat16, k5::sm90::Schedule<1, 4, 0, "
+     "1, false>, (anonymous namespace)::ff_epi<0>>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::ff_epi<0>)",
+     "K2 modulated FF (modulation pass, up, down)"),
+    ("void k5::sm90::gemm_kernel<__nv_bfloat16, k5::sm90::Schedule<1, 4, 0, "
+     "1, false>, (anonymous namespace)::ff_epi<1>>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::ff_epi<1>)",
+     "K2 modulated FF (modulation pass, up, down)"),
+    ("void k5::sm90::gemm_kernel<__nv_bfloat16, k5::sm90::Schedule<1, 4, 0, "
+     "1, false>, (anonymous namespace)::ff_epi<2>>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::ff_epi<2>)",
+     "K8 plain FF (up, down; T4's down)"),
+    ("void k5::sm90::gemm_kernel<__nv_bfloat16, k5::sm90::Schedule<1, 4, 0, "
+     "1, false>, (anonymous namespace)::ff_epi<3>>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::ff_epi<3>)",
+     "K8 plain FF (up, down; T4's down)"),
+    ("void k5::sm90::gemm_kernel<__nv_bfloat16, k5::sm90::Schedule<1, 4, 0, "
+     "1, false>, (anonymous namespace)::ff_epi<4>>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::ff_epi<4>)",
+     "K8 plain FF (up, down; T4's down)"),
     ("void at::native::elementwise_kernel<128, 2>()",
      "elementwise / reduce / copy (norms, casts, gates, RoPE)"),
     ("some_unlisted_kernel", "other"),

@@ -103,8 +103,11 @@ def test_ff_plain_matches_jax_fused_ff(rows, d, ff, lead):
 def test_tool_plain_versions_match_jax(name):
     """T2-T4's plain versions (``tools/bench_pallas_gemm.py``): T2 against
     XLA's bf16 dot with fp32 accumulation (the Pallas ``_gemm_kernel``'s
-    math), T3 and T4 (two 1024-wide chunks here) against JAX ``fused_ff``
-    in interpret mode, whose math they share; test_ff_pallas.py's 2 %."""
+    math), at 512 x 256 and at the kernel's shape rules' edges (1,000 rows,
+    not a multiple of its 128-row tile; N = 1792 and N = 136, not a multiple
+    of its 256-column tile), T3 and T4 (two 1024-wide chunks here) against
+    JAX ``fused_ff`` in interpret mode, whose math they share;
+    test_ff_pallas.py's 2 %."""
     from kandinsky5_tpu_torch.tools import bench_pallas_gemm as bpg
 
     x, w1, w2 = _ff_inputs(7, 512, 256, 2048)
@@ -112,17 +115,22 @@ def test_tool_plain_versions_match_jax(name):
     w1t = torch.from_numpy(w1.T.copy()).bfloat16()
     w2t = torch.from_numpy(w2.T.copy()).bfloat16()
     if name == "T2_gemm":
-        wo = w1[:, :256]
-        want = jnp.dot(jnp.asarray(x, BF), jnp.asarray(wo, BF),
-                       preferred_element_type=jnp.float32).astype(BF)
-        got = bpg.gemm(xt, torch.from_numpy(wo.T.copy()).bfloat16())
+        xr, wr, _ = _ff_inputs(8, 1000, 256, 1792)
+        for xs, wo in ((x, w1[:, :256]), (xr, wr), (xr, wr[:, :136])):
+            want = jnp.dot(jnp.asarray(xs, BF), jnp.asarray(wo, BF),
+                           preferred_element_type=jnp.float32).astype(BF)
+            got = bpg.gemm(torch.from_numpy(xs).bfloat16(),
+                           torch.from_numpy(wo.T.copy()).bfloat16())
+            assert got.dtype == torch.bfloat16
+            assert got.shape == tuple(want.shape)
+            assert _close(to_np(got), want, 0.02)
     else:
         want = jax_fused_ff(jnp.asarray(x, BF), jnp.asarray(w1, BF),
                             jnp.asarray(w2, BF), interpret=True)
         fn = bpg.ff if name == "T3_ff" else bpg.ff_chunked
         got = fn(xt, w1t, w2t)
-    assert got.dtype == torch.bfloat16 and got.shape == tuple(want.shape)
-    assert _close(to_np(got), want, 0.02)
+        assert got.dtype == torch.bfloat16 and got.shape == tuple(want.shape)
+        assert _close(to_np(got), want, 0.02)
 
 
 _GATE_CASES = {
