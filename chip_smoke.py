@@ -10,6 +10,8 @@
     python3 chip_smoke.py --gemm             # phase 2's T1, T2, K8, T3, T4
                                              # cases only
     python3 chip_smoke.py --k4 [--k6]        # phase 2's K4 (K6) cases only
+    python3 chip_smoke.py --int8             # phase 2's K5, K7 and T5 cases
+                                             # only
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -988,13 +990,51 @@ def phase_k6(dev, g, normed, results):
     torch.cuda.empty_cache()
 
 
+# Opcodes the int8 attention kernels must not hold: the int-to-float
+# conversion (I2F) shares the special-function units' rate with exp2, so
+# the kernels convert by an integer add and an FADD; a generic load (LD)
+# where the dequant coefficients should be read from shared memory by LDS
+SASS_BANNED = ("I2F", "LD")
+
+
+def sass_banned(lib: str, kernel: str) -> dict:
+    """For every instance of ``kernel`` in the built library, keyed by its
+    template arguments ("MODE,MASK,LAG" for flash_int8_kernel), the static
+    count of each of SASS_BANNED in its code, from ``cuobjdump -sass``."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(kernel + r"I(\w+?)EEv", line)
+            cur = None if m is None else counts.setdefault(
+                ",".join(re.findall(r"L\w(\d+)E", m.group(1))),
+                dict.fromkeys(SASS_BANNED, 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if cur is not None and m is not None and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return counts
+
+
 def phase_int8(dev, g, normed, results):
     """K5 and K7 at K1's four main-path shapes, on one pack_int8 call
     shared with their plain version (the sides differ only in exp2's last
     bits and sum order), K7 held bit-equal to K5 and K5 against K1 (the quantization
-    error on this card); T5's four modes at the 5 s shape."""
+    error on this card); T5's four modes at the 5 s shape. The log gives,
+    beside the tensor-core bound, the achieved rate and K1's computed exp2
+    floor (one exp2 per query and valid key at 16 a clock per SM at the
+    highest SM clock), and phase 2 fails if an instance's SASS holds an
+    opcode of SASS_BANNED."""
     import torch
 
+    from kandinsky5_tpu_torch.ops import _kernels
     from kandinsky5_tpu_torch.ops.flash import (
         flash_fixed,
         flash_int8_packed,
@@ -1006,6 +1046,14 @@ def phase_int8(dev, g, normed, results):
         i8_decomp,
         i8_decomp_plain,
     )
+    sass = sass_banned(_kernels.build(), "flash_int8_kernel")
+    log(f"  SASS of flash_int8_kernel's {len(sass)} instances, "
+        f"{'/'.join(SASS_BANNED)}: {sass}")
+    if len(sass) != 8 or any(any(n.values()) for n in sass.values()):
+        raise Failure("flash_int8_kernel: expected 8 instances free of "
+                      f"{SASS_BANNED} in the SASS, got {sass}")
+    exp2_rate = 16 * torch.cuda.get_device_properties(dev).multi_processor_count \
+        * _max_sm_clock_hz()
     for lq, masked in ((47616, False), (10752, False), (1536, False),
                        (256, True)):
         q, k = normed((1, lq, 28, 64)), normed((1, lq, 28, 64))
@@ -1029,6 +1077,16 @@ def phase_int8(dev, g, normed, results):
                      control_fn=lambda: flash_int8_plain(q8 * 0, k8, v, coeff,
                                                          shift, mask),
                      yardstick_fn=sdpa)
+            r = results[name][-1]
+            r["tflops"] = 2 * pairs / r["ms"] / 1e9
+            floor = lq * n_keys * 28 / exp2_rate * 1e3
+            log(f"    {r['tflops']:.1f} TOP/s-equivalent "
+                f"({100 * r['bound_ms'] / r['ms']:.1f} % of the tensor-core "
+                f"bound); exp2 floor {floor:.3f} ms at the highest SM clock "
+                f"({100 * floor / r['ms']:.1f} %); "
+                f"{r['ms'] / r['yardstick_ms']:.2f}x the SDPA yardstick")
+            if lq == 47616 and not pipe:
+                log("    under a steady run of K5: " + _clock_under(kernel))
         torch.cuda.synchronize()
         same = bool(torch.equal(outs["K5_flash_int8"], outs["K7_flash_int8_pipe"]))
         k7_vs_k5 = (outs["K5_flash_int8"].float()
@@ -2162,6 +2220,9 @@ def main() -> int:
     ap.add_argument("--gemm", action="store_true",
                     help="build, then run only phase 2's T1, T2, K8, T3 and "
                     "T4 cases and print their readings (no smoke result)")
+    ap.add_argument("--int8", action="store_true",
+                    help="build, then run only phase 2's K5, K7 and T5 cases "
+                    "and print their readings (no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -2209,6 +2270,12 @@ def main() -> int:
             log(gpu_line())
             log(json.dumps({"K1_flash_fixed": results["K1_flash_fixed"]}))
             return 0 if all(r["ok"] for r in results["K1_flash_fixed"]) else 1
+        if args.int8:
+            results = {}
+            phase_int8(dev, *_seeded(dev), results)
+            log(gpu_line())
+            log(json.dumps(results))
+            return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
         if args.k3:
             results = {}
             phase_k3(dev, _seeded(dev)[0], results)

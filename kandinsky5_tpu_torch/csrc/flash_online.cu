@@ -286,15 +286,8 @@ extern "C" int k5_flash_online(const void* q, const void* k, const void* v,
   if (err == 0) err = bhld_map(&tv, v, B, Lk, SLABS * H, BN);
   if (err != 0) return err;
   static bool ready[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_online_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) ready[dev] = true;
-  }
+  err = smem_limit_once(ready, (const void*)flash_online_kernel, SMEM);
+  if (err != 0) return err;
   const int nt = (Lk + BN - 1) / BN, nqb = (Lq + BM - 1) / BM;
   dim3 grid(nqb, H, B);
   flash_online_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(

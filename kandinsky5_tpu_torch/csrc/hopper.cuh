@@ -10,8 +10,9 @@
 // at chunk c ^ (r % 8). Every tile starts on a 1024-byte boundary, so the
 // swizzle pattern (a function of the absolute shared address) is the one
 // wgmma's 128B layout expects; K4's 512-wide rows are 8 such tiles of 64
-// columns (slabs), one TMA box each. K3's weight tiles are rows of 64 bytes
-// with the 64B swizzle (the same rule at half the width), and its
+// columns (slabs), one TMA box each. K3's weight tiles and K5/K7's int8 Q
+// and K tiles (64 int8 a row) are rows of 64 bytes with the 64B swizzle (the
+// same rule at half the width, tiles on 512-byte boundaries), and K3's
 // activation operand is non-swizzled (``smem_desc``).
 #pragma once
 
@@ -442,6 +443,23 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- host: launch ------------------------------------------------------------
+
+// Raise ``kernel``'s dynamic shared memory limit to ``bytes`` on the current
+// device the first time it is launched there (the attribute is per device);
+// ``ready`` is the caller's record for this kernel. Returns the CUDA error.
+inline int smem_limit_once(bool (&ready)[64], const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && ready[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64) ready[dev] = true;
+  return 0;
 }
 
 // ---- host: tensor maps -------------------------------------------------------

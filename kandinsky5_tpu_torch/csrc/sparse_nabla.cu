@@ -270,15 +270,8 @@ extern "C" int k5_sparse_nabla(const void* q, const void* k, const void* v,
   if (err == 0) err = bhld_map(&tv, v, B, Sk, H, BKV);
   if (err != 0) return err;
   static bool ready[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !ready[dev]) {
-    e = cudaFuncSetAttribute(sparse_nabla_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) ready[dev] = true;
-  }
+  err = smem_limit_once(ready, (const void*)sparse_nabla_kernel, SMEM);
+  if (err != 0) return err;
   const int nq = S / BQ, ng = (nq + NWG - 1) / NWG;
   if (B * H * ng == 0) return 0;
   sparse_nabla_kernel<<<B * H * ng, THREADS, SMEM, (cudaStream_t)stream>>>(

@@ -273,7 +273,7 @@ def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, r
     if tp is not None and (sparse is not None or attn_impl in INT8_IMPLS):
         raise ValueError(
             "NABLA and int8-QK attention under tensor parallelism are not "
-            "ported yet (ROADMAP.md, queue 1, item 1)")
+            "ported yet (ROADMAP.md, queue 1, item 7)")
     for blk in model.visual_transformer_blocks:
         visual = visual_decoder_block(blk, visual, text, time_embed, rope,
                                       text_mask, model.cfg.num_heads, attn_impl,

@@ -331,15 +331,24 @@ def flash_int8(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     return flash_int8_packed(q8, k8, v, coeff, shift, kv_mask, pipe)
 
 
-def flash_int8_packed(q8, k8, v, coeff, shift, kv_mask=None,
-                      pipe: bool = False):
-    """K5/K7 on :func:`pack_int8`'s outputs: the plain version for a CPU
-    tensor, the kernel (K7 with ``pipe``) for a CUDA one, or raise."""
-    if v.device.type == "cpu":
-        return flash_int8_plain(q8, k8, v, coeff, shift, kv_mask)
+def tma_coeff(coeff):
+    """``coeff`` (B*H, Lk) with zero columns appended up to a multiple of 4
+    keys, the row length K5/K7/T5 read it at: their TMA tensor map needs a
+    row stride that is a multiple of 16 bytes. The tensor itself where Lk %
+    4 == 0; otherwise an O(B*H*Lk) copy, with no host sync."""
+    pad = -coeff.shape[-1] % 4
+    return torch.nn.functional.pad(coeff, (0, pad)) if pad else coeff
+
+
+def int8_operands(name, q8, k8, v, coeff, shift, mask=None):
+    """Check what K5, K7 and T5 (one kernel) take, and return (B, Lq, Lk, H)
+    and ``coeff`` as the kernel reads it. q8 (B*H, Lq, 64) and k8 (B*H, Lk,
+    64) int8, v (B, Lk, H, 64) bf16, coeff (B*H, Lk) fp32, all contiguous on
+    the card; mask (B, Lk) uint8 or None. The kernel reads q8, k8, v and
+    coeff (padded by :func:`tma_coeff`) through TMA tensor maps, so their
+    base addresses must be 16-byte aligned. Raises ValueError otherwise."""
     b, lk, h, d = v.shape
     lq = q8.shape[1]
-    name = "K7" if pipe else "K5"
     if d != 64 or v.dtype != torch.bfloat16:
         raise ValueError(f"{name} takes bf16 V and heads of 64, got "
                          f"{v.dtype} d={d}")
@@ -348,14 +357,30 @@ def flash_int8_packed(q8, k8, v, coeff, shift, kv_mask=None,
         raise ValueError(f"{name} shapes: q8 {tuple(q8.shape)} k8 "
                          f"{tuple(k8.shape)} v {tuple(v.shape)} coeff "
                          f"{tuple(coeff.shape)}")
-    mask = None
-    if kv_mask is not None:
-        if kv_mask.shape != (b, lk):
-            raise ValueError(f"{name} kv_mask must be (B, Lk), got {kv_mask.shape}")
-        mask = kv_mask.to(torch.uint8).contiguous()
+    if q8.dtype != torch.int8 or k8.dtype != torch.int8 \
+            or coeff.dtype != torch.float32:
+        raise ValueError(f"{name} takes int8 q8, k8 and fp32 coeff, got "
+                         f"{q8.dtype} {k8.dtype} {coeff.dtype}")
+    if mask is not None and mask.shape != (b, lk):
+        raise ValueError(f"{name} kv_mask must be (B, Lk), got {mask.shape}")
     _kernels.check_cuda(name, q8=q8, k8=k8, v=v, coeff=coeff, shift=shift,
                         mask=mask)
-    out = torch.empty((b, lq, h, d), dtype=v.dtype, device=v.device)
+    coeff = tma_coeff(coeff)
+    _kernels.check_tma_aligned(name, q8=q8, k8=k8, v=v, coeff=coeff)
+    return (b, lq, lk, h), coeff
+
+
+def flash_int8_packed(q8, k8, v, coeff, shift, kv_mask=None,
+                      pipe: bool = False):
+    """K5/K7 on :func:`pack_int8`'s outputs: the plain version for a CPU
+    tensor, the kernel (K7 with ``pipe``) for a CUDA one, or raise
+    (:func:`int8_operands` says what the kernel takes)."""
+    if v.device.type == "cpu":
+        return flash_int8_plain(q8, k8, v, coeff, shift, kv_mask)
+    name = "K7" if pipe else "K5"
+    mask = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    (b, lq, lk, h), coeff = int8_operands(name, q8, k8, v, coeff, shift, mask)
+    out = torch.empty((b, lq, h, 64), dtype=v.dtype, device=v.device)
     entry, counter = (("k5_flash_int8_pipe", "K7_flash_int8_pipe") if pipe
                       else ("k5_flash_int8", "K5_flash_int8"))
     _kernels.launch(entry, counter, q8.data_ptr(), k8.data_ptr(),

@@ -46,7 +46,7 @@ def tp_width(plan: Tuple[int, int, int]) -> int:
         raise ValueError(
             f"plan (dp, sp, tp) = {plan}: the port runs tensor parallelism "
             "alone; sequence (sp) and data (dp) parallelism are not ported "
-            "yet (ROADMAP.md, queue 1, item 1)")
+            "yet (ROADMAP.md, queue 1, item 7)")
     return tp
 
 
@@ -161,7 +161,7 @@ def shard_dit(model, tp: TensorParallel):
 
     if is_quantized(model):
         raise ValueError("W8A8 under tensor parallelism is not ported yet "
-                         "(ROADMAP.md, queue 1, item 1)")
+                         "(ROADMAP.md, queue 1, item 7)")
     device = next(model.parameters()).device
     if device != tp.device:
         raise ValueError(f"the DiT is on {device} and rank {tp.rank}'s "

@@ -77,7 +77,7 @@ class Kandinsky5T2VPipeline:
         if tp is not None and (int8_linear or attn_impl in INT8_IMPLS):
             raise ValueError("int8-QK attention and W8A8 under tensor "
                              "parallelism are not ported yet (ROADMAP.md, "
-                             "queue 1, item 1)")
+                             "queue 1, item 7)")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")

@@ -12,7 +12,8 @@ Port of ``tools/bench_i8_decomp.py`` (its Pallas ``_kernel`` is the kernel
 replaced here). The outputs are garbage by design: the modes exist to be
 timed, and the differences between adjacent modes price each pass,
 including its serialization against the tensor cores. Each mode has a
-plain version computing the same formula on K5's 64-key tiles, so the card
+plain version computing the same formula (qk_only's over 64-key groups:
+K5's 128-key tile adds its columns c and c + 64 into lane c), so the card
 can still check the kernel's modes.
 
     python -m kandinsky5_tpu_torch.tools.bench_i8_decomp
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from kandinsky5_tpu_torch.ops import _kernels
-from kandinsky5_tpu_torch.ops.flash import _row_chunks, pack_int8
+from kandinsky5_tpu_torch.ops.flash import _row_chunks, int8_operands, pack_int8
 
 MODES = ("full", "no_exp2", "raw_pv", "qk_only")
 B, S, H, D = 1, 47616, 28, 64
@@ -77,14 +78,8 @@ def i8_decomp(q8, k8, v, coeff, shift, mode: str):
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if v.device.type == "cpu":
         return i8_decomp_plain(q8, k8, v, coeff, shift, mode)
-    b, lk, h, d = v.shape
-    lq = q8.shape[1]
-    if d != 64 or v.dtype != torch.bfloat16 or q8.shape != (b * h, lq, d) \
-            or k8.shape != (b * h, lk, d) or coeff.shape != (b * h, lk):
-        raise ValueError(f"T5 shapes: q8 {tuple(q8.shape)} k8 {tuple(k8.shape)} "
-                         f"v {tuple(v.shape)} {v.dtype} coeff {tuple(coeff.shape)}")
-    _kernels.check_cuda("T5", q8=q8, k8=k8, v=v, coeff=coeff, shift=shift)
-    out = torch.empty((b, lq, h, d), dtype=v.dtype, device=v.device)
+    (b, lq, lk, h), coeff = int8_operands("T5", q8, k8, v, coeff, shift)
+    out = torch.empty((b, lq, h, 64), dtype=v.dtype, device=v.device)
     _kernels.launch("k5_i8_decomp", "T5_i8_decomp", q8.data_ptr(),
                     k8.data_ptr(), v.data_ptr(), coeff.data_ptr(),
                     shift.data_ptr(), out.data_ptr(), b, lq, lk, h,

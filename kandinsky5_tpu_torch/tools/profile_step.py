@@ -56,7 +56,9 @@ from kandinsky5_tpu_torch.tools import gpu_line
 # kernel-name substrings -> group (first match wins)
 GROUPS = [
     ("K6 sparse_nabla", ("sparse_nabla_kernel",)),
-    ("K7 flash_int8_pipe", ("flash_int8_pipe_kernel",)),
+    # K7 is flash_int8_kernel<MODE 0, MASK, LAG true>; K5 the rest
+    ("K7 flash_int8_pipe", ("flash_int8_kernel<0, false, true>",
+                            "flash_int8_kernel<0, true, true>")),
     ("K5 flash_int8", ("flash_int8_kernel",)),
     ("K1 flash_fixed", ("flash_fixed_kernel",)),
     ("K2 modulated FF (modulation pass, up, down)",

@@ -38,6 +38,7 @@ from kandinsky5_tpu_torch.ops.flash import (
     flash_fixed,
     flash_fixed_plain,
     flash_int8,
+    flash_int8_packed,
     flash_int8_plain,
     flash_online,
     flash_online_plain,
@@ -145,18 +146,24 @@ def test_k4_k6_reject_unaligned(dev, kernel):
 
 @pytest.mark.parametrize("b,lq,lk,h,masked", [
     (2, 300, 300, 3, True), (1, 256, 256, 28, True), (1, 1000, 700, 2, False),
-    (1, 47616, 47616, 28, False)])
+    (1, 47616, 47616, 28, False), (2, 300, 301, 3, True),
+    (1, 50, 77, 2, False), (2, 300, 300, 3, "first item none")])
 def test_k5_k7_match_plain(dev, b, lq, lk, h, masked):
     """K5 against its plain version on the same packed inputs (they differ
     only in exp2's last bits and the order of sums), with the uniform-weight
-    control failing the bound; K7 equal to K5 bit for bit."""
+    control failing the bound; K7 equal to K5 bit for bit. Edges of the
+    128-row and 128-key tiles: Lk not a multiple of 4 (the coefficients
+    padded for their tensor map), Lq below 64 and Lk below 128, and a batch
+    item whose mask admits no key, which must come out 0 as in the plain
+    version."""
     g = torch.Generator(device=dev).manual_seed(5)
     q = _normed(g, (b, lq, h, 64), dev)
     k = _normed(g, (b, lk, h, 64), dev)
     v = torch.randn((b, lk, h, 64), generator=g, device=dev).bfloat16()
     mask = None
     if masked:
-        n_valid = torch.tensor([lk * 2 // 3, lk // 5][:b], device=dev)
+        first = 0 if masked == "first item none" else lk * 2 // 3
+        n_valid = torch.tensor([first, lk // 5][:b], device=dev)
         mask = torch.arange(lk, device=dev)[None] < n_valid[:, None]
     out = flash_int8(q, k, v, mask)
     pipe = flash_int8(q, k, v, mask, pipe=True)
@@ -168,14 +175,58 @@ def test_k5_k7_match_plain(dev, b, lq, lk, h, masked):
     assert rel < 1e-2 and max_abs < 3e-2, (max_abs, rel)
     assert _fails_bound(flash_int8_plain(q8 * 0, k8, v, coeff, shift, mask),
                         ref, 3e-2, 1e-2)
+    if masked == "first item none":
+        assert not ref[0].any() and not out[0].any()
 
 
-@pytest.mark.parametrize("lq,lk,h", [(200, 150, 3), (47616, 47616, 28)])
+@pytest.mark.parametrize("operand", ["q8", "v"])
+def test_k5_rejects_unaligned(dev, operand):
+    """K5/K7 read q8, k8, v and the coefficients through TMA tensor maps,
+    which need 16-byte aligned base addresses: the wrapper raises rather
+    than launch."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = _normed(g, (1, 128, 2, 64), dev)
+    v = torch.randn((1, 128, 2, 64), generator=g, device=dev).bfloat16()
+    args = dict(zip(("q8", "k8", "coeff", "shift"), pack_int8(q, q)), v=v)
+    t = args[operand]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    shifted = flat[1:].view(t.shape)
+    shifted.copy_(t)
+    args[operand] = shifted
+    for pipe in (False, True):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_int8_packed(args["q8"], args["k8"], args["v"],
+                              args["coeff"], args["shift"], pipe=pipe)
+
+
+@pytest.mark.parametrize("operand", ["q8", "k8", "coeff"])
+def test_int8_wrappers_reject_bad_dtypes(dev, operand):
+    """K5, K7 and T5 share one check of their operands: a q8 or k8 that is
+    not int8, or coefficients that are not fp32, raise rather than reach
+    the kernel's tensor maps as raw bytes."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = _normed(g, (1, 128, 2, 64), dev)
+    v = torch.randn((1, 128, 2, 64), generator=g, device=dev).bfloat16()
+    args = dict(zip(("q8", "k8", "coeff", "shift"), pack_int8(q, q)), v=v)
+    args[operand] = args[operand].to(
+        torch.bfloat16 if operand == "coeff" else torch.uint8)
+    for pipe in (False, True):
+        with pytest.raises(ValueError, match="takes int8"):
+            flash_int8_packed(args["q8"], args["k8"], args["v"],
+                              args["coeff"], args["shift"], pipe=pipe)
+    with pytest.raises(ValueError, match="takes int8"):
+        i8_decomp(args["q8"], args["k8"], args["v"], args["coeff"],
+                  args["shift"], "full")
+
+
+@pytest.mark.parametrize("lq,lk,h", [(200, 150, 3), (47616, 47616, 28),
+                                     (50, 77, 2)])
 @pytest.mark.parametrize("mode", MODES)
 def test_t5_modes_match_plain(dev, mode, lq, lk, h):
     """Each of T5's modes against its plain version; the outputs are
     garbage of any scale, so the bound is relative: rel_l2 1e-2 and
-    max-abs 1e-2 of the output's largest magnitude."""
+    max-abs 1e-2 of the output's largest magnitude. The ragged case has Lq
+    below 64 and Lk below 128 and not a multiple of 4."""
     g = torch.Generator(device=dev).manual_seed(6)
     q = _normed(g, (1, lq, h, 64), dev)
     k = _normed(g, (1, lk, h, 64), dev)

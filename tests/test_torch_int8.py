@@ -43,6 +43,7 @@ from kandinsky5_tpu_torch.ops.flash import (
     flash_int8_plain,
     int8_padded_len,
     pack_int8,
+    tma_coeff,
 )
 from kandinsky5_tpu_torch.tools.bench_i8_decomp import MODES, i8_decomp_plain
 from kandinsky5_tpu_torch.tools.bench_int8mm import gemm_plain
@@ -143,6 +144,20 @@ def test_flash_int8_plain_masks_keys():
     full = flash_int8_plain(q8, k8, v, coeff, shift, mask)
     cut = flash_int8_plain(q8, k8[:, :40], v[:, :40], coeff[:, :40], shift)
     torch.testing.assert_close(full, cut, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("lk", [300, 301, 302, 303, 77])
+def test_tma_coeff_pads_to_four_keys(lk):
+    """K5/K7/T5 read the coefficients at a row length that is a multiple of
+    4 keys (their tensor map's 16-byte row stride): zeros are appended past
+    Lk, the real coefficients are kept, and an aligned row length passes
+    the tensor through untouched."""
+    coeff = torch.from_numpy(
+        np.random.default_rng(lk).random((3, lk), dtype=np.float32))
+    padded = tma_coeff(coeff)
+    assert padded.shape == (3, -(-lk // 4) * 4) and padded.is_contiguous()
+    assert torch.equal(padded[:, :lk], coeff) and not padded[:, lk:].any()
+    assert (padded is coeff) == (lk % 4 == 0)
 
 
 def test_flash_attention_int8_takes_64_wide_heads_only():

@@ -76,7 +76,21 @@ def test_device_times_skips_ranges_and_host_rows():
      "float const*, __nv_bfloat16*, int, int, int, int)", "K6 sparse_nabla"),
     ("void (anonymous namespace)::flash_int8_kernel<0>(signed char const*)",
      "K5 flash_int8"),
-    ("void (anonymous namespace)::flash_int8_pipe_kernel(signed char const*)",
+    ("void (anonymous namespace)::flash_int8_kernel<0, false, false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "unsigned char const*, float const*, __nv_bfloat16*, int, int, int)",
+     "K5 flash_int8"),
+    ("void (anonymous namespace)::flash_int8_kernel<0, true, false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "unsigned char const*, float const*, __nv_bfloat16*, int, int, int)",
+     "K5 flash_int8"),
+    ("void (anonymous namespace)::flash_int8_kernel<0, false, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "unsigned char const*, float const*, __nv_bfloat16*, int, int, int)",
+     "K7 flash_int8_pipe"),
+    ("void (anonymous namespace)::flash_int8_kernel<0, true, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "unsigned char const*, float const*, __nv_bfloat16*, int, int, int)",
      "K7 flash_int8_pipe"),
     ("(anonymous namespace)::ff_modulate_kernel(__nv_bfloat16 const*, "
      "float const*, float const*, __nv_bfloat16*, int, int, int)",
@@ -107,6 +121,8 @@ def test_device_times_skips_ranges_and_host_rows():
 ])
 def test_group_of_files_kernels(kernel, group):
     """K1's wgmma kernel (both mask instances) is filed under K1's row,
+    the int8 kernel's K5 and K7 instances (lag 0 and 1, each with and
+    without a mask) under K5's and K7's,
     K3's wgmma kernel under its three groups by mode (plain, prologue, W8A8,
     beside the window scales), K4's and K6's wgmma kernels under theirs,
     and the FF's modulation pass and GEMM epilogues under K2 (modes 0, 1)
