@@ -12,6 +12,8 @@
     python3 chip_smoke.py --k4 [--k6]        # phase 2's K4 (K6) cases only
     python3 chip_smoke.py --int8             # phase 2's K5, K7 and T5 cases
                                              # only
+    python3 chip_smoke.py --text             # phase 3's text check and the
+                                             # full-size towers' timings only
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -63,13 +65,27 @@ Phases, each of which must pass (any failure exits nonzero):
                its first chunk large enough for K4; and tiled over 2
                temporal x 2 x 2 spatial tiles, fused, in bf16 and with int8
                convs), on the card (kernels) against the same weights in
-               fp32 on the CPU (plain versions);
+               fp32 on the CPU (plain versions); then the text towers
+               (plain PyTorch: no kernel is on this path): Qwen2.5-VL at
+               full width with 2 of its 28 layers in bf16 and CLIP ViT-L/14
+               whole in fp32, seeded, against the same weights in fp32 on
+               the CPU on one prompt of each template through the stand-in
+               tokenizers (the repository holds no tokenizer file): Qwen's
+               cropped hidden states and its prefill logits within
+               TEXT_BOUND, CLIP's pooled vector within CLIP_BOUND, with two
+               controls that must fail them (the crop one position early,
+               CLIP pooled at the last position);
   4. pipeline — ``Kandinsky5T2VPipeline`` with the full 2B DiT (uniform
-               +-0.02 weights from a seed), the full VAE decoder and a
-               seeded stand-in text embedder, 16 steps per request. The 5 s
-               path (config_5s_distil.yaml) answers a 512x768 image and a
-               video of ``--seconds`` 1 or 5 (1 s = 25 frames by default);
-               every kernel of it must launch. The 10 s path
+               +-0.02 weights from a seed), the full VAE decoder and the
+               text stage for real: the full-size Qwen2.5-VL-7B (bf16) and
+               CLIP ViT-L/14 (fp32) with seeded weights behind the stand-in
+               tokenizers, 16 steps per request; each request prints its
+               text seconds (expansion and encode) and its peak memory. The
+               5 s path (config_5s_distil.yaml) answers a 512x768 image,
+               its prompt expanded (up to 256 new tokens, with the tokens
+               and ms per token printed), and a video of ``--seconds`` 1 or
+               5 (1 s = 25 frames by default); every kernel of it must
+               launch. The 10 s path
                (config_10s_distil.yaml, NABLA) answers a 2 s video (49
                frames, 19,968 tokens), or the 241-frame shape with
                ``--seconds 10``; it must launch K6 exactly 32 x 16 times and
@@ -88,7 +104,13 @@ Phases, each of which must pass (any failure exits nonzero):
                ``--seconds 10``, the 241-frame latents tiled with their PSNR
                against the streaming decode; each with exact K3 (by mode)
                and K4 launch counts. Each path's launch counts are reset
-               just before it and read just after;
+               just before it and read just after. Then the expansion on
+               int8 decode weights (``int8_expand``, timed, not gated), and
+               the image request again through ``offload=True``: its peak
+               must be lower than the resident request's, and its expanded
+               prompt and its frames must equal them exactly. The requests'
+               text embeddings and expansion are saved for phase 5, and the
+               wall time the text stage added is printed;
   5. tensor parallelism — ranks sharing the one card over gloo (CUDA
                tensors staged through the host; the kernels are built
                before any rank starts): one DiT forward at full width and
@@ -99,8 +121,10 @@ Phases, each of which must pass (any failure exits nonzero):
                counts (K8 32, K1 34, K2 0); two controls must fail the
                bound (each rank keeps its FF partial sum; the out layers'
                bias added on every rank). Then the tp = 2 pipeline answers
-               the 5 s path's image and video requests with 16 steps, rank 0
-               decoding tiled and writing; s/step, the all-reduce share
+               the 5 s path's image and video requests with 16 steps on
+               phase 4's text embeddings and expansion (replayed from
+               ``--out``), rank 0 decoding tiled and writing; s/step, the
+               all-reduce share
                (gloo through the host, 2 ranks on one card, not a
                multi-GPU number) and the video's PSNR against phase 4's
                tiled decode of the same request. A failed rank fails the
@@ -115,6 +139,7 @@ import argparse
 import json
 import math
 import os
+import re
 import sys
 import time
 import zlib
@@ -1249,6 +1274,179 @@ class SeededEmbedder:
         return prompt
 
 
+class StandInTokenizer:
+    """Seeded stand-in for an HF tokenizer (the repository holds no tokenizer
+    file): a word or punctuation mark maps to an id from ``zlib.crc32``, the
+    special tokens to their ids in the released vocabulary. It takes the
+    calls the embedder makes (padding to ``max_length`` with a mask,
+    truncation, ``apply_chat_template``, ``decode``); the towers run for
+    real on its ids."""
+
+    SPLIT = re.compile(r"<\|[a-z_]+\|>|\w+|[^\w\s]")
+
+    def __init__(self, n_words, specials, pad, bos=None, eos=None):
+        self.n_words, self.specials = n_words, specials
+        self.pad, self.bos, self.eos = pad, bos, eos
+        self.words = {i: w for w, i in specials.items()}
+
+    @classmethod
+    def qwen(cls):
+        return cls(151643, {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+                            "<|im_end|>": 151645}, pad=151643)
+
+    @classmethod
+    def clip(cls):
+        # the legacy pooling rule reads the largest id: end of text, 49407
+        return cls(49406, {"<|startoftext|>": 49406, "<|endoftext|>": 49407},
+                   pad=49407, bos=49406, eos=49407)
+
+    def _ids(self, text):
+        out = []
+        for w in self.SPLIT.findall(text):
+            i = self.specials.get(w)
+            if i is None:
+                i = zlib.crc32(w.encode()) % self.n_words
+                self.words.setdefault(i, w)
+            out.append(i)
+        return out
+
+    def __call__(self, texts, max_length=None, truncation=False,
+                 padding=False, add_special_tokens=True, return_tensors="np"):
+        import numpy as np
+
+        rows = []
+        for text in ([texts] if isinstance(texts, str) else texts):
+            ids = self._ids(text)
+            extra = [i for i in (self.bos, self.eos) if i is not None] \
+                if add_special_tokens else []
+            if truncation and max_length is not None:
+                ids = ids[:max_length - len(extra)]
+            if extra:
+                ids = [self.bos] + ids + [self.eos]
+            rows.append(ids)
+        width = max_length if padding == "max_length" else max(map(len, rows))
+        ids = np.full((len(rows), width), self.pad, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for r, row in enumerate(rows):
+            ids[r, :len(row)] = row
+            mask[r, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def apply_chat_template(self, messages, tokenize=False,
+                            add_generation_prompt=True):
+        text = "".join(
+            f"<|im_start|>{m['role']}\n"
+            + "".join(c["text"] for c in m["content"]) + "<|im_end|>\n"
+            for m in messages)
+        return text + ("<|im_start|>assistant\n" if add_generation_prompt
+                       else "")
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(self.words.get(int(i), f"w{int(i)}") for i in ids
+                        if not (skip_special_tokens
+                                and int(i) in self.specials.values()))
+
+
+def seeded_text_embedder(dev, conf, qwen_layers=None, seed=21):
+    """The Qwen2.5-VL-7B text tower (bf16; ``qwen_layers`` of its 28 layers
+    when given) and CLIP ViT-L/14 (fp32, as the pipeline keeps it) at full
+    width with seeded +-0.02 weights on ``dev``, behind the stand-in
+    tokenizers."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.text.clip import (
+        ClipTextConfig,
+        init_clip_params_random,
+    )
+    from kandinsky5_tpu_torch.text.embedder import Kandinsky5TextEmbedder
+    from kandinsky5_tpu_torch.text.qwen import (
+        QwenTextConfig,
+        init_qwen_params_random,
+    )
+
+    qcfg = QwenTextConfig()
+    if qwen_layers is not None:
+        qcfg = dataclasses.replace(qcfg, num_hidden_layers=qwen_layers)
+    qwen = init_qwen_params_random(qcfg, device=dev, dtype=torch.bfloat16,
+                                   seed=seed)
+    clip = init_clip_params_random(ClipTextConfig(), device=dev,
+                                   dtype=torch.float32, seed=seed + 1)
+    return Kandinsky5TextEmbedder(conf, qwen, clip, StandInTokenizer.qwen(),
+                                  StandInTokenizer.clip())
+
+
+def _cpu_copy(model):
+    """An fp32 CPU copy of a text tower built on the card."""
+    import torch
+
+    with torch.device("meta"):
+        out = type(model)(model.cfg, dtype=torch.float32)
+    out.load_state_dict({k: v.float().cpu() for k, v in
+                         model.state_dict().items()}, assign=True)
+    return out
+
+
+# the file in --out where phase 4 leaves the text embeddings (and prompt
+# expansions) of its requests for phase 5's ranks
+TEXT_FILE = "text_embeddings.pt"
+
+
+def _text_key(texts, kind):
+    return kind + "\x00" + "\x01".join(texts)
+
+
+class RecordingEmbedder:
+    """Passes ``encode`` and ``expand_prompt`` to ``inner`` and keeps each
+    result (CPU tensors) for :class:`ReplayEmbedder`."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.encodings, self.expansions = {}, {}
+
+    @property
+    def last_expansion(self):
+        return self.inner.last_expansion
+
+    def encode(self, texts, type_of_content="video"):
+        e = self.inner.encode(texts, type_of_content)
+        self.encodings[_text_key(texts, type_of_content)] = tuple(
+            t.cpu() for t in e)
+        return e
+
+    def expand_prompt(self, prompt):
+        out = self.inner.expand_prompt(prompt)
+        self.expansions[prompt] = out
+        return out
+
+    def save(self, path):
+        import torch
+
+        torch.save({"encodings": self.encodings,
+                    "expansions": self.expansions}, path)
+
+
+class ReplayEmbedder:
+    """Gives back what a :class:`RecordingEmbedder` saved at ``path``;
+    anything it did not record raises."""
+
+    def __init__(self, path):
+        import torch
+
+        d = torch.load(path)
+        self.encodings, self.expansions = d["encodings"], d["expansions"]
+
+    def encode(self, texts, type_of_content="video"):
+        from kandinsky5_tpu_torch.pipeline import TextEmbeddings
+
+        return TextEmbeddings(*self.encodings[_text_key(texts,
+                                                        type_of_content)])
+
+    def expand_prompt(self, prompt):
+        return self.expansions[prompt]
+
+
 def _rel(a, b):
     a, b = a.float().cpu(), b.float().cpu()
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
@@ -1383,6 +1581,78 @@ def phase_reference(dev, conf):
     return {"dit_rel_l2": e_dit, "nabla_dit_rel_l2": e_nabla,
             "int8_dit_rel_l2": e_int8, "vae_rel_l2": e_vae,
             "vae_fused_stream_rel_l2": e_fused, **tiled}
+
+
+# bf16 through two full-width Qwen layers keeps 2-3 significant digits, as
+# the DiT's cut-depth check does. CLIP runs fp32 on both sides and must stay
+# fp32 on the card: bf16 or TF32 products would read 1e-3 or more, so its
+# bound sits between that and the fp32 reading. A wrong crop, pooling
+# position or layout gives errors near 1.
+TEXT_BOUND = 2e-2
+CLIP_BOUND = 1e-4
+
+
+def phase_text(dev, conf):
+    """The text towers on the card against the same weights in fp32 on the
+    CPU (plain PyTorch on both sides: no kernel is on this path): Qwen2.5-VL
+    at full width (hidden 3584, 28 / 4 heads of 128, FF 18,944, vocab
+    152,064) with 2 of its 28 layers in bf16, CLIP ViT-L/14 at full width
+    and depth in fp32, on one prompt of each template through the stand-in
+    tokenizers. Qwen's cropped hidden states over the valid positions and
+    its prefill logits must agree within TEXT_BOUND, CLIP's pooled vector
+    within CLIP_BOUND (relative L2); two controls must fail their bound:
+    the crop one position early, and CLIP pooled at the last position."""
+    import torch
+
+    from kandinsky5_tpu_torch.text.clip import clip_text_forward
+    from kandinsky5_tpu_torch.text.qwen import _prefill, qwen_hidden_states
+
+    a = torch.ones((2, 8), device=dev, dtype=torch.bfloat16)
+    try:
+        fp32_out = torch.mm(a, a.t(), out_dtype=torch.float32).dtype == \
+            torch.float32
+    except (TypeError, RuntimeError):
+        fp32_out = False
+    log(f"  the towers' bf16 products return fp32 from one GEMM "
+        f"(torch.mm out_dtype): {fp32_out}")
+    emb = seeded_text_embedder(dev, conf.model.text_embedder, qwen_layers=2)
+    qwen_cpu, clip_cpu = _cpu_copy(emb.qwen), _cpu_copy(emb.clip)
+    out, bad = {}, []
+    for kind in ("video", "image"):
+        prompt = f"a smoke-test {kind} of a red fox running through snow"
+        ids, mask, crop = emb._qwen_tokenize([prompt], kind)
+        h = qwen_hidden_states(emb.qwen, ids, mask).float().cpu()
+        h_ref = qwen_hidden_states(qwen_cpu, ids, mask)
+        valid = mask[:, crop:]
+        e_h = _rel(h[:, crop:][valid], h_ref[:, crop:][valid])
+        c_h = _rel(h[:, crop - 1:-1][valid], h_ref[:, crop:][valid])
+        n = int(mask.sum())
+        _, logits = _prefill(emb.qwen, ids[:, :n], n + 1)
+        _, logits_ref = _prefill(qwen_cpu, ids[:, :n], n + 1)
+        e_l = _rel(logits, logits_ref)
+        cids, cmask = emb._clip_tokenize([prompt])
+        x, pooled = clip_text_forward(emb.clip, cids, cmask)
+        _, pooled_ref = clip_text_forward(clip_cpu, cids, cmask)
+        e_p = _rel(pooled, pooled_ref)
+        c_p = _rel(x[:, -1], pooled_ref)
+        log(f"  text, {kind} template ({n} of {ids.shape[1]} Qwen tokens "
+            f"valid, crop {crop}): Qwen hidden rel_l2 {e_h:.3e}, prefill "
+            f"logits {e_l:.3e} (tol {TEXT_BOUND:g}); CLIP pooled {e_p:.3e} "
+            f"(tol {CLIP_BOUND:g}); "
+            f"controls: crop at {crop - 1} {c_h:.3e}, CLIP pooled at the last "
+            f"position {c_p:.3e} (must fail)")
+        out[kind] = dict(qwen_hidden_rel_l2=e_h, qwen_logits_rel_l2=e_l,
+                         clip_pooled_rel_l2=e_p, control_crop_rel_l2=c_h,
+                         control_pool_rel_l2=c_p)
+        if max(e_h, e_l) >= TEXT_BOUND or e_p >= CLIP_BOUND:
+            bad.append(f"{kind}: the towers disagree with the CPU")
+        if c_h < TEXT_BOUND or c_p < CLIP_BOUND:
+            bad.append(f"{kind}: a control passed the bound")
+    del emb, qwen_cpu, clip_cpu
+    torch.cuda.empty_cache()
+    if bad:
+        raise Failure("text towers: " + "; ".join(bad))
+    return out
 
 
 # the tiled reference: tiles of 3 latent frames (9 px frames, stride 4) and
@@ -1545,12 +1815,14 @@ def _answer(pipe, requests, out_dir):
     from kandinsky5_tpu_torch.ops.nabla import record_density
 
     report, videos = [], {}
-    for name, prompt, tl, shape, fname in requests:
+    for name, prompt, tl, shape, fname, *expand in requests:
+        expand = bool(expand and expand[0])
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         with record_density() as kept:
             frames = pipe(prompt, time_length=tl, width=768,
-                          height=512, seed=42, expand_prompts=False,
+                          height=512, seed=42, expand_prompts=expand,
                           save_path=os.path.join(out_dir, fname))
         wall = time.perf_counter() - t
         tm = dict(pipe.timings)
@@ -1560,7 +1832,14 @@ def _answer(pipe, requests, out_dir):
         if not os.path.isfile(saved) or os.path.getsize(saved) == 0:
             raise Failure(f"{name}: nothing written at {saved}")
         density = _density(kept)
-        log(f"  {name}: frames {frames.shape} {frames.dtype}; denoise "
+        ms_token = (1e3 * tm["expand_s"] / tm["expand_tokens"]
+                    if tm["expand_tokens"] else None)
+        log(f"  {name}: frames {frames.shape} {frames.dtype}; text "
+            f"{tm['text_s']:.3f} s"
+            + (f" (expansion {tm['expand_tokens']} new tokens in "
+               f"{tm['expand_s']:.3f} s = {ms_token:.2f} ms/token)"
+               if expand else "")
+            + f"; denoise "
             f"{tm['denoise_s']:.3f} s ({tm['denoise_s'] / steps:.4f} s/step, "
             f"{steps} steps, cfg {tm['cfg']}); decode {tm['decode_s']:.3f} s; "
             f"wall {wall:.3f} s; peak memory {peak / 2**30:.2f} GiB; "
@@ -1574,7 +1853,12 @@ def _answer(pipe, requests, out_dir):
             raise Failure(f"{name}: non-finite latents")
         if float(frames.std()) == 0.0:
             raise Failure(f"{name}: constant frames")
-        report.append(dict(request=name, s_per_step=tm["denoise_s"] / steps,
+        if expand and not tm["expand_tokens"]:
+            raise Failure(f"{name}: the expansion made no token")
+        report.append(dict(request=name, wall_s=wall, text_s=tm["text_s"],
+                           expand_tokens=tm["expand_tokens"],
+                           expand_ms_per_token=ms_token,
+                           s_per_step=tm["denoise_s"] / steps,
                            denoise_s=tm["denoise_s"], decode_s=tm["decode_s"],
                            peak_gib=peak / 2**30,
                            nabla_density=density if kept else None))
@@ -1599,10 +1883,14 @@ def psnr(a, b) -> float:
 
 def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
                    out_dir: str):
-    """The 5 s path (image + video) and the 10 s path (one video), each
-    with the launch counts reset just before it and read just after, then
-    the decodes; returns the launches by path, the report and the 5 s
-    path video's tiled frames."""
+    """The 5 s path (image, its prompt expanded, + video) and the 10 s path
+    (one video), each with the launch counts reset just before it and read
+    just after, then the decodes, then the image request again through
+    ``offload=True``. Every request is encoded by the full-size seeded
+    Qwen2.5-VL-7B and CLIP behind the stand-in tokenizers; their
+    embeddings and expansions are saved in ``out_dir`` for phase 5.
+    Returns the launches by path, the report, the 5 s path video's tiled
+    frames and the seconds the text stage added."""
     import torch
 
     from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
@@ -1622,16 +1910,24 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     log(f"  built: DiT {n_params} params, VAE decoder; "
         f"{time.perf_counter() - t0:.1f} s")
     os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    towers = seeded_text_embedder(dev, conf5.model.text_embedder)
+    torch.cuda.synchronize()
+    text_added = time.perf_counter() - t0
+    log(f"  built: Qwen2.5-VL-7B text tower "
+        f"{sum(p.numel() for p in towers.qwen.parameters())} params (bf16), "
+        f"CLIP ViT-L/14 text {sum(p.numel() for p in towers.clip.parameters())}"
+        f" params (fp32), seeded, stand-in tokenizers; {text_added:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    embedder = RecordingEmbedder(towers)
 
     log(f"  5 s path ({os.path.basename(CONF5)}: {conf5.model.num_steps} "
         f"steps, guidance {conf5.model.guidance_weight}, dense attention)")
-    pipe5 = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae)
+    pipe5 = Kandinsky5T2VPipeline(dit, conf5, embedder, vae)
     latents = _keep_latents(pipe5, "5s")
     _kernels.reset_launches()
     bf16_video = _video("5s-path", seconds5, VIDEO_PROMPT)
-    report, videos = _answer(
-        pipe5, [("image", "a smoke-test image", 0, (1, 1, 512, 768, 3),
-                 "image.png"), bf16_video], out_dir)
+    report, videos = _answer(pipe5, [IMAGE_REQUEST, bf16_video], out_dir)
     launches5 = dict(_kernels.LAUNCHES)
     log(f"  kernel launches on the 5 s path: {launches5}")
     missing = [k for k in ("K1_flash_fixed", "K2_ff_mod", "K3_conv3d",
@@ -1644,7 +1940,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
         f"guidance {m10.guidance_weight}, attention {m10.attention.type} "
         f"P {m10.attention.P} window ({m10.attention.wT}, {m10.attention.wH},"
         f" {m10.attention.wW}))")
-    pipe10 = Kandinsky5T2VPipeline(dit, conf10, SeededEmbedder(), vae)
+    pipe10 = Kandinsky5T2VPipeline(dit, conf10, embedder, vae)
     _keep_latents(pipe10, "10s", latents)
     _kernels.reset_launches()
     video10 = _video("10s-path", seconds10)
@@ -1675,7 +1971,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
             ("b", dict(attn_impl="flash_int8_pipe", int8_linear=True),
              {"K7_flash_int8_pipe": n_attn, "K5_flash_int8": 0,
               "K1_flash_fixed": 0, "K2_ff_mod": 0})):
-        pipe = Kandinsky5T2VPipeline(dit, conf5, SeededEmbedder(), vae, **kw)
+        pipe = Kandinsky5T2VPipeline(dit, conf5, embedder, vae, **kw)
         _kernels.reset_launches()
         rep, vids = _answer(pipe, [_video(f"5s-int8-{tag}", seconds5,
                                           VIDEO_PROMPT)], out_dir)
@@ -1699,7 +1995,120 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     rep, dec_launches, tiled = phase_decodes(
         dev, conf5, vae, latents, videos[bf16_video[0]],
         videos10[video10[0]] if seconds10 == 10 else None)
-    return {**launches, **dec_launches}, report + rep, tiled
+    report += rep
+    embedder.save(os.path.join(out_dir, TEXT_FILE))
+    text_added += sum(r["text_s"] for r in report if "text_s" in r)
+    t0 = time.perf_counter()
+    report += text_options(towers, embedder, conf5, dit, vae, videos,
+                           report[0], out_dir)
+    text_added += time.perf_counter() - t0
+    return {**launches, **dec_launches}, report, tiled, text_added
+
+
+def text_timings(dev, conf):
+    """The full-size seeded towers alone: the encode of a video request's
+    caption and negative caption, and the expansion of its prompt on bf16
+    and on int8 decode weights, each timed by the host clock after a
+    synchronize, with its peak memory."""
+    import torch
+
+    from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE
+
+    emb = seeded_text_embedder(dev, conf.model.text_embedder)
+    out = {}
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        emb.encode([VIDEO_PROMPT], "video")
+        emb.encode([DEFAULT_NEGATIVE], "video")
+        torch.cuda.synchronize()
+        out[f"encode_pair_s_{rep}"] = time.perf_counter() - t
+    for int8 in (False, True):
+        emb.int8_expand = int8
+        torch.cuda.reset_peak_memory_stats()
+        emb.expand_prompt(VIDEO_PROMPT)
+        last = dict(emb.last_expansion)
+        last["ms_per_token"] = 1e3 * last["seconds"] / max(last["new_tokens"], 1)
+        last["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["expand_int8" if int8 else "expand_bf16"] = last
+    log(f"  towers alone: {out}")
+    return out
+
+
+# the 5 s path's image request: its prompt is expanded (the JAX default)
+IMAGE_REQUEST = ("image", "a smoke-test image", 0, (1, 1, 512, 768, 3),
+                 "image.png", True)
+
+
+def text_options(towers, embedder, conf5, dit, vae, videos, image_line,
+                 out_dir):
+    """The expansion on int8 decode weights (``int8_expand``), timed beside
+    the bf16 one; then the image request again through ``offload=True``:
+    its expansion and frames must equal the resident request's exactly
+    (offload only moves bytes; the PSNR is printed, not gated), and its
+    peak memory must be lower. The offload pipeline leaves the DiT, the VAE
+    and the towers in host memory."""
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    expanded = embedder.expansions[IMAGE_REQUEST[1]]
+    towers.int8_expand = True
+    t = time.perf_counter()
+    int8_text = towers.expand_prompt(IMAGE_REQUEST[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    last = towers.last_expansion
+    ms_token = 1e3 * last["seconds"] / max(last["new_tokens"], 1)
+    same = int8_text == expanded
+    log(f"  expansion on int8 decode weights: {last['new_tokens']} new "
+        f"tokens in {last['seconds']:.3f} s = {ms_token:.2f} ms/token "
+        f"(quantization and all {wall:.3f} s); bf16's "
+        f"{image_line['expand_ms_per_token']:.2f} ms/token; the same text as "
+        f"bf16's: {same} (not gated)")
+    towers.int8_expand = False
+    towers.qwen_int8 = None
+    torch.cuda.empty_cache()
+    out = [dict(request="expansion int8", expand_tokens=last["new_tokens"],
+                expand_ms_per_token=ms_token, same_text_as_bf16=same)]
+
+    pipe = Kandinsky5T2VPipeline(dit, conf5, towers, vae, offload=True)
+    torch.cuda.synchronize()
+    log(f"  offload=True: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "left on the card once the towers, the DiT and the VAE are in host "
+        "memory")
+    name, prompt, tl, shape, fname, _ = IMAGE_REQUEST
+    offload_texts = []
+    real_expand = towers.expand_prompt
+
+    def expand_prompt(p):
+        offload_texts.append(real_expand(p))
+        return offload_texts[-1]
+
+    towers.expand_prompt = expand_prompt
+    try:
+        rep, frames = _answer(pipe, [("image offload", prompt, tl, shape,
+                                      "image_offload.png", True)], out_dir)
+    finally:
+        del towers.expand_prompt
+    db = psnr(frames["image offload"], videos[name])
+    exact = bool(np.array_equal(frames["image offload"], videos[name]))
+    text_same = offload_texts == [expanded]
+    peak, resident = rep[0]["peak_gib"], image_line["peak_gib"]
+    log(f"  image offload: peak {peak:.2f} GiB against {resident:.2f} GiB "
+        f"with resident towers, DiT and VAE; expansion equal to the "
+        f"resident request's: {text_same}; frames equal: {exact} (PSNR "
+        f"{db:.2f} dB, printed only: offload moves bytes, so any difference "
+        f"is a fault)")
+    rep[0].update(frames_equal_resident=exact, expansion_equal_resident=
+                  text_same, resident_peak_gib=resident,
+                  psnr_vs_resident_db=db if math.isfinite(db) else None)
+    if not (peak < resident and exact and text_same):
+        raise Failure(f"offload: peak {peak:.2f} GiB (resident {resident:.2f}"
+                      f"), frames equal to the resident request's {exact} "
+                      f"(PSNR {db:.2f} dB), expansion equal {text_same}")
+    return out + rep
 
 
 def _keep_latents(pipe, key, store=None):
@@ -1969,7 +2378,8 @@ def _tp_forward_rank(tp, cfg_kw, controls, seed):
 
 def _tp_request_rank(tp, seconds, out_dir):
     """One rank of the tp = 2 pipeline answering the 5 s path's image and
-    video requests (prompts, seed, weights and VAE as phase 4's); rank 0
+    video requests (prompts, seed, weights and VAE as phase 4's, and phase
+    4's text embeddings and expansion, replayed from ``out_dir``); rank 0
     decodes (tiled) and writes."""
     import numpy as np
     import torch
@@ -1988,16 +2398,18 @@ def _tp_request_rank(tp, seconds, out_dir):
     if tp.rank == 0:
         vae = HunyuanVideoVAE(init_vae_params(device=tp.device,
                                               dtype=torch.bfloat16, seed=1))
-    pipe = Kandinsky5T2VPipeline(dit, conf, SeededEmbedder(), vae, tp=tp)
-    requests = [("tp2 image", "a smoke-test image", 0, (1, 1, 512, 768, 3),
-                 "tp2_image.png"), _video("tp2", seconds, VIDEO_PROMPT)]
+    pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
+        os.path.join(out_dir, TEXT_FILE)), vae, tp=tp)
+    _, prompt, _, shape, _, _ = IMAGE_REQUEST
+    requests = [("tp2 image", prompt, 0, shape, "tp2_image.png", True),
+                _video("tp2", seconds, VIDEO_PROMPT) + (False,)]
     report, frames = [], None
     _kernels.reset_launches()
-    for name, prompt, tl, shape, fname in requests:
+    for name, prompt, tl, shape, fname, expand in requests:
         torch.cuda.synchronize()
         t = time.perf_counter()
         frames = pipe(prompt, time_length=tl, width=768, height=512, seed=42,
-                      expand_prompts=False,
+                      expand_prompts=expand,
                       save_path=os.path.join(out_dir, fname))
         wall = time.perf_counter() - t
         tm = dict(pipe.timings)
@@ -2223,6 +2635,10 @@ def main() -> int:
     ap.add_argument("--int8", action="store_true",
                     help="build, then run only phase 2's K5, K7 and T5 cases "
                     "and print their readings (no smoke result)")
+    ap.add_argument("--text", action="store_true",
+                    help="run only phase 3's text check and time the "
+                    "full-size towers' encode and expansion, bf16 and int8 "
+                    "(no kernel is built; no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -2252,6 +2668,17 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
+    if args.text:
+        try:
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            readings = {"reference": phase_text(dev, conf5),
+                        "timings": text_timings(dev, conf5)}
+        except Failure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        log(gpu_line())
+        log(json.dumps(readings))
+        return 0
     try:
         log("phase 1: build")
         _kernels.build(force=True)
@@ -2318,13 +2745,20 @@ def main() -> int:
         log("phase 3: small-input reference (card kernels vs CPU plain, fp32)")
         t = time.perf_counter()
         phase_reference(dev, conf5)
-        log(f"  phase 3 {time.perf_counter() - t:.1f} s")
+        t_text = time.perf_counter()
+        text_ref = phase_text(dev, conf5)
+        t_text = time.perf_counter() - t_text
+        log(f"  phase 3 {time.perf_counter() - t:.1f} s (text towers "
+            f"{t_text:.1f} s)")
 
         log("phase 4: pipeline at full width")
         t = time.perf_counter()
-        launches, report, tiled = phase_pipeline(dev, conf5, conf10, seconds5,
-                                                 seconds10, args.out)
+        launches, report, tiled, text_added = phase_pipeline(
+            dev, conf5, conf10, seconds5, seconds10, args.out)
         log(f"  phase 4 {time.perf_counter() - t:.1f} s")
+        log(f"  the text stage added {t_text + text_added:.1f} s to the run "
+            f"(phase 3's text check {t_text:.1f} s; phase 4's towers, "
+            f"encodes, expansions and offload request {text_added:.1f} s)")
         torch.cuda.empty_cache()
 
         log("phase 5: tensor parallelism, 2 and 4 ranks sharing the card "
@@ -2375,7 +2809,8 @@ def main() -> int:
                 for r in rs]
         kernels.append(entry)
     log(gpu_line())
-    log(json.dumps({"kernels": kernels, "requests": report}))
+    log(json.dumps({"kernels": kernels, "requests": report,
+                    "text_reference": text_ref}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

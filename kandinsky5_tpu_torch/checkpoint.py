@@ -1,6 +1,7 @@
-"""Checkpoint loading and conversion for the PyTorch port (DiT and VAE).
+"""Checkpoint loading and conversion for the PyTorch port.
 
-Counterpart of the DiT and VAE halves of ``kandinsky5_tpu/checkpoint.py``.
+Counterpart of ``kandinsky5_tpu/checkpoint.py`` (DiT, VAE and the Qwen and
+CLIP text towers).
 The port's DiT carries the released checkpoint's names and torch layouts,
 so a released state dict loads with ``load_state_dict`` as it is. The VAE
 is a nested dict of tensors keyed like the HF checkpoint, with the causal
@@ -11,6 +12,12 @@ weights in torch (Cout, Cin, kT, kH, kW) and Linear weights in (out, in).
 converters in reverse: they take a JAX parameter pytree as numpy arrays and
 return a reference-layout state dict (a W8A8 DiT tree included). This is
 how the tests hand both packages the same weights.
+
+The text towers carry HF's names too: ``convert_qwen_state_dict`` and
+``convert_clip_state_dict`` only strip the HF prefixes and drop what the
+text path never reads (the vision tower, CLIP's projection and position
+ids); ``qwen_state_dict_from_jax`` and ``clip_state_dict_from_jax`` carry
+the JAX pytrees (layers stacked, linears (in, out)) to those names.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from kandinsky5_tpu_torch.utils import default_device
+from kandinsky5_tpu_torch.utils.io import load_sharded_safetensors
 
 _STACKED = ("text_transformer_blocks", "visual_transformer_blocks")
 # VAE modules that are plain Conv3d in the checkpoint (no causal wrapper)
@@ -128,16 +136,142 @@ def dit_from_state_dict(model: torch.nn.Module, state_dict: Mapping):
     return model
 
 
-def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A safetensors checkpoint (single file, or a directory of shards)."""
-    from safetensors.torch import load_file
+# one loader serves every checkpoint: a file, a directory of shards, or an
+# HF shard index
+load_state_dict_file = load_sharded_safetensors
 
-    if os.path.isdir(path):
-        files = sorted(os.path.join(path, f) for f in os.listdir(path)
-                       if f.endswith(".safetensors"))
-    else:
-        files = [path]
-    out: Dict[str, torch.Tensor] = {}
-    for f in files:
-        out.update(load_file(f))
+
+def _unstack(tree: Mapping, prefix: str, out: dict) -> None:
+    """Per-layer keys ``<prefix>.<i>.<path>`` from a pytree whose leaves
+    carry the layers on a leading axis."""
+    flat = _flatten(tree, "", {})
+    n = next(iter(flat.values())).shape[0]
+    for i in range(n):
+        for path, arr in flat.items():
+            out[f"{prefix}.{i}.{path}"] = arr[i]
+
+
+def _transpose_linears(out: dict, keep: str) -> dict:
+    """(in, out) -> (out, in) for every 2-D linear weight (dense or int8)
+    whose key does not contain ``keep``."""
+    for key, arr in out.items():
+        if key.endswith((".weight", ".weight_q")) and arr.ndim == 2 \
+                and keep not in key:
+            out[key] = np.ascontiguousarray(arr.T)
     return out
+
+
+def qwen_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """JAX Qwen pytree (numpy leaves; ``layers`` stacked; linears (in, out);
+    the dense tree or ``quantize_qwen_decode_params``' int8 tree) -> the
+    port's state dict (``layers.<i>.*``, linears (out, in))."""
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            _unstack(sub, "layers", out)
+        else:
+            _flatten(sub, key, out)
+    return _transpose_linears(out, "embed_tokens")
+
+
+def clip_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """JAX CLIP text pytree -> the port's state dict (HF names without the
+    ``text_model.`` prefix: ``encoder.layers.<i>.*``, linears (out, in))."""
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            _unstack(sub, "encoder.layers", out)
+        else:
+            _flatten(sub, key, out)
+    return _transpose_linears(out, "embedding")
+
+
+def convert_qwen_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """HF Qwen2.5-VL state dict -> the port's text tower names. Both HF
+    layouts (``model.language_model.*``, transformers >= 4.52, and
+    ``model.*`` before) lose their prefix; the vision tower is dropped (the
+    pipeline is text-only). Layouts stay as HF stores them."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        if "visual" in key:
+            continue
+        for prefix in ("model.language_model.", "language_model.", "model."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        out[key] = _as_tensor(value)
+    return out
+
+
+def convert_clip_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """HF CLIPTextModel state dict -> the port's CLIP names (no
+    ``text_model.`` prefix; ``text_projection`` and ``position_ids``
+    dropped)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        if key.startswith("text_model."):
+            key = key[len("text_model."):]
+        if key.startswith("text_projection") or "position_ids" in key:
+            continue
+        out[key] = _as_tensor(value)
+    return out
+
+
+def _as_tensor(value) -> torch.Tensor:
+    return value if torch.is_tensor(value) else torch.as_tensor(np.array(value))
+
+
+def _load_module(model: torch.nn.Module, state_dict: Mapping, device,
+                 dtype) -> torch.nn.Module:
+    """Fill ``model`` (built on the meta device) with ``state_dict``, each
+    tensor moved to ``device`` in ``dtype``."""
+    sd = {k: _as_tensor(v).to(device=device, dtype=dtype)
+          for k, v in state_dict.items()}
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model
+
+
+def qwen_from_state_dict(state_dict: Mapping, cfg=None, device=None,
+                         dtype=torch.bfloat16):
+    """The port's Qwen text tower from an HF (or already converted) state
+    dict, on ``device`` (the CUDA card when None) in ``dtype``; ``cfg``
+    None means the released 7B dims. A tied ``lm_head`` reads the
+    embedding table."""
+    from kandinsky5_tpu_torch.text.qwen import QwenTextConfig, QwenTextModel
+
+    device = default_device(device)
+    cfg = cfg or QwenTextConfig()
+    sd = convert_qwen_state_dict(state_dict)
+    if "lm_head.weight" not in sd and cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = sd["embed_tokens.weight"]
+    with torch.device("meta"):
+        model = QwenTextModel(cfg, dtype=dtype)
+    return _load_module(model, sd, device, dtype)
+
+
+def clip_from_state_dict(state_dict: Mapping, cfg=None, device=None,
+                         dtype=torch.float32):
+    """The port's CLIP text encoder from an HF (or already converted) state
+    dict, on ``device`` (the CUDA card when None); ``cfg`` None means
+    ViT-L/14."""
+    from kandinsky5_tpu_torch.text.clip import ClipTextConfig, ClipTextModel
+
+    device = default_device(device)
+    cfg = cfg or ClipTextConfig()
+    with torch.device("meta"):
+        model = ClipTextModel(cfg, dtype=dtype)
+    return _load_module(model, convert_clip_state_dict(state_dict), device,
+                        dtype)
+
+
+def load_vae_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The diffusers VAE checkpoint at ``path``: a file, or a directory
+    holding ``diffusion_pytorch_model.safetensors`` (directly or under
+    ``vae/``), else its safetensors shards."""
+    if os.path.isdir(path):
+        for cand in ("diffusion_pytorch_model.safetensors",
+                     os.path.join("vae", "diffusion_pytorch_model.safetensors")):
+            if os.path.exists(os.path.join(path, cand)):
+                path = os.path.join(path, cand)
+                break
+    return load_sharded_safetensors(path)

@@ -1,0 +1,107 @@
+"""Generation CLI of the PyTorch port, flag-compatible with the reference
+``test.py`` (and the JAX package's ``cli.py``).
+
+    python -m kandinsky5_tpu_torch.cli \\
+        --config kandinsky5_tpu_torch/configs/config_5s_distil.yaml \\
+        --prompt "A dog in red hat" --output_filename out.mp4
+
+It runs on the CUDA card unless ``--device cpu`` is given. ``--int8_linear``
+(W8A8 visual projections) and ``--int8_expand`` (int8 decode weights for
+prompt expansion) are flags here, where the JAX package reads environment
+variables. ``--tp N`` runs N ranks over ``torch.distributed`` (NCCL with a
+card per rank, else gloo), each building the pipeline from the same
+checkpoints; rank 0 decodes and writes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("kandinsky5_tpu_torch text-to-video generation")
+    p.add_argument("--config", type=str, default=None,
+                   help="path to a configs/*.yaml file")
+    p.add_argument("--prompt", type=str, default="A dog in red hat")
+    p.add_argument("--negative_prompt", type=str, default=None)
+    p.add_argument("--width", type=int, default=768, choices=[512, 768])
+    p.add_argument("--height", type=int, default=512, choices=[512, 768])
+    p.add_argument("--video_duration", type=int, default=5,
+                   help="seconds; 0 generates a single image")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--expand_prompt", type=int, default=1, choices=[0, 1])
+    p.add_argument("--sample_steps", type=int, default=None)
+    p.add_argument("--guidance_weight", type=float, default=None)
+    p.add_argument("--scheduler_scale", type=float, default=5.0)
+    p.add_argument("--output_filename", type=str, default="output.mp4")
+    p.add_argument("--cache_dir", type=str, default="./weights/")
+    p.add_argument("--offload", action="store_true")
+    p.add_argument("--magcache", action="store_true")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel width: that many rank processes")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the CUDA card)")
+    p.add_argument("--int8_linear", action="store_true",
+                   help="W8A8 projections in the DiT's visual blocks")
+    p.add_argument("--int8_expand", action="store_true",
+                   help="int8 decode weights for prompt expansion")
+    return p.parse_args(argv)
+
+
+def validate_args(args):
+    if args.width == args.height == 768:
+        raise ValueError(
+            "(768, 768) resolution is not supported; use (512, 512), "
+            "(512, 768) or (768, 512)")
+
+
+def generate(tp, args):
+    """Build the pipeline from ``args`` (as rank ``tp``, or alone when None)
+    and answer the one request; returns the path written (None off rank
+    0). Module-level, so that ``parallel.launch``'s ranks can import it."""
+    from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE, get_T2V_pipeline
+
+    pipe = get_T2V_pipeline(
+        conf_path=args.config, cache_dir=args.cache_dir,
+        offload=args.offload, magcache=args.magcache, tp=tp,
+        int8_linear=args.int8_linear, int8_expand=args.int8_expand,
+        device=args.device)
+    frames = pipe(
+        args.prompt,
+        time_length=args.video_duration,
+        width=args.width,
+        height=args.height,
+        seed=args.seed,
+        num_steps=args.sample_steps,
+        guidance_weight=args.guidance_weight,
+        scheduler_scale=args.scheduler_scale,
+        negative_caption=(DEFAULT_NEGATIVE if args.negative_prompt is None
+                          else args.negative_prompt),
+        expand_prompts=bool(args.expand_prompt),
+        save_path=args.output_filename,
+    )
+    return None if frames is None else pipe.timings["saved"][0]
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    validate_args(args)
+    start = time.time()
+    if args.tp is not None and args.tp > 1:
+        import torch
+
+        from kandinsky5_tpu_torch.parallel import launch
+
+        device = "cpu" if args.device == "cpu" else "cuda"
+        backend = ("nccl" if device == "cuda"
+                   and torch.cuda.device_count() >= args.tp else "gloo")
+        written = launch(generate, args.tp, backend, device, args=(args,))[0]
+    else:
+        written = generate(None, args)
+    print(f"generated in {time.time() - start:.1f}s -> {written}")
+    return written
+
+
+if __name__ == "__main__":
+    main()

@@ -219,3 +219,34 @@ def config_from_dict(raw: dict) -> Config:
     if raw.get("metrics", {}).get("resolution") is not None:
         cfg = dataclasses.replace(cfg, resolution=raw["metrics"]["resolution"])
     return cfg
+
+
+def get_default_conf(
+    dit_path: str = "",
+    vae_path: str = "./weights/vae/",
+    text_encoder_path: str = "./weights/text_encoder/",
+    text_encoder2_path: str = "./weights/text_encoder2/",
+) -> Config:
+    """The reference's default configuration (its ``get_default_conf``):
+    the sft-5s architecture, 50 steps, CFG 5.0, Qwen 3584 / 256 and CLIP
+    768 / 77, at the given checkpoint paths."""
+    return Config(
+        model=ModelConfig(
+            checkpoint_path=dit_path,
+            vae=VAEConfig(checkpoint_path=vae_path),
+            text_embedder=TextEmbedderConfig(
+                qwen=TextEncoderConfig(
+                    checkpoint_path=text_encoder_path, emb_size=3584,
+                    max_length=256),
+                clip=TextEncoderConfig(
+                    checkpoint_path=text_encoder2_path, emb_size=768,
+                    max_length=77),
+            ),
+            dit_params=DiTParams(),
+            attention=AttentionConfig(),
+            num_steps=50,
+            guidance_weight=5.0,
+        ),
+        metrics=MetricsConfig(scale_factor=(1.0, 2.0, 2.0)),
+        resolution=512,
+    )

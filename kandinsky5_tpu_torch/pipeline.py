@@ -22,25 +22,39 @@ of a tensor-parallel pipeline (the JAX package's ``get_T2V_pipeline(tp=)``
 mesh, tp axis only): the DiT is the rank's share (a full DiT is sharded
 here), every rank runs the same Euler loop on rank 0's noise, and rank 0
 alone decodes, tiled by default as the JAX package decodes on a mesh, and
-writes; the other ranks return None. ``get_T2V_pipeline`` and the Qwen/CLIP
-text towers wait for a later slice; the embedder passed in must offer
-``encode(texts, type_of_content) -> TextEmbeddings`` (and
-``expand_prompt`` when ``expand_prompts`` is set).
+writes; the other ranks return None.
+
+The text stage is the Qwen2.5-VL + CLIP embedder of ``text/embedder.py``
+(prompt expansion, then the encode of the captions and of the negative
+caption); any object with ``encode(texts, type_of_content) ->
+TextEmbeddings`` (and ``expand_prompt`` when ``expand_prompts`` is set)
+serves. ``offload=True`` keeps the towers (an ``nn.Module`` embedder), the
+DiT and the VAE in host memory and moves each to ``device`` (the DiT's
+device unless given) only for its stage (``utils/offload.py``).
+``timings`` holds ``text_s`` (expansion and encode), ``denoise_s`` and
+``decode_s`` of the last request. :func:`get_T2V_pipeline` builds the whole
+pipeline from reference-layout checkpoints and a YAML (or the default
+configuration), as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Callable, List, NamedTuple, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
-from kandinsky5_tpu_torch.config import Config
+from kandinsky5_tpu_torch.config import Config, get_default_conf, load_config
 from kandinsky5_tpu_torch.models.dit import quantize_dit_params
 from kandinsky5_tpu_torch.models.vae import DECODE_MODES
 from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS
 from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
+from kandinsky5_tpu_torch.text.embedder import TextEmbeddings
+from kandinsky5_tpu_torch.utils import default_device
+from kandinsky5_tpu_torch.utils.offload import ParamStore, staged
 
 DEFAULT_NEGATIVE = (
     "Static, 2D cartoon, cartoon, 2d animation, paintings, images, worst "
@@ -52,20 +66,11 @@ RESOLUTIONS = {512: [(512, 512), (512, 768), (768, 512)]}
 ATTN_IMPLS = ("auto", "flash", "dense", "flash_int8", "flash_int8_pipe")
 
 
-class TextEmbeddings(NamedTuple):
-    """What a text embedder hands the DiT: (B, L, in_text_dim) embeddings,
-    (B, in_text_dim2) pooled embedding, (B, L) bool validity mask."""
-
-    text_embeds: torch.Tensor
-    pooled_embed: torch.Tensor
-    mask: torch.Tensor
-
-
 class Kandinsky5T2VPipeline:
     def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
                  attn_impl: str = "auto", int8_linear: bool = False,
                  decode_mode: Optional[str] = None, int8_conv: bool = False,
-                 tp=None):
+                 tp=None, offload: bool = False, device=None):
         if tp is not None:
             if dit.tp is None:
                 from kandinsky5_tpu_torch.parallel.sharding import shard_dit
@@ -97,10 +102,30 @@ class Kandinsky5T2VPipeline:
             raise ValueError("Resolution can be only 512")
         # per-request timings of the last call (seconds)
         self.timings: dict = {}
+        self._device = (torch.device(device) if device is not None
+                        else None if dit is None
+                        else next(self.dit.parameters()).device)
+        self._stores = {}
+        if offload:
+            if not isinstance(text_embedder, nn.Module):
+                raise TypeError(
+                    "offload stages the text embedder with .to(): it must "
+                    "be an nn.Module (Kandinsky5TextEmbedder), got "
+                    f"{type(text_embedder).__name__}")
+            for stage, obj in (("text", text_embedder), ("dit", self.dit),
+                               ("vae", self.vae and self.vae.params)):
+                if obj is not None:
+                    self._stores[stage] = ParamStore(obj, self._device)
 
     @property
     def device(self) -> torch.device:
-        return next(self.dit.parameters()).device
+        return self._device
+
+    def _staged(self, stage: str):
+        """The stage's weights on the card for the ``with`` block (offload);
+        else nothing to do."""
+        store = self._stores.get(stage)
+        return staged(store) if store is not None else contextlib.nullcontext()
 
     def _spec(self, num_steps, guidance_weight, scheduler_scale) -> DenoiseSpec:
         att = self.conf.model.attention
@@ -165,11 +190,23 @@ class Kandinsky5T2VPipeline:
         type_of_content = "image" if time_length == 0 else "video"
 
         captions = [text] if isinstance(text, str) else list(text)
-        if expand_prompts:
-            captions = [self.expand_prompt(c) for c in captions]
-        batch = len(captions)
-        cond = self._encode(captions, type_of_content)
-        uncond = self._encode([negative_caption] * batch, type_of_content)
+        _sync(self.device)
+        t_text = time.perf_counter()
+        expansion = {"expand_s": 0.0, "expand_tokens": 0}
+        with self._staged("text"):
+            if expand_prompts:
+                expanded = []
+                for c in captions:
+                    expanded.append(self.expand_prompt(c))
+                    last = getattr(self.text_embedder, "last_expansion", {})
+                    expansion["expand_s"] += last.get("seconds", 0.0)
+                    expansion["expand_tokens"] += last.get("new_tokens", 0)
+                captions = expanded
+            batch = len(captions)
+            cond = self._encode(captions, type_of_content)
+            uncond = self._encode([negative_caption] * batch, type_of_content)
+            _sync(self.device)
+        text_s = time.perf_counter() - t_text
 
         latent_shape = (batch, num_frames, height // 8, width // 8, 16)
         spec = self._spec(num_steps, guidance_weight, scheduler_scale)
@@ -178,24 +215,28 @@ class Kandinsky5T2VPipeline:
             def on_step(i):
                 print(f"denoise step {i + 1}/{num_steps}", flush=True)
 
-        _sync(self.device)
-        if self.tp is not None:
-            self.tp.reset_stats()
-        t0 = time.perf_counter()
-        latents = generate_latents(self.dit, spec, latent_shape, cond, uncond,
-                                   seed=seed, noise=noise, on_step=on_step)
-        finite = bool(torch.isfinite(latents).all())
-        t1 = time.perf_counter()
-        self.timings = {"denoise_s": t1 - t0, "steps": num_steps,
-                        "cfg": spec.use_cfg, "latents_finite": finite}
+        with self._staged("dit"):
+            _sync(self.device)
+            if self.tp is not None:
+                self.tp.reset_stats()
+            t0 = time.perf_counter()
+            latents = generate_latents(self.dit, spec, latent_shape, cond,
+                                       uncond, seed=seed, noise=noise,
+                                       on_step=on_step)
+            finite = bool(torch.isfinite(latents).all())
+            t1 = time.perf_counter()
+        self.timings = {"text_s": text_s, **expansion, "denoise_s": t1 - t0,
+                        "steps": num_steps, "cfg": spec.use_cfg,
+                        "latents_finite": finite}
         if self.tp is not None:
             self.timings.update(all_reduce_s=self.tp.seconds,
                                 all_reduce_calls=self.tp.calls,
                                 all_reduce_bytes=self.tp.bytes)
             if self.tp.rank != 0:
                 return None
+        t2 = time.perf_counter()
         frames = self.decode_latents(latents)
-        self.timings["decode_s"] = time.perf_counter() - t1
+        self.timings["decode_s"] = time.perf_counter() - t2
         if save_path is not None:
             self.timings["saved"] = self.save(frames, save_path, time_length)
         return frames
@@ -211,11 +252,12 @@ class Kandinsky5T2VPipeline:
                        mode: Optional[str] = None) -> np.ndarray:
         """(B, T', H', W', 16) -> (B, T, H, W, 3) uint8, by the decode
         ``mode`` names, else the pipeline's ``decode_mode``."""
-        z = latents / self.vae.scaling_factor
-        video = self.vae.decode(z, mode=mode or self.decode_mode)
-        video = video.float().clamp(-1.0, 1.0)
-        video = ((video + 1.0) * 127.5).to(torch.uint8)
-        return video.cpu().numpy()
+        with self._staged("vae"):
+            z = latents / self.vae.scaling_factor
+            video = self.vae.decode(z, mode=mode or self.decode_mode)
+            video = video.float().clamp(-1.0, 1.0)
+            video = ((video + 1.0) * 127.5).to(torch.uint8)
+            return video.cpu().numpy()
 
     def save(self, frames: np.ndarray, save_path: Union[str, List[str]],
              time_length: int) -> List[str]:
@@ -237,3 +279,82 @@ class Kandinsky5T2VPipeline:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def get_T2V_pipeline(
+    device_map=None,
+    resolution: int = 512,
+    cache_dir: str = "./weights/",
+    dit_path: Optional[str] = None,
+    text_encoder_path: Optional[str] = None,
+    text_encoder2_path: Optional[str] = None,
+    vae_path: Optional[str] = None,
+    conf_path: Optional[str] = None,
+    offload: bool = False,
+    magcache: bool = False,
+    tp=None,
+    dtype=torch.bfloat16,
+    int8_linear: bool = False,
+    int8_expand: bool = False,
+    device=None,
+) -> Kandinsky5T2VPipeline:
+    """The whole pipeline from reference-layout checkpoints, as the JAX
+    package's ``get_T2V_pipeline``: the YAML at ``conf_path``, else the
+    default configuration over ``cache_dir``'s layout (or the paths given);
+    the DiT safetensors, the diffusers VAE, the Qwen2.5-VL and CLIP
+    directories (weights, ``config.json``, tokenizer). Built on ``device``,
+    the CUDA card when None (with ``offload``, loaded into host memory and
+    moved to ``device`` stage by stage); ``dtype`` for the DiT, the VAE and Qwen (CLIP
+    stays fp32). ``device_map`` is accepted and ignored, as in the JAX
+    package. ``tp`` is this rank's
+    :class:`~kandinsky5_tpu_torch.parallel.TensorParallel` (each rank calls
+    this; the DiT is sharded over the group). ``int8_linear`` quantizes the
+    visual blocks' projections to W8A8, ``int8_expand`` runs prompt
+    expansion on int8 decode weights: both arguments, where the JAX package
+    reads environment flags."""
+    if magcache:
+        raise NotImplementedError(
+            "MagCache is not ported yet (ROADMAP.md, queue 1, item 4)")
+    if tp is not None and not hasattr(tp, "rank"):
+        raise TypeError("tp takes a TensorParallel group (one process per "
+                        "rank; parallel.launch), not a width")
+    if resolution not in RESOLUTIONS:
+        raise ValueError("Resolution can be only 512")
+    from kandinsky5_tpu_torch.checkpoint import (
+        dit_from_state_dict,
+        load_state_dict_file,
+        load_vae_state_dict,
+        vae_params_from_state_dict,
+    )
+    from kandinsky5_tpu_torch.models.dit import DiffusionTransformer3D
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE
+    from kandinsky5_tpu_torch.text.embedder import Kandinsky5TextEmbedder
+
+    device = default_device(device if tp is None else tp.device)
+    # with offload every checkpoint loads into host memory, so the card never
+    # holds all three; a rank's DiT share is cut on its own device
+    host = torch.device("cpu") if offload else device
+    if conf_path is not None:
+        conf = load_config(conf_path)
+    else:
+        conf = get_default_conf(
+            dit_path or f"{cache_dir}/model/kandinsky5lite_t2v_sft_5s.safetensors",
+            vae_path or f"{cache_dir}/vae/",
+            text_encoder_path or f"{cache_dir}/text_encoder/",
+            text_encoder2_path or f"{cache_dir}/text_encoder2/")
+    with torch.device("meta"):
+        dit = DiffusionTransformer3D(conf.model.dit_params, dtype=dtype)
+    dit = dit.to_empty(device=host if tp is None else device)
+    dit = dit_from_state_dict(dit, load_state_dict_file(
+        conf.model.checkpoint_path))
+    vae = None
+    if tp is None or tp.rank == 0:
+        vae = HunyuanVideoVAE(vae_params_from_state_dict(
+            load_vae_state_dict(conf.model.vae.checkpoint_path),
+            device=host, dtype=dtype), dtype=dtype)
+    text_embedder = Kandinsky5TextEmbedder.from_pretrained(
+        conf.model.text_embedder, dtype=dtype, device=host,
+        int8_expand=int8_expand)
+    return Kandinsky5T2VPipeline(dit, conf, text_embedder, vae,
+                                 int8_linear=int8_linear, tp=tp,
+                                 offload=offload, device=device)

@@ -1,15 +1,46 @@
-"""Video and image writers for the PyTorch port.
+"""Checkpoint shard loading and the video and image writers of the port.
 
-Counterpart of the media half of ``kandinsky5_tpu/utils/io.py``: mp4 at
-24 fps through the native writer and ffmpeg, a raw ``.y4m`` beside the
-requested path where no encoder exists, and stills through Pillow.
+Counterpart of ``kandinsky5_tpu/utils/io.py``: safetensors checkpoints as
+one file, a directory of shards or an HF shard index; mp4 at 24 fps through
+the native writer and ffmpeg, a raw ``.y4m`` beside the requested path where
+no encoder exists, and stills through Pillow.
 """
 
 from __future__ import annotations
 
+import json
+import os
+from typing import Dict
+
 import numpy as np
+import torch
 
 from kandinsky5_tpu_torch.utils.native_video import write_video_native
+
+
+def load_sharded_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A safetensors checkpoint as CPU tensors in their stored dtype: one
+    file, a directory with an HF shard index
+    (``model.safetensors.index.json``: the shards it names), or a directory
+    of ``*.safetensors`` files. No fp32 copy is made: a bf16 7B checkpoint
+    stays 15 GB."""
+    from safetensors.torch import load_file
+
+    if os.path.isfile(path):
+        files = [path]
+    else:
+        index = os.path.join(path, "model.safetensors.index.json")
+        if os.path.exists(index):
+            with open(index) as f:
+                names = sorted(set(json.load(f)["weight_map"].values()))
+            files = [os.path.join(path, n) for n in names]
+        else:
+            files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                           if f.endswith(".safetensors"))
+    out: Dict[str, torch.Tensor] = {}
+    for file in files:
+        out.update(load_file(file))
+    return out
 
 
 def write_video(path: str, frames: np.ndarray, fps: int = 24,

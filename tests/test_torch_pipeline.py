@@ -112,6 +112,10 @@ def test_import_leaves_jax_out_and_cpu_never_launches():
         "import kandinsky5_tpu_torch\n"
         "import kandinsky5_tpu_torch.pipeline, kandinsky5_tpu_torch.checkpoint\n"
         "import kandinsky5_tpu_torch.models.vae_stream\n"
+        "import kandinsky5_tpu_torch.text, kandinsky5_tpu_torch.cli\n"
+        "import kandinsky5_tpu_torch.utils.offload\n"
+        "from kandinsky5_tpu_torch.text import clip, embedder, qwen\n"
+        "assert 'transformers' not in sys.modules\n"
         "from kandinsky5_tpu_torch.ops import _kernels\n"
         "from kandinsky5_tpu_torch.ops.flash import flash_attention\n"
         "from kandinsky5_tpu_torch.ops.conv import causal_conv3d_fused\n"
@@ -125,8 +129,18 @@ def test_import_leaves_jax_out_and_cpu_never_launches():
         "v = torch.zeros(1, 128)\n"
         "fused_ff_modulated(torch.randn(1, 4, 128), v, v,"
         " torch.randn(256, 128), torch.randn(128, 256), v)\n"
+        "qc = qwen.QwenTextConfig(vocab_size=32, hidden_size=64,"
+        " intermediate_size=64, num_hidden_layers=1, num_attention_heads=4,"
+        " num_key_value_heads=2, head_dim=16)\n"
+        "qm = qwen.init_qwen_params_random(qc, device='cpu')\n"
+        "qwen.qwen_generate(qm, [[1, 2, 3]], max_new_tokens=2)\n"
+        "cc = clip.ClipTextConfig(vocab_size=32, hidden_size=32,"
+        " intermediate_size=64, num_hidden_layers=1, num_attention_heads=2)\n"
+        "clip.clip_pooled(clip.init_clip_params_random(cc, device='cpu'),"
+        " [[1, 31]], [[1, 1]])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'kandinsky5_tpu'))\n"
+        " ('jax', 'jaxlib', 'kandinsky5_tpu', 'transformers', 'tokenizers',"
+        " 'safetensors'))\n"
         "assert not bad, bad\n"
         "assert all(n == 0 for n in _kernels.LAUNCHES.values()), _kernels.LAUNCHES\n"
         "print('ok')\n")
@@ -174,9 +188,25 @@ def test_nabla_config_rejects_tpu_modes():
 
 def test_constructors_default_to_the_card(monkeypatch):
     """The entry points build on the CUDA card unless told otherwise:
-    without one, ``device=None`` raises and names ``device="cpu"``."""
-    from kandinsky5_tpu_torch.checkpoint import vae_params_from_state_dict
+    without one, ``device=None`` raises and names ``device="cpu"`` (the
+    DiT, the VAE, the text towers, the embedder and ``get_T2V_pipeline``)."""
+    from kandinsky5_tpu_torch.checkpoint import (
+        clip_from_state_dict,
+        qwen_from_state_dict,
+        vae_params_from_state_dict,
+    )
+    from kandinsky5_tpu_torch.config import TextEmbedderConfig
     from kandinsky5_tpu_torch.models.dit import init_dit_params
+    from kandinsky5_tpu_torch.pipeline import get_T2V_pipeline
+    from kandinsky5_tpu_torch.text.clip import (
+        ClipTextConfig,
+        init_clip_params_random,
+    )
+    from kandinsky5_tpu_torch.text.embedder import Kandinsky5TextEmbedder
+    from kandinsky5_tpu_torch.text.qwen import (
+        QwenTextConfig,
+        init_qwen_params_random,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = DiTParams(in_visual_dim=4, out_visual_dim=4, in_text_dim=8,
@@ -186,7 +216,14 @@ def test_constructors_default_to_the_card(monkeypatch):
     for build in (lambda: fast_init_dit_params(cfg),
                   lambda: init_dit_params(cfg),
                   lambda: init_vae_params(),
-                  lambda: vae_params_from_state_dict({})):
+                  lambda: vae_params_from_state_dict({}),
+                  lambda: init_qwen_params_random(QwenTextConfig()),
+                  lambda: init_clip_params_random(ClipTextConfig()),
+                  lambda: qwen_from_state_dict({}),
+                  lambda: clip_from_state_dict({}),
+                  lambda: Kandinsky5TextEmbedder.from_pretrained(
+                      TextEmbedderConfig()),
+                  lambda: get_T2V_pipeline()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert next(fast_init_dit_params(cfg, device="cpu").parameters()).is_cuda \

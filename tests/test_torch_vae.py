@@ -119,3 +119,60 @@ def test_conv3d_stream_chunks_equal_one_shot_conv():
     np.testing.assert_allclose(to_np(torch.cat(outs, dim=1)),
                                np.concatenate(jouts, axis=1), rtol=1e-4,
                                atol=1e-4)
+
+
+def _psnr(a, b, max_val):
+    """PSNR in dB (the JAX package's ``utils.metrics.psnr``)."""
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(
+        20.0 * np.log10(max_val) - 10.0 * np.log10(mse))
+
+
+def _untiled(params, z):
+    zq = vae_mod.conv1x1(params["post_quant_conv"], torch.from_numpy(z))
+    return to_np(decoder_forward(params["decoder"], zq))
+
+
+def test_streaming_vs_untiled_psnr(vae_pair):
+    """The port's stream decode in disjoint chunks of 2 latent frames
+    against its one-shot untiled decoder, on the latent and weights of the
+    JAX package's test of the same name (tests/test_vae_stream.py) and with
+    its bound: only the per-chunk GroupNorm statistics and the finite
+    attention window differ."""
+    _, _, params = vae_pair
+    z = np.asarray(jax.random.normal(jax.random.PRNGKey(4),
+                                     (1, 7, 8, 8, 16))) * 0.5
+    full = _untiled(params, z)
+    out = to_np(streaming_decode(params, torch.from_numpy(z), chunk_lat=2))
+    assert out.shape == full.shape == (1, 25, 64, 64, 3)
+    p = _psnr(out, full, float(full.max() - full.min()))
+    print(f"port stream-vs-untiled PSNR: {p:.2f} dB")
+    assert p > 25.0, p
+
+
+def test_streaming_vs_tiled_psnr(vae_pair):
+    """The port's stream and tiled decodes (temporal tiles of 17 frames,
+    stride 8) against each other and against the untiled decoder, with the
+    JAX test's bounds: stream-tiled > 20 dB, stream-untiled > 30 dB, and the
+    stream at least as faithful to the untiled network as tiling, less
+    3 dB."""
+    _, _, params = vae_pair
+    vae = HunyuanVideoVAE(params, dtype=torch.float32)
+    z = np.asarray(jax.random.normal(jax.random.PRNGKey(5),
+                                     (1, 7, 8, 8, 16))) * 0.5
+    vae._apply_tiling((17, 64, 64), (8, 64, 64))
+    tiled = to_np(vae.decode(torch.from_numpy(z), opt_tiling=False,
+                             mode="tiled"))
+    stream = to_np(vae.decode(torch.from_numpy(z), opt_tiling=False,
+                              mode="stream"))
+    untiled = _untiled(params, z)
+    assert stream.shape == tiled.shape == untiled.shape
+    rng = float(tiled.max() - tiled.min())
+    p_st = _psnr(stream, tiled, rng)
+    p_su = _psnr(stream, untiled, rng)
+    p_tu = _psnr(tiled, untiled, rng)
+    print(f"port stream-vs-tiled {p_st:.2f} dB; stream-vs-untiled "
+          f"{p_su:.2f} dB; tiled-vs-untiled {p_tu:.2f} dB")
+    assert p_st > 20.0, p_st
+    assert p_su > 30.0, p_su
+    assert p_su > p_tu - 3.0, (p_su, p_tu)
