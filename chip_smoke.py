@@ -14,6 +14,9 @@
                                              # only
     python3 chip_smoke.py --text             # phase 3's text check and the
                                              # full-size towers' timings only
+    python3 chip_smoke.py --serve [--seconds 10]
+                                             # phase 6 alone, on freshly
+                                             # built models
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -128,7 +131,37 @@ Phases, each of which must pass (any failure exits nonzero):
                (gloo through the host, 2 ranks on one card, not a
                multi-GPU number) and the video's PSNR against phase 4's
                tiled decode of the same request. A failed rank fails the
-               run.
+               run;
+  6. serving — on phase 4's DiT, VAE and towers (moved back to the card)
+               under config_5s_sft.yaml (50 steps, guidance 5.0, its MagCache
+               ratios): the 1 s video (25 frames, 10,752 tokens, batched CFG,
+               no expansion) without and with MagCache, the launches inside
+               the visual block stack counted apart: with MagCache K1 and K2
+               there must be exactly 24/50 of the run without it, and the
+               text blocks' K1 launches equal; denoise seconds, their ratio
+               and the frame PSNR between the two are printed (random
+               weights: not gated). With ``--seconds 10`` also
+               config_10s_sft.yaml with MagCache on the 2 s video
+               (sequential CFG), K6 exactly 32 launches per call that runs
+               its visual blocks. Then resume: a state file of another seed
+               must not be taken (the request starts at step 0), and the
+               MagCache request stopped after 2 chunks of 4 steps must
+               resume at step 8 through the pipeline's ``checkpoint_path``
+               to latents and frames bit-equal to the uninterrupted run,
+               its state file removed. Then ``serve.GenerationServer`` over
+               that pipeline on 127.0.0.1 (a free port): two unseeded image
+               requests within the batch window must run as one batch of
+               two; a seeded image request alone, bit-equal to the same
+               request made through the pipeline directly; a request at an
+               unsupported size must end in error with the server still
+               answering, and a later request done; any other error fails
+               the run; queued and generation seconds per job are printed.
+               Last, the parity consumer (``tools/parity_check.run_ours``)
+               on a dump of the direct request (its noise, its
+               conditioning packed as the reference packs it, latents and
+               tiled frames), encoding with the towers at the pipeline's
+               default scheduler scale, must read the towers' error 0 and
+               give bit-equal latents and frames.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -136,6 +169,7 @@ The last two stdout lines are the kernels' JSON summary, then
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1873,12 +1907,34 @@ def _video(tag, seconds, prompt=None):
             (1, frames, 512, 768, 3), f"{tag}_video_{seconds}s.mp4")
 
 
-def psnr(a, b) -> float:
-    """PSNR in dB of uint8 frames ``a`` against ``b``."""
-    import numpy as np
+def build_models(dev, conf5):
+    """The full 2B DiT (uniform +-0.02 from seed 0), the full VAE decoder
+    and the full-size seeded towers on ``dev``; returns them and the
+    seconds the towers took."""
+    import torch
 
-    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
-    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+
+    t0 = time.perf_counter()
+    dit = fast_init_dit_params(conf5.model.dit_params, device=dev,
+                               dtype=torch.bfloat16, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                          seed=1))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in dit.parameters())
+    log(f"  built: DiT {n_params} params, VAE decoder; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    towers = seeded_text_embedder(dev, conf5.model.text_embedder)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    log(f"  built: Qwen2.5-VL-7B text tower "
+        f"{sum(p.numel() for p in towers.qwen.parameters())} params (bf16), "
+        f"CLIP ViT-L/14 text {sum(p.numel() for p in towers.clip.parameters())}"
+        f" params (fp32), seeded, stand-in tokenizers; {text_s:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return dit, vae, towers, text_s
 
 
 def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
@@ -1890,35 +1946,18 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     Qwen2.5-VL-7B and CLIP behind the stand-in tokenizers; their
     embeddings and expansions are saved in ``out_dir`` for phase 5.
     Returns the launches by path, the report, the 5 s path video's tiled
-    frames and the seconds the text stage added."""
+    frames, the seconds the text stage added and the DiT, VAE and towers
+    (left in host memory by the offload request) for phase 6."""
     import torch
 
-    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
-    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
     from kandinsky5_tpu_torch.ops import _kernels
     from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+    from kandinsky5_tpu_torch.utils.metrics import psnr
 
     if conf10.model.dit_params != conf5.model.dit_params:
         raise Failure("the 5 s and 10 s configs name different DiTs")
-    t0 = time.perf_counter()
-    dit = fast_init_dit_params(conf5.model.dit_params, device=dev,
-                               dtype=torch.bfloat16, seed=0)
-    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
-                                          seed=1))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in dit.parameters())
-    log(f"  built: DiT {n_params} params, VAE decoder; "
-        f"{time.perf_counter() - t0:.1f} s")
+    dit, vae, towers, text_added = build_models(dev, conf5)
     os.makedirs(out_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    towers = seeded_text_embedder(dev, conf5.model.text_embedder)
-    torch.cuda.synchronize()
-    text_added = time.perf_counter() - t0
-    log(f"  built: Qwen2.5-VL-7B text tower "
-        f"{sum(p.numel() for p in towers.qwen.parameters())} params (bf16), "
-        f"CLIP ViT-L/14 text {sum(p.numel() for p in towers.clip.parameters())}"
-        f" params (fp32), seeded, stand-in tokenizers; {text_added:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     embedder = RecordingEmbedder(towers)
 
     log(f"  5 s path ({os.path.basename(CONF5)}: {conf5.model.num_steps} "
@@ -2002,7 +2041,8 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     report += text_options(towers, embedder, conf5, dit, vae, videos,
                            report[0], out_dir)
     text_added += time.perf_counter() - t0
-    return {**launches, **dec_launches}, report, tiled, text_added
+    return ({**launches, **dec_launches}, report, tiled, text_added,
+            (dit, vae, towers))
 
 
 def text_timings(dev, conf):
@@ -2052,6 +2092,7 @@ def text_options(towers, embedder, conf5, dit, vae, videos, image_line,
     import torch
 
     from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+    from kandinsky5_tpu_torch.utils.metrics import psnr
 
     expanded = embedder.expansions[IMAGE_REQUEST[1]]
     towers.int8_expand = True
@@ -2219,6 +2260,7 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
 
     from kandinsky5_tpu_torch.ops import _kernels
     from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+    from kandinsky5_tpu_torch.utils.metrics import psnr
 
     pipe = Kandinsky5T2VPipeline(None, conf5, None, vae)
     pipe_i8 = Kandinsky5T2VPipeline(None, conf5, None, vae, int8_conv=True)
@@ -2532,6 +2574,7 @@ def phase_tp(dev, conf5, seconds5: int, tiled_frames, out_dir: str):
     the 5 s path's image and video requests; the video's frames against
     phase 4's tiled decode of the same request (PSNR)."""
     from kandinsky5_tpu_torch.parallel import launch
+    from kandinsky5_tpu_torch.utils.metrics import psnr
 
     launches, report, failed = tp_forwards(dev, conf5.model.dit_params)
     if failed:
@@ -2603,6 +2646,409 @@ def tp_seed_study(dev, seeds) -> int:
     return 1 if failed else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving — MagCache, resumable denoise, the HTTP server and the
+# parity-gate consumer on phase 4's DiT, VAE and towers
+# ---------------------------------------------------------------------------
+
+CONF5_SFT = "config_5s_sft.yaml"
+CONF10_SFT = "config_10s_sft.yaml"
+# the served image requests: unseeded ones batch, seeded ones run alone
+SERVE_PROMPTS = ("a served image", "another served image")
+SERVE_SEEDED = ("a seeded served image", 7)
+SERVE_BAD_WIDTH = 1024
+# the resumable request stops after this many chunks of 4 steps
+RESUME_CHUNKS = 2
+
+
+@contextlib.contextmanager
+def visual_launches():
+    """The kernel launches made inside the DiT's visual block stack, by
+    kernel, while the block is open (the text blocks, the prologue and the
+    epilogue are outside it)."""
+    from kandinsky5_tpu_torch import sampling
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    counts = {k: 0 for k in _kernels.LAUNCHES}
+    real = sampling.dit_visual_blocks
+
+    def blocks(*args, **kw):
+        before = dict(_kernels.LAUNCHES)
+        out = real(*args, **kw)
+        for k, n in _kernels.LAUNCHES.items():
+            counts[k] += n - before[k]
+        return out
+
+    sampling.dit_visual_blocks = blocks
+    try:
+        yield counts
+    finally:
+        sampling.dit_visual_blocks = real
+
+
+def _serve_request(pipe, name, prompt, seconds, seed, out_dir, fname,
+                   **kw):
+    """One request through ``pipe`` (no expansion unless asked), its frames
+    checked; returns (frames, timings)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = pipe(prompt, time_length=seconds, width=768, height=512,
+                  seed=seed, save_path=os.path.join(out_dir, fname), **kw)
+    wall = time.perf_counter() - t
+    tm = dict(pipe.timings, wall_s=wall)
+    frames_want = 1 if seconds == 0 else 4 * (seconds * 24 // 4) + 1
+    if (frames.shape != (1, frames_want, 512, 768, 3)
+            or frames.dtype != np.uint8 or not tm["latents_finite"]
+            or float(frames.std()) == 0.0):
+        raise Failure(f"{name}: frames {frames.shape} {frames.dtype}, "
+                      f"finite latents {tm['latents_finite']}")
+    log(f"  {name}: denoise {tm['denoise_s']:.3f} s ({tm['steps']} steps, "
+        f"cfg {tm['cfg']}, MagCache {tm['magcache']}); decode "
+        f"{tm['decode_s']:.3f} s; wall {wall:.3f} s")
+    return frames, tm
+
+
+def _magcache_gate(name, conf, spec, launches, visual, off=None):
+    """Hold one MagCache run's launches against its schedule: the visual
+    blocks run on the steps where a branch runs (every branch of a batched
+    call, or each branch's call when sequential), the text blocks on every
+    call. ``off`` is the visual and total launches of the same request
+    without MagCache, when there is one. Returns the counts checked."""
+    from kandinsky5_tpu_torch.sampling import skip_schedule
+
+    skip = skip_schedule(spec, conf.magcache)
+    cfg = conf.model.dit_params
+    steps = spec.num_steps
+    if spec.use_cfg and spec.sequential_cfg:
+        calls, vis_calls = 2 * steps, int((~skip).sum())
+    else:
+        branches = skip[:, :1 + spec.use_cfg]
+        calls, vis_calls = steps, int((~branches.all(axis=1)).sum())
+    attn = ("K6_sparse_nabla" if spec.attention_type == "nabla"
+            else "K1_flash_fixed")
+    text_k1 = launches["K1_flash_fixed"] - visual["K1_flash_fixed"]
+    want = {attn: cfg.num_visual_blocks * vis_calls,
+            "text K1": cfg.num_text_blocks * calls}
+    got = {attn: visual[attn], "text K1": text_k1}
+    if spec.attention_type != "nabla":
+        want["K2_ff_mod"] = cfg.num_visual_blocks * vis_calls
+        got["K2_ff_mod"] = visual["K2_ff_mod"]
+    if off is not None:
+        vis_off, all_off = off
+        for k in (attn, "K2_ff_mod"):
+            # exactly vis_calls / steps of the run without MagCache
+            if visual[k] * steps != vis_off[k] * vis_calls:
+                raise Failure(f"{name}: {k} in the visual blocks {visual[k]}"
+                              f", not {vis_calls}/{steps} of {vis_off[k]}")
+        if text_k1 != all_off["K1_flash_fixed"] - vis_off["K1_flash_fixed"]:
+            raise Failure(f"{name}: the text blocks launched K1 {text_k1} "
+                          "times, not as often as without MagCache")
+    wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+    log(f"  {name}: visual blocks ran on {vis_calls} of {calls} DiT calls; "
+        f"launches {got} (want {want})")
+    if wrong:
+        raise Failure(f"{name}: launches (got, want) {wrong}")
+    return {"dit_calls": calls, "visual_calls": vis_calls, **got}
+
+
+def _finite(x):
+    """``x``, or None where JSON has no number for it (inf, nan)."""
+    return x if x is not None and math.isfinite(x) else None
+
+
+def _http(port, path, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        body = r.read()
+    return body if path.startswith("/result/") else json.loads(body)
+
+
+def _wait_jobs(port, ids, timeout=600.0):
+    """Poll until every job is done or in error; returns their status."""
+    t0 = time.perf_counter()
+    out = {}
+    while len(out) < len(ids):
+        if time.perf_counter() - t0 > timeout:
+            raise Failure(f"server: jobs {set(ids) - set(out)} did not end "
+                          f"in {timeout} s")
+        for j in ids:
+            if j not in out:
+                st = _http(port, f"/status/{j}")
+                if st["state"] in ("done", "error"):
+                    out[j] = st
+        time.sleep(0.1)
+    return out
+
+
+def phase_serving(dev, built, seconds10: int, out_dir: str):
+    """MagCache on and off, resume, the server and the parity consumer on
+    the DiT, VAE and towers of phase 4 under ``config_5s_sft`` (50 steps,
+    guidance 5.0, its MagCache ratios); with ``seconds10`` 10 also the 10 s
+    sft path's 2 s video with MagCache (sequential CFG, K6). Each run's
+    launch counts are reset just before it and read just after. Returns the
+    launches by run and the report."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.pipeline import (
+        DEFAULT_NEGATIVE,
+        Kandinsky5T2VPipeline,
+    )
+    from kandinsky5_tpu_torch.sampling import seeded_noise
+    from kandinsky5_tpu_torch.serve import GenerationServer
+    from kandinsky5_tpu_torch.tools import parity_check
+    from kandinsky5_tpu_torch.utils.metrics import psnr
+    from kandinsky5_tpu_torch.utils.offload import ParamStore
+    from kandinsky5_tpu_torch.utils.resume import resumable_generate
+
+    dit, vae, towers = built
+    if next(dit.parameters()).device.type != "cuda":
+        # phase 4's offload request left them in host memory
+        t0 = time.perf_counter()
+        for obj in (dit, towers, vae.params):
+            ParamStore(obj, dev).stage()
+        torch.cuda.synchronize()
+        log(f"  the DiT, the VAE and the towers back on the card "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    conf = load_config(os.path.join(CONFIG_DIR, CONF5_SFT))
+    if conf.model.dit_params != dit.cfg:
+        raise Failure(f"{CONF5_SFT} names another DiT than phase 4's")
+    m = conf.model
+    out_dir = os.path.join(out_dir, "serving")
+    os.makedirs(out_dir, exist_ok=True)
+    embedder = RecordingEmbedder(towers)
+    launches, report = {}, []
+    log(f"  {CONF5_SFT}: {m.num_steps} steps, guidance {m.guidance_weight}, "
+        f"MagCache threshold {conf.magcache.threshold} K {conf.magcache.K} "
+        f"retention {conf.magcache.retention_ratio}, "
+        f"{len(conf.magcache.mag_ratios)} ratios")
+
+    # 1. the 1 s video with MagCache off, then on
+    pipes, runs = {}, {}
+    for mag in (False, True):
+        tag = "magcache-on" if mag else "magcache-off"
+        pipe = Kandinsky5T2VPipeline(dit, conf, embedder, vae, magcache=mag)
+        kept = _keep_latents(pipe, tag)
+        _kernels.reset_launches()
+        with visual_launches() as visual:
+            frames, tm = _serve_request(
+                pipe, f"sft video 1s, {tag}", VIDEO_PROMPT, 1, 42, out_dir,
+                f"sft_video_1s_{tag}.mp4", expand_prompts=False)
+        launches[f"6-{tag}"] = dict(_kernels.LAUNCHES)
+        pipes[mag] = pipe
+        runs[mag] = dict(frames=frames, tm=tm, latents=kept[tag],
+                         visual=dict(visual),
+                         launches=launches[f"6-{tag}"])
+    spec = pipes[True]._spec(m.num_steps, m.guidance_weight, 10.0)
+    gate = _magcache_gate("sft video 1s, MagCache", conf, spec,
+                          runs[True]["launches"], runs[True]["visual"],
+                          off=(runs[False]["visual"],
+                               runs[False]["launches"]))
+    if gate["visual_calls"] != 24 or gate["dit_calls"] != 50:
+        raise Failure(f"the sft schedule runs the visual blocks on "
+                      f"{gate['visual_calls']} of {gate['dit_calls']} calls, "
+                      "not 24 of 50")
+    on, off = runs[True]["tm"], runs[False]["tm"]
+    ratio = off["denoise_s"] / on["denoise_s"]
+    db = psnr(runs[True]["frames"], runs[False]["frames"])
+    log(f"  MagCache: denoise {on['denoise_s']:.3f} s against "
+        f"{off['denoise_s']:.3f} s without it: {ratio:.3f}x (ceiling "
+        f"{gate['dit_calls'] / gate['visual_calls']:.3f}x); frame PSNR "
+        f"against the run without it {db:.2f} dB (random weights: printed, "
+        "not gated)")
+    report.append(dict(request="sft video 1s magcache", launches=gate,
+                       denoise_s=on["denoise_s"],
+                       denoise_off_s=off["denoise_s"], ratio=ratio,
+                       psnr_vs_off_db=_finite(db),
+                       decode_s=on["decode_s"]))
+
+    if seconds10 == 10:
+        conf10 = load_config(os.path.join(CONFIG_DIR, CONF10_SFT))
+        pipe10 = Kandinsky5T2VPipeline(dit, conf10, embedder, vae,
+                                       magcache=True)
+        _kernels.reset_launches()
+        with visual_launches() as visual:
+            _, tm = _serve_request(pipe10, "10 s sft video 2s, MagCache",
+                                   "a smoke-test 10s-sft video 2s", 2, 42,
+                                   out_dir, "sft10_video_2s.mp4",
+                                   expand_prompts=False)
+        launches["6-10s-magcache"] = dict(_kernels.LAUNCHES)
+        m10 = conf10.model
+        spec10 = pipe10._spec(m10.num_steps, m10.guidance_weight, 10.0)
+        if not spec10.sequential_cfg:
+            raise Failure("the 10 s sft path did not take sequential CFG")
+        gate10 = _magcache_gate("10 s sft video 2s, MagCache", conf10, spec10,
+                                launches["6-10s-magcache"], visual)
+        report.append(dict(request="10s sft video 2s magcache",
+                           launches=gate10, denoise_s=tm["denoise_s"],
+                           s_per_step=tm["denoise_s"] / tm["steps"]))
+        del pipe10
+        torch.cuda.empty_cache()
+
+    # 2. resume: a state of another fingerprint is not taken; the request
+    # stopped after RESUME_CHUNKS chunks resumes to the same latents
+    pipe = pipes[True]
+    path = os.path.join(out_dir, "resume_state.npz")
+    shape = tuple(runs[True]["latents"].shape)
+    cond = pipe._encode([VIDEO_PROMPT], "video")
+    uncond = pipe._encode([DEFAULT_NEGATIVE], "video")
+    _kernels.reset_launches()
+    resumable_generate(dit, spec, shape, cond, uncond, seed=43,
+                       checkpoint_path=path, magcache=conf.magcache,
+                       _stop_after_chunks=1)
+    ctrl = {}
+    resumable_generate(dit, spec, shape, cond, uncond, seed=42,
+                       checkpoint_path=path, magcache=conf.magcache,
+                       report=ctrl, _stop_after_chunks=RESUME_CHUNKS)
+    log(f"  resume control: over a state of seed 43 the seed-42 request "
+        f"started at step {ctrl['start_step']} (must be 0)")
+    kept = _keep_latents(pipe, "resumed")
+    frames, tm = _serve_request(pipe, "sft video 1s, MagCache, resumed",
+                                VIDEO_PROMPT, 1, 42, out_dir,
+                                "sft_video_1s_resumed.mp4",
+                                expand_prompts=False, checkpoint_path=path)
+    launches["6-resume"] = dict(_kernels.LAUNCHES)
+    same_lat = torch.equal(kept["resumed"], runs[True]["latents"])
+    same_frames = bool(np.array_equal(frames, runs[True]["frames"]))
+    gone = not os.path.exists(path)
+    log(f"  resumed at step {tm['start_step']} of {tm['steps']}; latents "
+        f"bit-equal to the uninterrupted run: {same_lat}; frames: "
+        f"{same_frames}; state file removed: {gone}")
+    report.append(dict(request="sft video 1s resumed",
+                       start_step=tm["start_step"],
+                       control_start_step=ctrl["start_step"],
+                       latents_equal=same_lat, frames_equal=same_frames))
+    if not (ctrl["start_step"] == 0 and tm["start_step"] == 4 * RESUME_CHUNKS
+            and same_lat and same_frames and gone):
+        raise Failure("resume: control start step "
+                      f"{ctrl['start_step']}, resumed at {tm['start_step']},"
+                      f" latents equal {same_lat}, frames equal "
+                      f"{same_frames}, state file removed {gone}")
+    del kept, runs
+    torch.cuda.empty_cache()
+
+    # 3. the server over the MagCache pipeline
+    serve_dir = os.path.join(out_dir, "serve")
+    srv = GenerationServer(pipe, out_dir=serve_dir, batch_window_s=1.0)
+    port = srv.start(host="127.0.0.1", port=0).server_address[1]
+    image = dict(time_length=0, width=768, height=512)
+    _kernels.reset_launches()
+    try:
+        health = _http(port, "/healthz")
+        pair = [_http(port, "/generate", dict(image, prompt=p))["job_id"]
+                for p in SERVE_PROMPTS]
+        st = _wait_jobs(port, pair)
+        batched = _http(port, "/metrics")
+        seeded = _http(port, "/generate", dict(
+            image, prompt=SERVE_SEEDED[0], seed=SERVE_SEEDED[1]))["job_id"]
+        st.update(_wait_jobs(port, [seeded]))
+        bad = _http(port, "/generate", dict(image, width=SERVE_BAD_WIDTH,
+                                            prompt="too wide"))["job_id"]
+        st.update(_wait_jobs(port, [bad]))
+        later = _http(port, "/generate", dict(
+            image, prompt="a later served image"))["job_id"]
+        st.update(_wait_jobs(port, [later]))
+        metrics = _http(port, "/metrics")
+        served_png = _http(port, f"/result/{seeded}")
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()  # a sticky CUDA error shows here
+    launches["6-serve"] = dict(_kernels.LAUNCHES)
+    names = {pair[0]: "batched a", pair[1]: "batched b", seeded: "seeded",
+             bad: "unsupported size", later: "later"}
+    for j, name in names.items():
+        log(f"  served {name}: {st[j]['state']}, queued "
+            f"{st[j]['queued_s']:.3f} s, generation "
+            f"{st[j].get('generation_s', float('nan')):.3f} s"
+            + (f" ({st[j]['error']})" if st[j].get("error") else ""))
+    log(f"  server: healthz {health}; metrics after the pair {batched}, at "
+        f"the end {metrics}")
+    failed = [names[j] for j in st if st[j]["state"] != "done" and j != bad]
+    if failed or st[bad]["state"] != "error" or "height, width" not in \
+            st[bad].get("error", ""):
+        raise Failure(f"server: jobs in error {failed}; the unsupported "
+                      f"size ended {st[bad]['state']} "
+                      f"({st[bad].get('error', '')})")
+    if (batched["batches"], batched["batched_jobs"]) != (1, 2) or \
+            metrics["jobs_failed"] != 1 or metrics["jobs_done"] != 4 or \
+            health["devices"] != torch.cuda.device_count():
+        raise Failure(f"server: metrics after the pair {batched}, at the end "
+                      f"{metrics}, healthz {health}")
+    report.append(dict(request="server", jobs={
+        names[j]: {k: st[j].get(k) for k in ("state", "queued_s",
+                                             "generation_s")}
+        for j in st}, metrics=metrics))
+
+    # the seeded request through the pipeline directly; its latents and
+    # tiled frames make the consumer's dump
+    kept = _keep_latents(pipe, "direct")
+    _kernels.reset_launches()
+    direct, tm = _serve_request(pipe, "seeded image, direct",
+                                SERVE_SEEDED[0], 0, SERVE_SEEDED[1], out_dir,
+                                "seeded_direct.png")
+    served = np.asarray(Image.open(srv.jobs[seeded].result_path))
+    import io
+
+    same = bool(np.array_equal(served, direct[0, 0])) and bool(
+        np.array_equal(np.asarray(Image.open(io.BytesIO(served_png))),
+                       direct[0, 0]))
+    log(f"  seeded served image against the same request made directly: "
+        f"bit-equal {same}")
+    if not same:
+        raise Failure("the seeded served image differs from the direct "
+                      f"request's (PSNR {psnr(served, direct[0, 0]):.2f} dB)")
+    latents = kept["direct"]
+    tiled = pipe.decode_latents(latents, mode=parity_check.GATE_DECODE_MODE)
+    launches["6-direct"] = dict(_kernels.LAUNCHES)
+
+    # 4. the parity consumer on a dump of that request
+    caption = embedder.expansions[SERVE_SEEDED[0]]
+    dump = {"noise": seeded_noise(dit, shape=tuple(latents.shape),
+                                  seed=SERVE_SEEDED[1])[0].cpu().numpy(),
+            "latents": latents[0].float().cpu().numpy(), "frames": tiled,
+            "prompt": np.asarray(caption),
+            "negative": np.asarray(DEFAULT_NEGATIVE)}
+    # in the reference dump's layout: a prompt's valid tokens, packed
+    for key, text in (("cond", caption), ("uncond", DEFAULT_NEGATIVE)):
+        emb, pooled, mask = embedder.encodings[_text_key([text], "image")]
+        dump[f"{key}_text_embeds"] = emb[0][mask[0].bool()].float().numpy()
+        dump[f"{key}_pooled_embed"] = pooled.float().numpy()
+        dump[f"{key}_cu_seqlens"] = np.array([0, int(mask[0].sum())],
+                                             np.int32)
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    got = parity_check.run_ours(None, dump, pipe=pipe, magcache=conf.magcache,
+                                log=lambda s: log("  consumer: " + s))
+    launches["6-consumer"] = dict(_kernels.LAUNCHES)
+    same_lat = torch.equal(got["latents"], latents)
+    same_frames = bool(np.array_equal(got["frames"], tiled))
+    text_err = max(got["text_err"].values())
+    log(f"  consumer: {time.perf_counter() - t:.1f} s; towers' max err "
+        f"against the dump {text_err:.3e}, latents bit-equal {same_lat}, "
+        f"frames bit-equal {same_frames}, PSNR {got['psnr_db']:.2f} dB (the "
+        "plumbing on the card; the gate waits for a reference dump)")
+    report.append(dict(request="parity consumer", latents_equal=same_lat,
+                       frames_equal=same_frames, text_err=text_err,
+                       psnr_db=_finite(got["psnr_db"]),
+                       fast_psnr_db=_finite(got["fast_psnr_db"])))
+    if not (same_lat and same_frames and text_err == 0 and got["passes"]):
+        raise Failure(f"consumer: latents equal {same_lat}, frames equal "
+                      f"{same_frames}, towers' err {text_err:.3e}, PSNR "
+                      f"{got['psnr_db']:.2f} dB")
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seconds", type=int, default=1, choices=(1, 5, 10),
@@ -2639,6 +3085,11 @@ def main() -> int:
                     help="run only phase 3's text check and time the "
                     "full-size towers' encode and expansion, bf16 and int8 "
                     "(no kernel is built; no smoke result)")
+    ap.add_argument("--serve", action="store_true",
+                    help="build, then run only phase 6 (MagCache on and off, "
+                    "resume, the HTTP server, the parity consumer) on "
+                    "freshly built models and print its readings (no smoke "
+                    "result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -2723,6 +3174,14 @@ def main() -> int:
             log(gpu_line())
             log(json.dumps(results))
             return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
+        if args.serve:
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            built = build_models(dev, conf5)[:3]
+            sv_launches, sv_report = phase_serving(dev, built, seconds10,
+                                                   args.out)
+            log(gpu_line())
+            log(json.dumps({"launches": sv_launches, "requests": sv_report}))
+            return 0
         if args.k4 or args.k6:
             results = {}
             g, normed = _seeded(dev)
@@ -2753,7 +3212,7 @@ def main() -> int:
 
         log("phase 4: pipeline at full width")
         t = time.perf_counter()
-        launches, report, tiled, text_added = phase_pipeline(
+        launches, report, tiled, text_added, built = phase_pipeline(
             dev, conf5, conf10, seconds5, seconds10, args.out)
         log(f"  phase 4 {time.perf_counter() - t:.1f} s")
         log(f"  the text stage added {t_text + text_added:.1f} s to the run "
@@ -2769,6 +3228,15 @@ def main() -> int:
         launches.update(tp_launches)
         report += tp_report
         log(f"  phase 5 {time.perf_counter() - t:.1f} s")
+
+        log(f"phase 6: serving ({CONF5_SFT}: MagCache on and off, resume, "
+            "the HTTP server, the parity consumer)")
+        t = time.perf_counter()
+        sv_launches, sv_report = phase_serving(dev, built, seconds10,
+                                               args.out)
+        launches.update(sv_launches)
+        report += sv_report
+        log(f"  phase 6 {time.perf_counter() - t:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

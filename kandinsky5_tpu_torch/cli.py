@@ -10,7 +10,9 @@ It runs on the CUDA card unless ``--device cpu`` is given. ``--int8_linear``
 prompt expansion) are flags here, where the JAX package reads environment
 variables. ``--tp N`` runs N ranks over ``torch.distributed`` (NCCL with a
 card per rank, else gloo), each building the pipeline from the same
-checkpoints; rank 0 decodes and writes.
+checkpoints; rank 0 decodes and writes. ``--trace_dir DIR`` traces the
+request with ``torch.profiler`` into ``DIR/trace.json`` (rank 0's), where
+the JAX package reads ``KANDINSKY5_TPU_TRACE_DIR``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ def parse_args(argv=None):
                    help="W8A8 projections in the DiT's visual blocks")
     p.add_argument("--int8_expand", action="store_true",
                    help="int8 decode weights for prompt expansion")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the request "
+                   "here")
     return p.parse_args(argv)
 
 
@@ -61,26 +66,29 @@ def generate(tp, args):
     and answer the one request; returns the path written (None off rank
     0). Module-level, so that ``parallel.launch``'s ranks can import it."""
     from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE, get_T2V_pipeline
+    from kandinsky5_tpu_torch.utils.trace import profiled
 
     pipe = get_T2V_pipeline(
         conf_path=args.config, cache_dir=args.cache_dir,
         offload=args.offload, magcache=args.magcache, tp=tp,
         int8_linear=args.int8_linear, int8_expand=args.int8_expand,
         device=args.device)
-    frames = pipe(
-        args.prompt,
-        time_length=args.video_duration,
-        width=args.width,
-        height=args.height,
-        seed=args.seed,
-        num_steps=args.sample_steps,
-        guidance_weight=args.guidance_weight,
-        scheduler_scale=args.scheduler_scale,
-        negative_caption=(DEFAULT_NEGATIVE if args.negative_prompt is None
-                          else args.negative_prompt),
-        expand_prompts=bool(args.expand_prompt),
-        save_path=args.output_filename,
-    )
+    trace_dir = args.trace_dir if tp is None or tp.rank == 0 else None
+    with profiled(trace_dir):
+        frames = pipe(
+            args.prompt,
+            time_length=args.video_duration,
+            width=args.width,
+            height=args.height,
+            seed=args.seed,
+            num_steps=args.sample_steps,
+            guidance_weight=args.guidance_weight,
+            scheduler_scale=args.scheduler_scale,
+            negative_caption=(DEFAULT_NEGATIVE if args.negative_prompt is None
+                              else args.negative_prompt),
+            expand_prompts=bool(args.expand_prompt),
+            save_path=args.output_filename,
+        )
     return None if frames is None else pipe.timings["saved"][0]
 
 

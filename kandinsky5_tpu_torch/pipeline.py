@@ -31,8 +31,15 @@ TextEmbeddings`` (and ``expand_prompt`` when ``expand_prompts`` is set)
 serves. ``offload=True`` keeps the towers (an ``nn.Module`` embedder), the
 DiT and the VAE in host memory and moves each to ``device`` (the DiT's
 device unless given) only for its stage (``utils/offload.py``).
+``magcache=True`` runs the denoise on the configuration's MagCache schedule
+(the ``*_sft`` and ``*_nocfg`` YAMLs carry its ratios), and
+``checkpoint_path=`` on a call makes the denoise resumable
+(``utils/resume.py``): chunks of 4 steps, the sampler's state saved after
+each, a rerun resuming where a killed one stopped. A call runs under
+``torch.no_grad()`` whatever thread makes it (grad mode is per thread).
 ``timings`` holds ``text_s`` (expansion and encode), ``denoise_s`` and
-``decode_s`` of the last request. :func:`get_T2V_pipeline` builds the whole
+``decode_s`` of the last request (and ``start_step`` with a
+``checkpoint_path``). :func:`get_T2V_pipeline` builds the whole
 pipeline from reference-layout checkpoints and a YAML (or the default
 configuration), as the JAX package's does.
 """
@@ -40,7 +47,6 @@ configuration), as the JAX package's does.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -55,6 +61,8 @@ from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
 from kandinsky5_tpu_torch.text.embedder import TextEmbeddings
 from kandinsky5_tpu_torch.utils import default_device
 from kandinsky5_tpu_torch.utils.offload import ParamStore, staged
+from kandinsky5_tpu_torch.utils.resume import resumable_generate
+from kandinsky5_tpu_torch.utils.trace import StageTimer
 
 DEFAULT_NEGATIVE = (
     "Static, 2D cartoon, cartoon, 2d animation, paintings, images, worst "
@@ -63,6 +71,9 @@ DEFAULT_NEGATIVE = (
 
 RESOLUTIONS = {512: [(512, 512), (512, 768), (768, 512)]}
 
+#: the timestep grid's default scheduler scale, the reference pipeline's
+SCHEDULER_SCALE = 10.0
+
 ATTN_IMPLS = ("auto", "flash", "dense", "flash_int8", "flash_int8_pipe")
 
 
@@ -70,7 +81,12 @@ class Kandinsky5T2VPipeline:
     def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
                  attn_impl: str = "auto", int8_linear: bool = False,
                  decode_mode: Optional[str] = None, int8_conv: bool = False,
-                 tp=None, offload: bool = False, device=None):
+                 tp=None, offload: bool = False, magcache: bool = False,
+                 device=None):
+        if magcache and (conf.magcache is None
+                         or not conf.magcache.mag_ratios):
+            raise ValueError("magcache=True needs a configuration with "
+                             "MagCache ratios (the *_sft and *_nocfg YAMLs)")
         if tp is not None:
             if dit.tp is None:
                 from kandinsky5_tpu_torch.parallel.sharding import shard_dit
@@ -97,6 +113,7 @@ class Kandinsky5T2VPipeline:
         self.tp = tp
         self.decode_mode = decode_mode or ("stream" if tp is None else "tiled")
         self.attn_impl = attn_impl
+        self.magcache = magcache
         self.resolution = conf.resolution
         if self.resolution not in RESOLUTIONS:
             raise ValueError("Resolution can be only 512")
@@ -157,6 +174,7 @@ class Kandinsky5T2VPipeline:
                 "pooled_embed": e.pooled_embed.to(dev),
                 "mask": e.mask.to(dev).bool()}
 
+    @torch.no_grad()
     def __call__(
         self,
         text: Union[str, List[str]],
@@ -166,17 +184,22 @@ class Kandinsky5T2VPipeline:
         seed: Optional[int] = None,
         num_steps: Optional[int] = None,
         guidance_weight: Optional[float] = None,
-        scheduler_scale: float = 10.0,
+        scheduler_scale: float = SCHEDULER_SCALE,
         negative_caption: str = DEFAULT_NEGATIVE,
         expand_prompts: bool = True,
         save_path: Optional[Union[str, List[str]]] = None,
         progress: bool = False,
         noise: Optional[torch.Tensor] = None,
+        checkpoint_path: Optional[str] = None,
     ) -> Optional[np.ndarray]:
         """Generate (B, T, H, W, 3) uint8 frames; T = 1 for an image, else
         time_length * 24 // 4 + 1. ``noise`` (B, T', H/8, W/8, 16) replaces
-        the seeded noise. Under ``tp`` rank 0 returns the frames and the
-        other ranks None."""
+        the seeded noise. ``checkpoint_path`` makes the denoise resumable
+        from that state file (seeded noise only). Under ``tp`` rank 0
+        returns the frames and the other ranks None."""
+        if checkpoint_path is not None and noise is not None:
+            raise ValueError("a resumable request draws its noise from its "
+                             "seed: pass checkpoint_path or noise, not both")
         num_steps = self.conf.model.num_steps if num_steps is None else num_steps
         guidance_weight = (self.conf.model.guidance_weight
                            if guidance_weight is None else guidance_weight)
@@ -190,10 +213,9 @@ class Kandinsky5T2VPipeline:
         type_of_content = "image" if time_length == 0 else "video"
 
         captions = [text] if isinstance(text, str) else list(text)
-        _sync(self.device)
-        t_text = time.perf_counter()
+        timer = StageTimer(self.device)
         expansion = {"expand_s": 0.0, "expand_tokens": 0}
-        with self._staged("text"):
+        with timer.stage("text_s"), self._staged("text"):
             if expand_prompts:
                 expanded = []
                 for c in captions:
@@ -205,8 +227,6 @@ class Kandinsky5T2VPipeline:
             batch = len(captions)
             cond = self._encode(captions, type_of_content)
             uncond = self._encode([negative_caption] * batch, type_of_content)
-            _sync(self.device)
-        text_s = time.perf_counter() - t_text
 
         latent_shape = (batch, num_frames, height // 8, width // 8, 16)
         spec = self._spec(num_steps, guidance_weight, scheduler_scale)
@@ -215,28 +235,35 @@ class Kandinsky5T2VPipeline:
             def on_step(i):
                 print(f"denoise step {i + 1}/{num_steps}", flush=True)
 
+        magcache = self.conf.magcache if self.magcache else None
+        resume = {}
         with self._staged("dit"):
-            _sync(self.device)
             if self.tp is not None:
                 self.tp.reset_stats()
-            t0 = time.perf_counter()
-            latents = generate_latents(self.dit, spec, latent_shape, cond,
-                                       uncond, seed=seed, noise=noise,
-                                       on_step=on_step)
-            finite = bool(torch.isfinite(latents).all())
-            t1 = time.perf_counter()
-        self.timings = {"text_s": text_s, **expansion, "denoise_s": t1 - t0,
+            with timer.stage("denoise_s"):
+                if checkpoint_path is not None:
+                    latents = resumable_generate(
+                        self.dit, spec, latent_shape, cond, uncond, seed=seed,
+                        checkpoint_path=checkpoint_path, magcache=magcache,
+                        progress=progress, report=resume)
+                else:
+                    latents = generate_latents(
+                        self.dit, spec, latent_shape, cond, uncond, seed=seed,
+                        noise=noise, magcache=magcache, on_step=on_step)
+                finite = bool(torch.isfinite(latents).all())
+        self.timings = {**timer.report(), **expansion,
                         "steps": num_steps, "cfg": spec.use_cfg,
-                        "latents_finite": finite}
+                        "magcache": magcache is not None,
+                        "latents_finite": finite, **resume}
         if self.tp is not None:
             self.timings.update(all_reduce_s=self.tp.seconds,
                                 all_reduce_calls=self.tp.calls,
                                 all_reduce_bytes=self.tp.bytes)
             if self.tp.rank != 0:
                 return None
-        t2 = time.perf_counter()
-        frames = self.decode_latents(latents)
-        self.timings["decode_s"] = time.perf_counter() - t2
+        with timer.stage("decode_s"):
+            frames = self.decode_latents(latents)
+        self.timings["decode_s"] = timer.stages["decode_s"]
         if save_path is not None:
             self.timings["saved"] = self.save(frames, save_path, time_length)
         return frames
@@ -276,11 +303,6 @@ class Kandinsky5T2VPipeline:
         return written
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def get_T2V_pipeline(
     device_map=None,
     resolution: int = 512,
@@ -306,15 +328,13 @@ def get_T2V_pipeline(
     the CUDA card when None (with ``offload``, loaded into host memory and
     moved to ``device`` stage by stage); ``dtype`` for the DiT, the VAE and Qwen (CLIP
     stays fp32). ``device_map`` is accepted and ignored, as in the JAX
-    package. ``tp`` is this rank's
+    package. ``magcache`` runs every request on the YAML's MagCache
+    schedule. ``tp`` is this rank's
     :class:`~kandinsky5_tpu_torch.parallel.TensorParallel` (each rank calls
     this; the DiT is sharded over the group). ``int8_linear`` quantizes the
     visual blocks' projections to W8A8, ``int8_expand`` runs prompt
     expansion on int8 decode weights: both arguments, where the JAX package
     reads environment flags."""
-    if magcache:
-        raise NotImplementedError(
-            "MagCache is not ported yet (ROADMAP.md, queue 1, item 4)")
     if tp is not None and not hasattr(tp, "rank"):
         raise TypeError("tp takes a TensorParallel group (one process per "
                         "rank; parallel.launch), not a width")
@@ -357,4 +377,5 @@ def get_T2V_pipeline(
         int8_expand=int8_expand)
     return Kandinsky5T2VPipeline(dit, conf, text_embedder, vae,
                                  int8_linear=int8_linear, tp=tp,
-                                 offload=offload, device=device)
+                                 offload=offload, magcache=magcache,
+                                 device=device)

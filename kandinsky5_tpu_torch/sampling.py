@@ -4,9 +4,16 @@ Counterpart of ``kandinsky5_tpu/sampling.py``: the timestep grid,
 :class:`DenoiseSpec`, the visual-condition input, the Euler loop of
 ``denoise``/``denoise_span`` as a Python loop, classifier-free guidance
 both as one batch-2 call and as two sequential calls, the NABLA sparse
-path of the 10 s configs (``attention_type="nabla"``, faithful mode) and
-:func:`generate_latents` with explicit noise. MagCache waits for a later
-slice.
+path of the 10 s configs (``attention_type="nabla"``, faithful mode),
+MagCache and :func:`generate_latents` with explicit noise.
+
+MagCache is a host schedule (:func:`magcache_schedule`): its decisions
+depend on the calibrated ``mag_ratios`` alone, never on an activation, so
+each step knows before it runs which CFG branches skip the visual blocks.
+A skipping branch adds its cached residual (the blocks' last output minus
+their input) to its visual tokens; when every branch of a call skips, the
+visual blocks do not run at all. The text blocks, the prologue and the
+epilogue run on every step.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from kandinsky5_tpu_torch.config import DiTParams
+from kandinsky5_tpu_torch.config import DiTParams, MagCacheConfig
 from kandinsky5_tpu_torch.models.dit import (
     DiffusionTransformer3D,
     SparseParams,
@@ -34,6 +41,45 @@ def timestep_grid(num_steps: int, scheduler_scale: float) -> np.ndarray:
     t = np.linspace(1.0, 0.0, num_steps + 1, dtype=np.float32)
     t = scheduler_scale * t / (1 + (scheduler_scale - 1) * t)
     return t.astype(np.float32)
+
+
+def magcache_schedule(mag_cfg: MagCacheConfig, num_steps: int,
+                      no_cfg: bool) -> np.ndarray:
+    """The skip decisions of MagCache for every DiT call: bool (num_steps,
+    2), [cond, uncond] per step (the uncond column stays False without
+    CFG). The calibrated ratios cover the table's step count; another count
+    takes each branch's ratios by nearest neighbour."""
+    ratios = np.array([1.0, 1.0] + list(mag_cfg.mag_ratios), dtype=np.float64)
+    total = num_steps * 2
+    if len(ratios) != total:
+        def nearest(src, n):
+            if n == 1:
+                return np.array([src[-1]])
+            scale = (len(src) - 1) / (n - 1)
+            return src[np.round(np.arange(n) * scale).astype(int)]
+
+        con = nearest(ratios[0::2], num_steps)
+        ucon = nearest(ratios[1::2], num_steps)
+        ratios = np.stack([con, ucon], axis=1).reshape(-1)
+
+    skip = np.zeros((num_steps, 2), dtype=bool)
+    acc_ratio = [1.0, 1.0]
+    acc_steps = [0, 0]
+    acc_err = [0.0, 0.0]
+    warmup = int(total * mag_cfg.retention_ratio)
+    calls = range(0, total, 2) if no_cfg else range(total)
+    for cnt in calls:
+        b = cnt % 2
+        step = cnt // 2
+        if cnt >= warmup:
+            acc_ratio[b] *= ratios[cnt]
+            acc_steps[b] += 1
+            acc_err[b] += abs(1 - acc_ratio[b])
+            if acc_err[b] < mag_cfg.threshold and acc_steps[b] <= mag_cfg.K:
+                skip[step, b] = True
+            else:
+                acc_ratio[b], acc_steps[b], acc_err[b] = 1.0, 0, 0.0
+    return skip
 
 
 @dataclass(frozen=True)
@@ -80,6 +126,25 @@ def _build_sparse(spec: DenoiseSpec, grid, device) -> Optional[SparseParams]:
     return SparseParams(sta=torch.from_numpy(sta).to(device), P=spec.nabla_P)
 
 
+def skip_schedule(spec: DenoiseSpec,
+                  magcache: Optional[MagCacheConfig]) -> Optional[np.ndarray]:
+    """The (num_steps, 2) MagCache schedule of a run, or None when MagCache
+    is off (no config, or one without ratios)."""
+    if magcache is None or len(magcache.mag_ratios) == 0:
+        return None
+    return magcache_schedule(magcache, spec.num_steps, no_cfg=not spec.use_cfg)
+
+
+def denoise_residual0(spec: DenoiseSpec, noise_shape) -> Tuple[int, int]:
+    """(b_eff, seq_len) of the MagCache residual: one row per DiT batch row
+    (both CFG branches), one per visual token."""
+    cfg = spec.dit_params
+    batch = noise_shape[0]
+    b_eff = 2 * batch if spec.use_cfg else batch
+    t, h, w = token_grid(cfg, noise_shape)
+    return b_eff, t * h * w
+
+
 def token_grid(cfg: DiTParams, latent_shape) -> Tuple[int, int, int]:
     """(T, H, W) token grid of a (B, T, H, W, C) latent after patching."""
     return tuple(n // p for n, p in zip(latent_shape[1:4], cfg.patch_size))
@@ -95,7 +160,10 @@ def _visual_cond_input(cfg: DiTParams, x, pdtype):
 
 
 def _dit_call(model, spec: DenoiseSpec, sparse, model_in, text, pooled, mask,
-              t):
+              t, skip=None, residual=None):
+    """One DiT evaluation. ``skip`` (host bools, one per batch row) and
+    ``residual`` (B, S, D) are MagCache's: None runs the visual blocks with
+    no residual kept. Returns (velocity fp32, residual)."""
     nb = model_in.shape[0]
     to_fractal = sparse is not None
     time_vec = torch.full((nb,), float(t), dtype=torch.float32,
@@ -103,22 +171,44 @@ def _dit_call(model, spec: DenoiseSpec, sparse, model_in, text, pooled, mask,
     visual, text_o, time_embed, rope, grid = dit_prologue(
         model, model_in, text, pooled, time_vec, mask, spec.scale_factor,
         spec.attn_impl, to_fractal)
-    visual = dit_visual_blocks(model, visual, text_o, time_embed, rope, mask,
-                               spec.attn_impl, sparse)
-    return dit_epilogue(model, visual, time_embed, grid, to_fractal).float()
+    if skip is None:
+        visual = dit_visual_blocks(model, visual, text_o, time_embed, rope,
+                                   mask, spec.attn_impl, sparse)
+    elif all(skip):
+        visual = visual + residual
+    else:
+        out = dit_visual_blocks(model, visual, text_o, time_embed, rope, mask,
+                                spec.attn_impl, sparse)
+        new_res = (out.float() - visual.float()).to(model.dtype)
+        if any(skip):
+            # a skipping branch reuses its residual while the other runs
+            sk = torch.tensor(skip, device=visual.device)[:, None, None]
+            out = torch.where(sk, visual + residual, out)
+            new_res = torch.where(sk, residual, new_res)
+        visual, residual = out, new_res
+    pred = dit_epilogue(model, visual, time_embed, grid, to_fractal).float()
+    return pred, residual
 
 
 @torch.no_grad()
 def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
-                 times, dts, cond: dict, uncond: dict, on_step=None):
+                 times, dts, cond: dict, uncond: dict, skip=None,
+                 residual=None, on_step=None):
     """Integrate the Euler steps ``times``/``dts`` (host arrays) from
     ``noise`` (B, T, H, W, C) fp32. cond/uncond: {"text_embeds",
-    "pooled_embed", "mask"}. ``on_step(i)`` is called after each step."""
+    "pooled_embed", "mask"}. ``skip`` is the (k, 2) slice of the MagCache
+    schedule for these steps and ``residual`` the (b_eff, S, D) residual
+    carried in (zeros at step 0, :func:`denoise_residual0`); both None
+    without MagCache. ``on_step(i)`` is called after each step. Returns
+    (x, residual)."""
     cfg = spec.dit_params
     if spec.int8_linear != is_quantized(model):
         raise ValueError(f"spec.int8_linear is {spec.int8_linear} but the "
                          "model is " + ("" if is_quantized(model) else "not ")
                          + "W8A8-quantized")
+    if (skip is None) != (residual is None):
+        raise ValueError("MagCache takes a skip schedule and a residual "
+                         "together")
     batch = noise.shape[0]
     pdtype = model.dtype
     use_cfg = spec.use_cfg
@@ -130,55 +220,92 @@ def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
     x = noise
     for i, (t, dt) in enumerate(zip(times, dts)):
         model_in = _visual_cond_input(cfg, x, pdtype)
+        skip_c = skip_u = None
+        if skip is not None:
+            skip_c = (bool(skip[i][0]),) * batch
+            skip_u = (bool(skip[i][1]),) * batch
         if use_cfg and spec.sequential_cfg:
-            v_cond = _dit_call(model, spec, sparse, model_in,
-                               cond["text_embeds"], cond["pooled_embed"],
-                               cond["mask"], t)
-            v_uncond = _dit_call(model, spec, sparse, model_in,
-                                 uncond["text_embeds"], uncond["pooled_embed"],
-                                 uncond["mask"], t)
+            res_c = res_u = None
+            if residual is not None:
+                res_c, res_u = residual[:batch], residual[batch:]
+            v_cond, res_c = _dit_call(model, spec, sparse, model_in,
+                                      cond["text_embeds"],
+                                      cond["pooled_embed"], cond["mask"], t,
+                                      skip_c, res_c)
+            v_uncond, res_u = _dit_call(model, spec, sparse, model_in,
+                                        uncond["text_embeds"],
+                                        uncond["pooled_embed"],
+                                        uncond["mask"], t, skip_u, res_u)
+            if residual is not None:
+                residual = torch.cat([res_c, res_u])
             velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
         elif use_cfg:
-            pred = _dit_call(model, spec, sparse,
-                             torch.cat([model_in, model_in]), text, pooled,
-                             mask, t)
+            pred, residual = _dit_call(
+                model, spec, sparse, torch.cat([model_in, model_in]), text,
+                pooled, mask, t, None if skip is None else skip_c + skip_u,
+                residual)
             v_cond, v_uncond = pred[:batch], pred[batch:]
             velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
         else:
-            velocity = _dit_call(model, spec, sparse, model_in,
-                                 cond["text_embeds"], cond["pooled_embed"],
-                                 cond["mask"], t)
+            velocity, residual = _dit_call(
+                model, spec, sparse, model_in, cond["text_embeds"],
+                cond["pooled_embed"], cond["mask"], t, skip_c, residual)
         x = x + float(dt) * velocity
         if on_step is not None:
             on_step(i)
-    return x
+    return x, residual
+
+
+def zero_residual(model, spec: DenoiseSpec, noise_shape):
+    """MagCache's residual at step 0: zeros (b_eff, S, D) in the model's
+    dtype on its device."""
+    b_eff, seq_len = denoise_residual0(spec, noise_shape)
+    return torch.zeros((b_eff, seq_len, spec.dit_params.model_dim),
+                       dtype=model.dtype,
+                       device=next(model.parameters()).device)
 
 
 def denoise(model, spec: DenoiseSpec, noise, cond: dict, uncond: dict,
-            on_step=None):
-    """The full Euler integration over :func:`timestep_grid`."""
+            skip=None, on_step=None):
+    """The full Euler integration over :func:`timestep_grid`; ``skip`` is
+    the MagCache schedule (:func:`magcache_schedule`), None for off."""
     ts = timestep_grid(spec.num_steps, spec.scheduler_scale)
+    residual = (None if skip is None
+                else zero_residual(model, spec, noise.shape))
     return denoise_span(model, spec, noise, ts[:-1], np.diff(ts), cond,
-                        uncond, on_step=on_step)
+                        uncond, skip=skip, residual=residual,
+                        on_step=on_step)[0]
+
+
+def seeded_noise(model, shape, seed: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+    """Standard normal fp32 noise of ``shape`` on the model's device from
+    ``generator``, or one seeded with ``seed`` (0 when None)."""
+    device = next(model.parameters()).device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(
+            0 if seed is None else seed)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device)
 
 
 def generate_latents(model, spec: DenoiseSpec, shape, cond: dict,
                      uncond: dict, seed: Optional[int] = None, noise=None,
                      generator: Optional[torch.Generator] = None,
+                     magcache: Optional[MagCacheConfig] = None,
                      on_step=None):
-    """Seed noise (or take ``noise``) and denoise. The noise is standard
-    normal fp32 from ``generator`` (or one seeded with ``seed``) on the
-    model's device; torch and JAX generators differ, so parity tests pass
-    ``noise`` explicitly. Under tensor parallelism every rank integrates
-    rank 0's noise, broadcast, whatever seed the others were given."""
+    """Seed noise (or take ``noise``) and denoise, with MagCache's schedule
+    when ``magcache`` carries ratios. The noise is standard normal fp32 from
+    ``generator`` (or one seeded with ``seed``) on the model's device; torch
+    and JAX generators differ, so parity tests pass ``noise`` explicitly.
+    Under tensor parallelism every rank integrates rank 0's noise,
+    broadcast, whatever seed the others were given; the MagCache schedule
+    is the same host array on every rank."""
     device = next(model.parameters()).device
     if noise is None:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(
-                0 if seed is None else seed)
-        noise = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device)
+        noise = seeded_noise(model, shape, seed, generator)
     noise = noise.to(device=device, dtype=torch.float32)
     if model.tp is not None:
         noise = model.tp.broadcast(noise.contiguous(), src=0)
-    return denoise(model, spec, noise, cond, uncond, on_step=on_step)
+    return denoise(model, spec, noise, cond, uncond,
+                   skip=skip_schedule(spec, magcache), on_step=on_step)

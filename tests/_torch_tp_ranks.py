@@ -147,3 +147,37 @@ def card_inputs(cfg, device, latent=(1, 2, 32, 32), text_len=64):
     return (x.to(device, torch.bfloat16), text.to(device, torch.bfloat16),
             pooled.to(device, torch.bfloat16),
             torch.tensor([500.0], device=device), mask.to(device))
+
+
+def magcache_run(tp, cfg_kw, state_dict, noise, cond, uncond, spec_kw,
+                 mag_kw):
+    """A MagCache denoise on the rank's share of the DiT, fp32; then the
+    same with every carried residual forced to zero (the control)."""
+    from kandinsky5_tpu_torch import sampling
+    from kandinsky5_tpu_torch.config import MagCacheConfig
+
+    torch.set_num_threads(2)
+    cfg = DiTParams(**cfg_kw)
+    model = DiffusionTransformer3D(cfg, device="cpu", dtype=torch.float32,
+                                   tp=tp)
+    dit_from_state_dict(model, shard_dit_state_dict(state_dict, tp.rank,
+                                                    tp.size))
+    spec = DenoiseSpec(dit_params=cfg, **spec_kw)
+    cond = {k: _t(v) for k, v in cond.items()}
+    uncond = {k: _t(v) for k, v in uncond.items()}
+    mag = MagCacheConfig(**mag_kw)
+    tp.reset_stats()
+    out = {"latents": generate_latents(model, spec, noise.shape, cond, uncond,
+                                       noise=_t(noise), magcache=mag).numpy(),
+           "all_reduces": tp.calls}
+    real = sampling._dit_call
+
+    def zero_residual(*args, **kw):
+        pred, residual = real(*args, **kw)
+        return pred, torch.zeros_like(residual)
+
+    with mock.patch.object(sampling, "_dit_call", zero_residual):
+        out["latents_zero_residual"] = generate_latents(
+            model, spec, noise.shape, cond, uncond, noise=_t(noise),
+            magcache=mag).numpy()
+    return out

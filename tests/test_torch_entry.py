@@ -3,7 +3,8 @@ reference-layout checkpoints written to disk (a DiT safetensors and a
 diffusers VAE, both through the JAX carriers, Qwen2.5-VL in HF shards under ``model.safetensors.index.json`` and CLIP,
 both with their tokenizers and ``config.json``, and a YAML) against the JAX
 package's loaders and sampler on the same files; offload staging; the CLI
-writing a file; and the errors for what the port lacks."""
+writing a file (also with ``--magcache``); MagCache through
+``get_T2V_pipeline``; and the errors the entry points raise."""
 
 import os
 import subprocess
@@ -214,9 +215,55 @@ def test_cli_writes_a_file(ckpt, extra):
     assert Image.open(out).size == (512, 512)
 
 
-def test_entry_points_raise_for_what_the_port_lacks(ckpt):
+def _magcache_yaml(conf_path, tmp_path):
+    """The tiny YAML with a MagCache table (12 ratios: 6 steps)."""
+    with open(conf_path) as f:
+        conf = yaml.safe_load(f)
+    conf["magcache"] = {"mag_ratios": [1.0 + 0.02 * float(np.sin(i))
+                                       for i in range(12)],
+                        "threshold": 0.05, "K": 2, "retention_ratio": 0.25}
+    path = str(tmp_path / "magcache.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(conf, f)
+    return path
+
+
+def test_cli_magcache_writes_a_file(ckpt, tmp_path):
+    """``--magcache`` on a YAML that carries MagCache ratios, 6 steps, with
+    ``--trace_dir``: the request's profiler trace is written there."""
+    root, conf_path, _ = ckpt
+    out = str(tmp_path / "mag.png")
+    trace_dir = str(tmp_path / "trace")
+    res = subprocess.run(
+        [sys.executable, "-m", "kandinsky5_tpu_torch.cli", "--device", "cpu",
+         "--config", _magcache_yaml(conf_path, tmp_path), "--magcache",
+         "--prompt", PROMPT, "--video_duration", "0", "--width", "512",
+         "--height", "512", "--seed", "1", "--sample_steps", "6",
+         "--expand_prompt", "0", "--output_filename", out,
+         "--trace_dir", trace_dir],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    from PIL import Image
+
+    assert Image.open(out).size == (512, 512)
+    assert os.path.getsize(os.path.join(trace_dir, "trace.json")) > 0
+
+
+def test_entry_points_raise_for_what_the_port_lacks(ckpt, monkeypatch,
+                                                   tmp_path):
+    """``magcache=True`` builds (on a YAML with MagCache ratios) and answers
+    a tiny request on the schedule; a configuration without ratios, a tp
+    width for a group and the (768, 768) size raise."""
     _, conf_path, _ = ckpt
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    mag_path = _magcache_yaml(conf_path, tmp_path)
+    monkeypatch.setitem(RESOLUTIONS, 512, [(64, 64)])
+    pipe = get_T2V_pipeline(conf_path=mag_path, device="cpu",
+                            dtype=torch.float32, magcache=True)
+    frames = pipe(PROMPT, time_length=0, width=64, height=64, seed=2,
+                  num_steps=6, expand_prompts=False)
+    assert frames.shape == (1, 1, 64, 64, 3) and frames.dtype == np.uint8
+    assert pipe.timings["magcache"] and pipe.timings["latents_finite"]
+    with pytest.raises(ValueError, match="MagCache ratios"):
         get_T2V_pipeline(conf_path=conf_path, device="cpu", magcache=True)
     with pytest.raises(TypeError, match="TensorParallel"):
         get_T2V_pipeline(conf_path=conf_path, device="cpu", tp=2)
