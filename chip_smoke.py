@@ -17,6 +17,8 @@
     python3 chip_smoke.py --serve [--seconds 10]
                                              # phase 6 alone, on freshly
                                              # built models
+    python3 chip_smoke.py --train            # phase 7 alone, on freshly
+                                             # built models
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -124,13 +126,13 @@ Phases, each of which must pass (any failure exits nonzero):
                counts (K8 32, K1 34, K2 0); two controls must fail the
                bound (each rank keeps its FF partial sum; the out layers'
                bias added on every rank). Then the tp = 2 pipeline answers
-               the 5 s path's image and video requests with 16 steps on
-               phase 4's text embeddings and expansion (replayed from
-               ``--out``), rank 0 decoding tiled and writing; s/step, the
-               all-reduce share
-               (gloo through the host, 2 ranks on one card, not a
-               multi-GPU number) and the video's PSNR against phase 4's
-               tiled decode of the same request. A failed rank fails the
+               the 5 s path's image request with 16 steps and its video
+               request with TP_VIDEO_STEPS (2; cut from 16 so that phase 7
+               fits the smoke's time) on phase 4's text embeddings and
+               expansion (replayed from ``--out``), rank 0 decoding tiled
+               and writing, exact K8/K1 counts per rank; s/step and the
+               all-reduce share (gloo through the host, 2 ranks on one
+               card, not a multi-GPU number). A failed rank fails the
                run;
   6. serving — on phase 4's DiT, VAE and towers (moved back to the card)
                under config_5s_sft.yaml (50 steps, guidance 5.0, its MagCache
@@ -161,7 +163,38 @@ Phases, each of which must pass (any failure exits nonzero):
                conditioning packed as the reference packs it, latents and
                tiled frames), encoding with the towers at the pipeline's
                default scheduler scale, must read the towers' error 0 and
-               give bit-equal latents and frames.
+               give bit-equal latents and frames;
+  7. training — on phase 4's VAE and towers: (1) the encode at full
+               width, bf16 on the card (K3's prologue instance, K3 plain,
+               K4) against the same weights in fp32 on the CPU, 9 frames
+               at 192 x 256 (the mid block's 2,304 voxels take K4) and 13
+               frames at 64 x 128 through two temporal tiles, within
+               ENCODE_BOUND, with K3 and K4 launched; the mid attention's
+               branch on the card's own input within MID_BOUND, its
+               control without the frame-causal ids failing it; the int8
+               encode held conv by conv on the card (``held_k3``; control:
+               the quantization off); K3 and K4 at the encoder's own
+               shapes against their plain versions, beside cuDNN / SDPA;
+               (2) full-size encodes timed with their peak memory and
+               K3/K4 launches: a 512 x 768 image, a 25-frame 512 x 768 clip
+               (temporal tiles), a 1024 x 1024 image (spatial tiles); (3)
+               ``precompute_shard`` on four seeded 512 x 768 images with
+               the towers, read back equal at fp16, and a
+               ``LatentShardLoader`` on the card (batch 2); (4) on its first
+               batch the sft DiT at full width (visual_cond) cut to 2 text
+               and 2 visual blocks, fp32, dense: the loss and every gradient
+               on the card against the CPU within TRAIN_BOUND, no kernel
+               launched; control: block 0's self-attention output detached;
+               (5) the whole 2B DiT in fp32 with AdamW: ``attn_impl="auto"``
+               must raise the kernels' autograd refusal; three
+               ``train_step``s, the state saved after step 1, restored after
+               step 3 and step 2 taken again: the same loss, parameters
+               within RESUME_BOUND (control: the step-0 state); s/step,
+               visual tokens/s and peak memory; (6) the Qwen2.5-VL vision
+               tower at full width cut to 2 blocks, bf16 on the card
+               against fp32 on the CPU on a 448 x 448 image within
+               VISION_BOUND (control: the window permutation left out),
+               then the whole 32-block tower timed.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -536,55 +569,66 @@ def phase_k4(dev, g, results):
     the weights are far from uniform."""
     import torch
 
+    for t, past, filled in ((4, 4, 2), (4, 4, 0), (3, 4, 4), (5, 0, 0)):
+        run = _k4_case(dev, g, results, t, 6144, past, filled)
+        if len(results["K4_flash_online"]) == 1:
+            log("    under a steady run of K4: " + _clock_under(run))
+        del run
+    torch.cuda.empty_cache()
+
+
+def _k4_case(dev, g, results, t: int, s: int, past: int = 0, filled: int = 0,
+             label: str = ""):
+    """One K4 case of the mid block: ``t`` frames of ``s`` tokens against
+    ``past`` carried frames (``filled`` of them valid) and themselves, held
+    against the plain version with a uniform-weight control, timed beside
+    SDPA with the same boolean mask; its TFLOP/s and K/V rate are logged.
+    Returns the kernel call on the case's inputs."""
+    import torch
+
     from kandinsky5_tpu_torch.ops.flash import flash_online, flash_online_plain
 
-    s = 6144
-    for t, past, filled in ((4, 4, 2), (4, 4, 0), (3, 4, 4), (5, 0, 0)):
-        q = torch.randn((1, t * s, 1, 512), generator=g, device=dev).bfloat16()
-        k = torch.randn((1, (past + t) * s, 1, 512), generator=g,
-                        device=dev).bfloat16()
-        v = torch.randn((1, (past + t) * s, 1, 512), generator=g,
-                        device=dev).bfloat16()
-        slot = torch.arange(past, device=dev)
-        kv_ids = torch.cat([slot.repeat_interleave(s), (past + torch.arange(
-            t, device=dev)).repeat_interleave(s)])[None]
-        q_ids = kv_ids[:, past * s:]
-        mask = None
-        if past:
-            mask = torch.cat([(slot >= past - filled).repeat_interleave(s),
-                              torch.ones(t * s, dtype=torch.bool,
-                                         device=dev)])[None]
-        # the (query, key) pairs the ids and the mask allow: the work K4
-        # does and the library call's boolean mask
-        allowed = q_ids[0, :, None] >= kv_ids[0, None, :]
-        if mask is not None:
-            allowed &= mask[0, None, :]
-        pairs = int(allowed.sum())
-        label = (f"q {t * s} kv {(past + t) * s} d 512"
-                 + (f", {filled} of {past} carried valid" if past
-                    else ", tiled tile (q = kv)"))
-        _compare("K4_flash_online", label,
-                 lambda: flash_online(q, k, v, mask, q_ids, kv_ids),
-                 lambda: flash_online_plain(q, k, v, mask, q_ids, kv_ids),
-                 results,
-                 work=(4.0 * pairs * 512,
-                       _nbytes(q, k, v, q, mask, q_ids, kv_ids)),
-                 control_fn=lambda: flash_online_plain(q * 0, k, v, mask,
-                                                       q_ids, kv_ids),
-                 library_fn=_sdpa(q, k, v, allowed[None, None]))
-        r = results["K4_flash_online"][-1]
-        r["tflops"] = 4.0 * pairs * 512 / r["ms"] / 1e9
-        r["kv_gb"] = k4_tiles_read(q.shape[1], k.shape[1], mask, q_ids,
-                                   kv_ids) * 2 * 32 * 1024 / 1e9
-        log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
-            f"% of the tensor-core bound); {r['ms'] / r['library_ms']:.2f}x "
-            f"SDPA; K/V tiles read {r['kv_gb']:.2f} GB, "
-            f"{r['kv_gb'] / r['ms']:.2f} TB/s through L2")
-        if len(results["K4_flash_online"]) == 1:
-            log("    under a steady run of K4: " + _clock_under(
-                lambda: flash_online(q, k, v, mask, q_ids, kv_ids)))
-        del q, k, v, allowed
-    torch.cuda.empty_cache()
+    q = torch.randn((1, t * s, 1, 512), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, (past + t) * s, 1, 512), generator=g,
+                    device=dev).bfloat16()
+    v = torch.randn((1, (past + t) * s, 1, 512), generator=g,
+                    device=dev).bfloat16()
+    slot = torch.arange(past, device=dev)
+    kv_ids = torch.cat([slot.repeat_interleave(s), (past + torch.arange(
+        t, device=dev)).repeat_interleave(s)])[None]
+    q_ids = kv_ids[:, past * s:]
+    mask = None
+    if past:
+        mask = torch.cat([(slot >= past - filled).repeat_interleave(s),
+                          torch.ones(t * s, dtype=torch.bool,
+                                     device=dev)])[None]
+    # the (query, key) pairs the ids and the mask allow: the work K4 does
+    # and the library call's boolean mask
+    allowed = q_ids[0, :, None] >= kv_ids[0, None, :]
+    if mask is not None:
+        allowed &= mask[0, None, :]
+    pairs = int(allowed.sum())
+    label = label or (f"q {t * s} kv {(past + t) * s} d 512"
+                      + (f", {filled} of {past} carried valid" if past
+                         else ", tiled tile (q = kv)"))
+    _compare("K4_flash_online", label,
+             lambda: flash_online(q, k, v, mask, q_ids, kv_ids),
+             lambda: flash_online_plain(q, k, v, mask, q_ids, kv_ids),
+             results,
+             work=(4.0 * pairs * 512,
+                   _nbytes(q, k, v, q, mask, q_ids, kv_ids)),
+             control_fn=lambda: flash_online_plain(q * 0, k, v, mask,
+                                                   q_ids, kv_ids),
+             library_fn=_sdpa(q, k, v, allowed[None, None]))
+    r = results["K4_flash_online"][-1]
+    r["tflops"] = 4.0 * pairs * 512 / r["ms"] / 1e9
+    r["kv_gb"] = k4_tiles_read(q.shape[1], k.shape[1], mask, q_ids,
+                               kv_ids) * 2 * 32 * 1024 / 1e9
+    log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
+        f"% of the tensor-core bound); {r['ms'] / r['library_ms']:.2f}x "
+        f"SDPA; K/V tiles read {r['kv_gb']:.2f} GB, "
+        f"{r['kv_gb'] / r['ms']:.2f} TB/s through L2")
+    return lambda: flash_online(q, k, v, mask, q_ids, kv_ids)
 
 
 def _rate(results, name, ops: float, against: str = "the bf16 chain"):
@@ -1411,6 +1455,13 @@ def seeded_text_embedder(dev, conf, qwen_layers=None, seed=21):
                                   StandInTokenizer.clip())
 
 
+def _params_to_cpu(t):
+    """An fp32 CPU copy of a nested dict of tensors (VAE parameters)."""
+    if isinstance(t, dict):
+        return {k: _params_to_cpu(v) for k, v in t.items()}
+    return t.float().cpu()
+
+
 def _cpu_copy(model):
     """An fp32 CPU copy of a text tower built on the card."""
     import torch
@@ -1573,15 +1624,11 @@ def phase_reference(dev, conf):
 
     vp = init_vae_params(device=dev, dtype=torch.bfloat16, seed=3)
 
-    def to_cpu(t):
-        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t.float().cpu()
-
     z = torch.randn((1, 5, 16, 32, 16), generator=g)
     _kernels.reset_launches()
     out_v = streaming_decode(vp, z.to(dev).bfloat16())
     launched_v = dict(_kernels.LAUNCHES)
-    ref_v = streaming_decode(to_cpu(vp), z)
+    ref_v = streaming_decode(_params_to_cpu(vp), z)
     e_vae = _rel(out_v, ref_v)
     log(f"  VAE stream decode (1,5,16,32,16) -> {tuple(out_v.shape)}: rel_l2 "
         f"{e_vae:.3e} (tol 5e-2), kernel launches {launched_v}")
@@ -1596,7 +1643,7 @@ def phase_reference(dev, conf):
     e_fused = _rel(out_f, ref_v)
     log(f"  VAE stream decode, fuse_gn=True, (1,5,16,32,16): rel_l2 "
         f"{e_fused:.3e} (tol 5e-2), kernel launches {launched_f}")
-    tiled = phase_tiled_reference(dev, vp, to_cpu(vp), g)
+    tiled = phase_tiled_reference(dev, vp, _params_to_cpu(vp), g)
     if not (e_dit < 5e-2 and e_nabla < 5e-2 and e_int8 < 5e-2
             and e_vae < 5e-2 and e_fused < 5e-2):
         raise Failure(f"path disagrees with its CPU reference: DiT {e_dit}, "
@@ -1695,6 +1742,44 @@ def phase_text(dev, conf):
 TILED_REF = ((1, 3, 12, 24, 16), (9, 64, 128), (4, 32, 64))
 
 
+def held_k3(run, quant_off=False):
+    """``run()`` with every K3 call of the VAE held against its plain
+    version on the same input (W8A8 calls up to flipped codes,
+    ``_flips_only``; the others within K3's tolerance); with ``quant_off``
+    the W8A8 calls run the bf16 kernel (a control). Returns (run's result,
+    [(W8A8?, rel_l2, within the check?)]). ``run`` may replace
+    ``ops.conv.quant_window_scales``; it is restored after."""
+    from kandinsky5_tpu_torch.models import vae as vae_mod
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    real_conv, real_scales = vae_mod.causal_conv3d_fused, \
+        conv_mod.quant_window_scales
+    atol, rtol = TOL["K3_conv3d_fused"]
+    calls = []
+
+    def conv(x, w, b, *args, **kw):
+        quant = kw.get("quant", False)
+        y = real_conv(x, w, b, *args, **dict(kw, quant=quant and not
+                                              quant_off))
+        want = conv_mod.conv3d_plain(x, w, b, *args, **kw)
+        max_abs, rel = _errors(y, want)
+        if quant:
+            xt = x if kw.get("scale") is None else conv_mod.conv_prologue(
+                x, kw["scale"], kw["shift"], kw.get("act", False))
+            ok = _flips_only(xt, w)(y, want)
+        else:
+            ok = max_abs <= atol and rel <= rtol
+        calls.append((quant, rel, ok))
+        return y
+
+    vae_mod.causal_conv3d_fused = conv
+    try:
+        return run(), calls
+    finally:
+        vae_mod.causal_conv3d_fused = real_conv
+        conv_mod.quant_window_scales = real_scales
+
+
 def phase_tiled_reference(dev, vp, vp_cpu, g):
     """The tiled decode at tile settings that force two temporal and 2 x 2
     spatial tiles (``TILED_REF``; every level but the first, 16 px wide, is
@@ -1719,7 +1804,6 @@ def phase_tiled_reference(dev, vp, vp_cpu, g):
     logged."""
     import torch
 
-    from kandinsky5_tpu_torch.models import vae as vae_mod
     from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE
     from kandinsky5_tpu_torch.ops import _kernels
     from kandinsky5_tpu_torch.ops import conv as conv_mod
@@ -1744,43 +1828,14 @@ def phase_tiled_reference(dev, vp, vp_cpu, g):
         f"{tuple(out_bf16.shape)}: rel_l2 {e_bf16:.3e} (tol 5e-2), kernel "
         f"launches {launched}")
 
-    real_conv, real_scales = vae_mod.causal_conv3d_fused, \
-        conv_mod.quant_window_scales
-    atol, rtol = TOL["K3_conv3d_fused"]
+    real_scales = conv_mod.quant_window_scales
 
     def one_scale(*args):
         s, _ = real_scales(*args)
         top = s.max()
         return torch.full_like(s, top), torch.full_like(s, 1.0) / top
 
-    def held(run, quant_off=False):
-        """``run()`` with every K3 call of the VAE held against its plain
-        version on the same input; returns (run's result, [(W8A8?, rel_l2,
-        within the check?)])."""
-        calls = []
-
-        def conv(x, w, b, *args, **kw):
-            quant = kw.get("quant", False)
-            y = real_conv(x, w, b, *args, **dict(kw, quant=quant and not
-                                                  quant_off))
-            want = conv_mod.conv3d_plain(x, w, b, *args, **kw)
-            max_abs, rel = _errors(y, want)
-            if quant:
-                xt = x if kw.get("scale") is None else conv_mod.conv_prologue(
-                    x, kw["scale"], kw["shift"], kw.get("act", False))
-                ok = _flips_only(xt, w)(y, want)
-            else:
-                ok = max_abs <= atol and rel <= rtol
-            calls.append((quant, rel, ok))
-            return y
-
-        vae_mod.causal_conv3d_fused = conv
-        try:
-            return run(), calls
-        finally:
-            vae_mod.causal_conv3d_fused = real_conv
-            conv_mod.quant_window_scales = real_scales
-
+    held = held_k3
     v8 = vae(vp, int8_conv=True)
     _kernels.reset_launches()
     out_i8, calls = held(lambda: v8.decode(zd, opt_tiling=False, mode="tiled"))
@@ -1945,9 +2000,9 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     ``offload=True``. Every request is encoded by the full-size seeded
     Qwen2.5-VL-7B and CLIP behind the stand-in tokenizers; their
     embeddings and expansions are saved in ``out_dir`` for phase 5.
-    Returns the launches by path, the report, the 5 s path video's tiled
-    frames, the seconds the text stage added and the DiT, VAE and towers
-    (left in host memory by the offload request) for phase 6."""
+    Returns the launches by path, the report, the seconds the text stage
+    added and the DiT, VAE and towers (left in host memory by the offload
+    request) for phase 6."""
     import torch
 
     from kandinsky5_tpu_torch.ops import _kernels
@@ -2031,7 +2086,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     torch.cuda.empty_cache()
     log("  decodes of the requests' latents: tiled, int8 convs (stream and "
         "tiled), 1024 x 1024")
-    rep, dec_launches, tiled = phase_decodes(
+    rep, dec_launches = phase_decodes(
         dev, conf5, vae, latents, videos[bf16_video[0]],
         videos10[video10[0]] if seconds10 == 10 else None)
     report += rep
@@ -2041,7 +2096,7 @@ def phase_pipeline(dev, conf5, conf10, seconds5: int, seconds10: int,
     report += text_options(towers, embedder, conf5, dit, vae, videos,
                            report[0], out_dir)
     text_added += time.perf_counter() - t0
-    return ({**launches, **dec_launches}, report, tiled, text_added,
+    return ({**launches, **dec_launches}, report, text_added,
             (dit, vae, towers))
 
 
@@ -2309,7 +2364,7 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
                           f"frames {frames.shape} {frames.dtype}")
         launches[f"decode-{name}"] = got
         report.append(line)
-    return report, launches, decoded["tiled"]
+    return report, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2319,6 +2374,9 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
 # seed of the tp forward's weights and inputs
 TP_SEED = 5
 TP_WORLDS = (2, 4)
+# the tp = 2 video request's steps (the image keeps the config's 16): the
+# smoke's time goes to phase 7 instead
+TP_VIDEO_STEPS = 2
 # a tp forward against the tp = 1 forward on the same card, relative L2: the
 # two sum the row-parallel products in another order and round each rank's
 # partial sum to bf16, which 34 bf16 blocks carry to the output. Over seeds
@@ -2443,15 +2501,16 @@ def _tp_request_rank(tp, seconds, out_dir):
     pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
         os.path.join(out_dir, TEXT_FILE)), vae, tp=tp)
     _, prompt, _, shape, _, _ = IMAGE_REQUEST
-    requests = [("tp2 image", prompt, 0, shape, "tp2_image.png", True),
-                _video("tp2", seconds, VIDEO_PROMPT) + (False,)]
+    requests = [("tp2 image", prompt, 0, shape, "tp2_image.png", True, None),
+                _video("tp2", seconds, VIDEO_PROMPT) + (False,
+                                                        TP_VIDEO_STEPS)]
     report, frames = [], None
     _kernels.reset_launches()
-    for name, prompt, tl, shape, fname, expand in requests:
+    for name, prompt, tl, shape, fname, expand, steps in requests:
         torch.cuda.synchronize()
         t = time.perf_counter()
         frames = pipe(prompt, time_length=tl, width=768, height=512, seed=42,
-                      expand_prompts=expand,
+                      num_steps=steps, expand_prompts=expand,
                       save_path=os.path.join(out_dir, fname))
         wall = time.perf_counter() - t
         tm = dict(pipe.timings)
@@ -2473,8 +2532,7 @@ def _tp_request_rank(tp, seconds, out_dir):
         elif frames is not None:
             raise Failure(f"rank {tp.rank} returned frames")
         report.append(line)
-    return dict(report=report, launches=dict(_kernels.LAUNCHES),
-                video=frames)
+    return dict(report=report, launches=dict(_kernels.LAUNCHES))
 
 
 def tp_forwards(dev, cfg, seed: int = TP_SEED):
@@ -2569,25 +2627,25 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
     return launches, report, failed
 
 
-def phase_tp(dev, conf5, seconds5: int, tiled_frames, out_dir: str):
+def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     """(a) :func:`tp_forwards` at TP_SEED. (b) The tp = 2 pipeline answers
-    the 5 s path's image and video requests; the video's frames against
-    phase 4's tiled decode of the same request (PSNR)."""
+    the 5 s path's image (the config's steps) and video (TP_VIDEO_STEPS
+    steps) requests."""
     from kandinsky5_tpu_torch.parallel import launch
-    from kandinsky5_tpu_torch.utils.metrics import psnr
 
     launches, report, failed = tp_forwards(dev, conf5.model.dit_params)
     if failed:
         raise Failure("; ".join(failed))
     n_text = conf5.model.dit_params.num_text_blocks
     n_vis = conf5.model.dit_params.num_visual_blocks
-    log(f"  tp 2 pipeline ({os.path.basename(CONF5)}, {conf5.model.num_steps}"
-        " steps): the image and the video requests, rank 0 decodes tiled")
+    log(f"  tp 2 pipeline ({os.path.basename(CONF5)}): the image request "
+        f"({conf5.model.num_steps} steps) and the video request "
+        f"({TP_VIDEO_STEPS} steps), rank 0 decodes tiled")
     res = launch(_tp_request_rank, 2, "gloo", "cuda",
                  args=(seconds5, out_dir), timeout=900)
-    steps = conf5.model.num_steps
-    want = {"K8_ff": 2 * n_vis * steps,
-            "K1_flash_fixed": 2 * (n_text + n_vis) * steps, "K2_ff_mod": 0}
+    steps = conf5.model.num_steps + TP_VIDEO_STEPS
+    want = {"K8_ff": n_vis * steps,
+            "K1_flash_fixed": (n_text + n_vis) * steps, "K2_ff_mod": 0}
     bad = []
     for rank, r in enumerate(res):
         got = r["launches"]
@@ -2611,10 +2669,6 @@ def phase_tp(dev, conf5, seconds5: int, tiled_frames, out_dir: str):
                                                and not line["frames_ok"]):
                 bad.append(f"{line['request']} rank {rank}: bad output")
             report.append(line)
-    db = psnr(res[0]["video"], tiled_frames)
-    res[0]["report"][-1]["psnr_vs_tp1_tiled_db"] = db
-    log(f"  tp 2 video: frame PSNR against the tp 1 request's tiled decode "
-        f"{db:.2f} dB")
     launches["tp2-requests"] = {
         k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
     if bad:
@@ -3049,6 +3103,642 @@ def phase_serving(dev, built, seconds10: int, out_dir: str):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the training path — the VAE encode on K3 and K4, latent shards,
+# the flow-matching trainer and the Qwen2.5-VL vision tower
+# ---------------------------------------------------------------------------
+
+# the encode held against the CPU: 9 frames at 192 x 256 px, whose mid
+# block (3 x 24 x 32 = 2,304 latent voxels) takes K4; and 13 frames at 64 x
+# 128 px through the temporal tiles (9 frames, stride 4: two tiles blended
+# over one latent frame)
+ENCODE_REF = (1, 9, 192, 256, 3)
+ENCODE_TILED = ((1, 13, 64, 128, 3), ((9, 64, 128), (4, 64, 128)))
+# bf16 encode on the card against fp32 on the CPU (the bound of the stream
+# decode's check); the mid attention's residual branch on the card's own
+# input against the plain one on the CPU (K4 and the bf16 q, k, v: a few
+# 1e-3), which the same branch without the frame-causal ids misses by about
+# 5e-2 on frames that brighten over time (measured on the CPU)
+ENCODE_BOUND = 5e-2
+MID_BOUND = 1.5e-2
+# the full-size encodes: a 512 x 768 image (as the shard's), a 25-frame
+# 512 x 768 clip (two temporal tiles of 17 frames, OPT_TEMPORAL_TILING[25])
+# and a 1024 x 1024 image (2 x 2 spatial tiles, OPT_SPATIAL_TILING[1024])
+FULL_ENCODES = (("image 512x768", (1, 1, 512, 768, 3)),
+                ("clip 25x512x768", (1, 25, 512, 768, 3)),
+                ("image 1024x1024", (1, 1, 1024, 1024, 3)))
+SHARD_IMAGES = 4
+SHARD_IMAGE = (1, 512, 768, 3)
+SHARD_BATCH = 2
+# the cut DiT's loss and gradients, fp32 on the card against fp32 on the CPU
+# (TF32 off: summation order only), largest rel_l2 over the parameters
+TRAIN_BOUND = 1e-3
+TRAIN_LR = 1e-5
+# resumed against uninterrupted parameters after step 2 (rel_l2); a step
+# moves them about lr / 0.0115 = 1e-3 (uniform +-0.02 weights)
+RESUME_BOUND = 1e-6
+# the vision tower held against the CPU: full width, 2 blocks (the second
+# full attention), a 448 x 448 image, bf16 against fp32 (6e-3 with bf16 on
+# the CPU; leaving the window permutation out moves it 7e-2)
+VISION_GRID = (1, 32, 32)
+VISION_BOUND = 2e-2
+
+
+def _ramp_pixels(shape, seed):
+    """Seeded frames in [-1, 1]: noise over a brightness ramp in time, so
+    the frames differ and the mid attention's frame-causal mask matters."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    t = shape[1]
+    ramp = torch.linspace(-1.0, 1.0, t).reshape(1, t, 1, 1, 1)
+    return (0.3 * torch.randn(shape, generator=g).tanh()
+            + 0.7 * ramp).clamp(-1.0, 1.0)
+
+
+def _encode_launches():
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    return {k: n for k, n in _kernels.LAUNCHES.items() if n}
+
+
+def _noncausal_mid(p, x):
+    """The mid attention without its frame-causal ids (a control)."""
+    from kandinsky5_tpu_torch.models import vae as vae_mod
+    from kandinsky5_tpu_torch.ops.flash import flash_attention
+
+    b, t, h, w, c = x.shape
+    tokens = vae_mod.group_norm(p["group_norm"], x).reshape(b, t * h * w, c)
+    q, k, v = (vae_mod._proj(p[n], tokens).to(x.dtype)[:, :, None]
+               for n in ("to_q", "to_k", "to_v"))
+    out = flash_attention(q, k, v)[:, :, 0].float()
+    out = vae_mod._proj(p["to_out"]["0"], out)
+    return out.reshape(x.shape).to(x.dtype) + x
+
+
+def phase_encode_reference(dev, vae):
+    """The encode at full width, bf16 on the card (K3's prologue instance
+    where the TPU kernel admits a conv, K3 plain elsewhere, K4 in the mid
+    block) against the same weights in fp32 on the CPU (plain versions):
+    untiled (``ENCODE_REF``) and through the temporal tiles
+    (``ENCODE_TILED``), each within ENCODE_BOUND. The mid attention's
+    residual branch, recorded on the card, is held against the plain one on
+    the card's own input (MID_BOUND); the same branch without its
+    frame-causal ids must fail that bound. Then the int8 encode, held conv
+    by conv against the plain versions on the card (``held_k3``), with the
+    quantization off as a control that must fail."""
+    import torch
+
+    from kandinsky5_tpu_torch.models import vae as vae_mod
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    vp_cpu = {k: _params_to_cpu(vae.params[k])
+              for k in ("encoder", "quant_conv")}
+    cpu = HunyuanVideoVAE(vp_cpu, dtype=torch.float32)
+    readings, launches, bad = {}, {}, []
+
+    x = _ramp_pixels(ENCODE_REF, 31)
+    mids = []
+    real_mid = vae_mod.mid_attention
+
+    def record(p, h):
+        out = real_mid(p, h)
+        mids.append((p, h, out))
+        return out
+
+    vae_mod.mid_attention = record
+    try:
+        _kernels.reset_launches()
+        got = vae.encode_moments(x.to(dev))
+        torch.cuda.synchronize()
+        launches["7-encode"] = dict(_kernels.LAUNCHES)
+    finally:
+        vae_mod.mid_attention = real_mid
+    launched = _encode_launches()
+    t0 = time.perf_counter()
+    ref = cpu.encode_moments(x)
+    cpu_s = time.perf_counter() - t0
+    e = _rel(got, ref)
+    p, h, out = mids[0]
+    hc = h.float().cpu()
+    p_cpu = vp_cpu["encoder"]["mid_block"]["attentions"]["0"]
+    want_branch = real_mid(p_cpu, hc) - hc
+    e_mid = _rel(out.float().cpu() - hc, want_branch)
+    e_ctl = _rel(_noncausal_mid(p, h).float().cpu() - hc, want_branch)
+    ok = (e <= ENCODE_BOUND and e_mid <= MID_BOUND and e_ctl > MID_BOUND
+          and launched.get("K3_conv3d_fused", 0) > 0
+          and launched.get("K4_flash_online", 0) > 0)
+    log(f"  encode {ENCODE_REF} -> {tuple(got.shape)}: rel_l2 {e:.3e} (tol "
+        f"{ENCODE_BOUND}); mid attention {tuple(h.shape)} on the card's "
+        f"input: rel_l2 {e_mid:.3e} (tol {MID_BOUND}), control (no "
+        f"frame-causal ids) {e_ctl:.3e} "
+        f"{'fails the bound' if e_ctl > MID_BOUND else 'PASSES'}; CPU "
+        f"{cpu_s:.1f} s; kernel launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad.append(f"untiled encode rel_l2 {e:.3e}, mid {e_mid:.3e}, "
+                   f"control {e_ctl:.3e}, launches {launched}")
+    readings.update(encode_rel_l2=e, encode_mid_rel_l2=e_mid,
+                    encode_mid_noncausal_rel_l2=e_ctl)
+    del mids, p, h, out, got
+
+    shape, tiling = ENCODE_TILED
+    x = _ramp_pixels(shape, 32)
+    for v in (vae, cpu):
+        v._apply_tiling(*tiling)
+    _kernels.reset_launches()
+    got = vae.encode_moments(x.to(dev), opt_tiling=False)
+    torch.cuda.synchronize()
+    launches["7-encode-tiled"] = dict(_kernels.LAUNCHES)
+    launched = _encode_launches()
+    ref = cpu.encode_moments(x, opt_tiling=False)
+    e_t = _rel(got, ref)
+    ok = e_t <= ENCODE_BOUND and launched.get("K3_conv3d_fused", 0) > 0
+    log(f"  encode {shape} through temporal tiles {tiling} -> "
+        f"{tuple(got.shape)}: rel_l2 {e_t:.3e} (tol {ENCODE_BOUND}); "
+        f"kernel launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad.append(f"tiled encode rel_l2 {e_t:.3e}, launches {launched}")
+    readings["encode_tiled_rel_l2"] = e_t
+
+    v8 = vae.replace(int8_conv=True)
+    xd = _ramp_pixels(ENCODE_REF, 31).to(dev)
+    _kernels.reset_launches()
+    _, calls = held_k3(lambda: v8.encode_moments(xd))
+    launches["7-encode-int8"] = dict(_kernels.LAUNCHES)
+    launched = _encode_launches()
+    _, calls_off = held_k3(lambda: v8.encode_moments(xd), quant_off=True)
+    q = [(rel, ok) for quant, rel, ok in calls if quant]
+    n_bad = sum(not ok for quant, _, ok in calls if quant)
+    ok_i8 = (all(ok for _, _, ok in calls) and len(q) > 0
+             and launched.get("K3_conv3d_quant", 0) > 0
+             and launched.get("K3_quant_windows", 0) > 0)
+    ok_off = all(ok for _, _, ok in calls_off)
+    log(f"  encode {ENCODE_REF} int8, conv by conv on the card: {len(calls)} "
+        f"K3 calls, {len(q)} W8A8, {n_bad} outside the check (flips only), "
+        f"worst W8A8 rel_l2 {max(r for r, _ in q):.3e}; control "
+        f"(quantization off) {'fails' if not ok_off else 'PASSES'}; kernel "
+        f"launches {launched}")
+    if not ok_i8 or ok_off:
+        bad.append(f"int8 encode: {n_bad} of {len(q)} W8A8 calls outside, "
+                   f"control passes {ok_off}, launches {launched}")
+    readings["encode_int8_w8a8_calls"] = len(q)
+    if bad:
+        raise Failure("encode: " + "; ".join(bad))
+    return readings, launches
+
+
+def phase_encode_kernels(dev, results):
+    """K3 and K4 at the encoder's shapes that the decoder never gives them,
+    each against its plain version, timed beside cuDNN / SDPA: K3's
+    prologue instance at the 25-frame clip tile's Cin != Cout convs (128 ->
+    256 at 17 x 256 x 384, 256 -> 512 at 9 x 128 x 192) and a 512-channel
+    conv at an image's latent size (1 x 64 x 96); K4 at a 512 x 768
+    image's mid block (one frame of 6,144 tokens) and at a 1024 x 1024
+    spatial tile's (68 x 68 = 4,624 tokens)."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    for cin, cout, t, hh, ww in ((128, 256, 17, 256, 384),
+                                 (256, 512, 9, 128, 192),
+                                 (512, 512, 1, 64, 96)):
+        x = torch.randn((1, t, hh, ww, cin), generator=g, device=dev).bfloat16()
+        wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev)
+              / math.sqrt(27 * cin)).bfloat16()
+        bias = torch.randn((cout,), generator=g, device=dev).bfloat16()
+        sc = 1 + 0.2 * torch.randn((cin,), generator=g, device=dev)
+        sh = 0.1 * torch.randn((cin,), generator=g, device=dev)
+        kw = dict(scale=sc, shift=sh, act=True)
+        xt = conv_mod.conv_prologue(x, sc, sh, True)
+        _compare("K3_conv3d_fused", f"{cin}->{cout} {t}x{hh}x{ww} (encode)",
+                 lambda: conv_mod.causal_conv3d_fused(x, wt, bias, **kw),
+                 lambda: conv_mod.conv3d_plain(x, wt, bias, **kw), results,
+                 work=(2.0 * 27 * t * hh * ww * cin * cout,
+                       _nbytes(x, wt, bias, sc, sh) + 2 * t * hh * ww * cout),
+                 reps=2, library_fn=_cudnn_conv(xt, wt, bias, False))
+        _k3_rate(results, "K3_conv3d_fused", 27.0 * t * hh * ww * cin * cout)
+        del x, xt
+    for s, label in ((6144, "q = kv 6144 d 512, a 512x768 image (encode)"),
+                     (4624, "q = kv 4624 d 512, a 1024x1024 tile (encode)")):
+        _k4_case(dev, g, results, 1, s, label=label)
+    torch.cuda.empty_cache()
+
+
+def phase_full_encodes(dev, vae):
+    """The encodes at full size, timed: seconds, peak GiB and K3/K4
+    launches of each of FULL_ENCODES (finite moments of the expected
+    shape)."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    report, launches = [], {}
+    for name, shape in FULL_ENCODES:
+        x = _ramp_pixels(shape, 33).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t = time.perf_counter()
+        z = vae.encode(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = (1, (shape[1] - 1) // 4 + 1, shape[2] // 8, shape[3] // 8, 16)
+        k3 = {k: n for k, n in got.items() if k.startswith("K3") and n}
+        log(f"  encode {name} {shape} -> {tuple(z.shape)}: {wall:.3f} s, "
+            f"peak {peak:.2f} GiB, K3 {k3}, K4 {got['K4_flash_online']}")
+        if tuple(z.shape) != want or not bool(torch.isfinite(z).all()) \
+                or got["K4_flash_online"] == 0:
+            raise Failure(f"encode {name}: {tuple(z.shape)}, launches {got}")
+        launches[f"7-encode {name}"] = got
+        report.append(dict(request=f"encode {name}", encode_s=wall,
+                           peak_gib=peak, k3=k3,
+                           k4=got["K4_flash_online"]))
+        del x, z
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def phase_shard(dev, conf5, built, out_dir):
+    """``precompute_shard`` on SHARD_IMAGES seeded 512 x 768 images with
+    phase 4's VAE and full-size towers, then a ``LatentShardLoader`` on the
+    card (batch SHARD_BATCH). The shard read back must equal what was
+    encoded at fp16, and the loader's batches its rows. Returns the
+    loader's first batch and the report line."""
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.data import LatentShardLoader, precompute_shard
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    dit, vae, towers = built
+    pipe = Kandinsky5T2VPipeline(dit, conf5, towers, vae)
+    g = torch.Generator().manual_seed(34)
+    images = torch.randint(0, 256, (SHARD_IMAGES,) + SHARD_IMAGE,
+                           generator=g, dtype=torch.uint8).numpy()
+    captions = [f"a training image {i}" for i in range(SHARD_IMAGES)]
+    path = os.path.join(out_dir, "shard0.npz")
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    precompute_shard(path, pipe, images, captions)
+    wall = time.perf_counter() - t
+    launches = dict(_kernels.LAUNCHES)
+    with np.load(path) as z:
+        shard = {k: z[k] for k in z.files}
+    same = True
+    for i in range(SHARD_IMAGES):
+        x = torch.from_numpy(images[i].astype(np.float32) / 127.5 - 1.0)
+        lat = vae.encode(x[None].to(dev)) * vae.scaling_factor
+        cond = towers.encode([captions[i]], "video")
+        want = {"latents": lat[0], "text_embeds": cond.text_embeds[0],
+                "pooled_embed": cond.pooled_embed[0],
+                "text_mask": cond.mask[0]}
+        for k, v in want.items():
+            v = v.float().cpu().numpy().astype(shard[k].dtype)
+            same &= np.array_equal(shard[k][i], v[:len(shard[k][i])])
+    loader = LatentShardLoader([path], SHARD_BATCH, seed=0, device=dev)
+    batches = list(loader.epoch(0))
+    rows = {shard["latents"][i].tobytes(): i for i in range(SHARD_IMAGES)}
+    in_shard = all(b["latents"][j].float().cpu().numpy().astype(np.float16)
+                   .tobytes() in rows for b in batches for j in range(
+                       SHARD_BATCH))
+    ok = (same and in_shard and len(batches) == SHARD_IMAGES // SHARD_BATCH
+          and batches[0]["latents"].device.type == dev.type
+          and batches[0]["text_mask"].dtype == torch.bool)
+    log(f"  shard: {SHARD_IMAGES} images {SHARD_IMAGE[1:3]} encoded with their captions "
+        f"in {wall:.2f} s ({os.path.getsize(path)} bytes), read back equal "
+        f"at fp16 {same}; loader {len(batches)} batches of {SHARD_BATCH} on "
+        f"the card, rows from the shard {in_shard}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if not ok:
+        raise Failure(f"shard: equal {same}, loader rows {in_shard}, "
+                      f"{len(batches)} batches")
+    return batches[0], dict(request="shard", shard_s=wall,
+                            shard_bytes=os.path.getsize(path)), launches
+
+
+def _zero_launches(what) -> dict:
+    """The launch counts of a training run, which must all be 0: fp32
+    training on dense attention runs no kernel."""
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    launched = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    if launched:
+        raise Failure(f"{what} launched kernels {launched}: fp32 training on "
+                      "dense attention runs none")
+    return dict(_kernels.LAUNCHES)
+
+
+def phase_train_reference(dev, conf_sft, batch):
+    """The loss and every gradient of ``flow_matching_loss`` on the loader's
+    batch, the sft DiT at full width (visual_cond, 33 input channels) cut
+    to 2 text and 2 visual blocks, fp32 on the card against fp32 on the
+    CPU (dense attention; no kernel may launch): the largest rel_l2 over
+    the parameters within TRAIN_BOUND. A control must fail it: the same
+    step with the first visual block's self-attention output detached (the
+    fault ``refuse_grad`` keeps a kernel from committing)."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.models import dit as dit_mod
+    from kandinsky5_tpu_torch.models.dit import (
+        DiffusionTransformer3D,
+        fast_init_dit_params,
+    )
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.training import flow_matching_loss
+
+    cfg = dataclasses.replace(conf_sft.model.dit_params, num_text_blocks=2,
+                              num_visual_blocks=2)
+    model = fast_init_dit_params(cfg, device=dev, dtype=torch.float32,
+                                 seed=12)
+    cpu = DiffusionTransformer3D(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    g = torch.Generator().manual_seed(13)
+    x0 = batch["latents"]
+    t = 1e-4 + (1.0 - 1e-4) * torch.rand(x0.shape[0], generator=g)
+    noise = torch.randn(x0.shape, generator=g)
+    keys = ("latents", "text_embeds", "pooled_embed", "text_mask")
+
+    def grads(m, device):
+        args = [batch[k].to(device) for k in keys]
+        with torch.enable_grad():
+            loss = flow_matching_loss(m, cfg, *args, t.to(device),
+                                      noise.to(device), attn_impl="dense")
+            params = list(m.parameters())
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if gr is None else gr
+                               for p, gr in zip(params, gs)]
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss, got = grads(model, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = _zero_launches("the training reference")
+    t0 = time.perf_counter()
+    loss_ref, want = grads(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    real = dit_mod._self_attention
+    target = model.visual_transformer_blocks[0].self_attention
+
+    def detached(p, *a, **kw):
+        out = real(p, *a, **kw)
+        return out.detach() if p is target else out
+
+    dit_mod._self_attention = detached
+    try:
+        _, ctl = grads(model, dev)
+    finally:
+        dit_mod._self_attention = real
+    e_loss = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+    worst = max(_rel(a, b) for a, b in zip(got, want))
+    worst_ctl = max(_rel(a, b) for a, b in zip(ctl, want))
+    ok = e_loss <= TRAIN_BOUND and worst <= TRAIN_BOUND < worst_ctl
+    log(f"  training reference, DiT 2+2 blocks full width fp32 "
+        f"({sum(p.numel() for p in model.parameters())} params), batch "
+        f"{tuple(x0.shape)}: loss {loss.item():.6f} (CPU "
+        f"{loss_ref.item():.6f}, rel {e_loss:.3e}); worst gradient rel_l2 "
+        f"{worst:.3e} over {len(want)} parameters (tol {TRAIN_BOUND}); "
+        f"control (block 0's self-attention detached) {worst_ctl:.3e} "
+        f"{'fails the bound' if worst_ctl > TRAIN_BOUND else 'PASSES'}; card "
+        f"{card_s:.2f} s, CPU {cpu_s:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise Failure(f"training reference: loss rel {e_loss:.3e}, worst "
+                      f"gradient {worst:.3e}, control {worst_ctl:.3e}")
+    return dict(train_loss_rel=e_loss, train_grad_worst_rel_l2=worst,
+                train_grad_detached_rel_l2=worst_ctl), launches
+
+
+def _params_rel(params, want) -> float:
+    """rel_l2 of one list of tensors against another, over all of them."""
+    num = den = 0.0
+    for a, b in zip(params, want):
+        num += float((a.detach() - b).float().square().sum())
+        den += float(b.float().square().sum())
+    return math.sqrt(num / den)
+
+
+def phase_train_full(dev, conf_sft, batch, out_dir):
+    """The whole 2B sft DiT in fp32 (uniform +-0.02 from a seed) with its
+    AdamW state, ``train_step`` on the loader's batch (dense attention, no
+    kernel may launch): ``attn_impl="auto"`` must raise the guard's error;
+    three steps with finite losses; ``save_train_state`` after step 1,
+    ``load_train_state`` into the state after step 3, step 2 again on the
+    same draws: the loss equal to the uninterrupted step 2's and every
+    parameter within RESUME_BOUND (bit-equal reported); the step-0 state
+    (the seeded init, zero moments) restored instead must miss the bound.
+    Prints s/step, visual tokens/s, the save and load seconds and the peak
+    memory."""
+    import shutil
+
+    import torch
+
+    from kandinsky5_tpu_torch import training
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    cfg = conf_sft.model.dit_params
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    model = fast_init_dit_params(cfg, device=dev, dtype=torch.float32,
+                                 seed=14)
+    opt = training.make_optimizer(lr=TRAIN_LR)
+    state = training.init_train_state(model, opt)
+    args = [batch[k] for k in ("latents", "text_embeds", "pooled_embed",
+                               "text_mask")]
+    n_params = sum(p.numel() for p in model.parameters())
+    try:
+        training.train_step(state, cfg, opt, *args,
+                            torch.Generator(device=dev).manual_seed(1),
+                            attn_impl="auto")
+        raise Failure("train_step with attn_impl='auto' did not raise")
+    except RuntimeError as e:
+        refused = str(e).split(":")[0]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ckpt = os.path.join(out_dir, "train_state")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _kernels.reset_launches()
+    losses, step_s = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = training.train_step(state, cfg, opt, *args, gen,
+                                          attn_impl="dense")
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t)
+        if i == 0:
+            t = time.perf_counter()
+            training.save_train_state(state, ckpt, state.step)
+            save_s = time.perf_counter() - t
+            gen_after_1 = gen.get_state()
+        if i == 1:
+            after_2 = [p.detach().clone() for p in model.parameters()]
+    launches = _zero_launches("fp32 training")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = training.load_train_state(ckpt, state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    resumed_at = state.step
+    gen.set_state(gen_after_1)
+    state, loss_r = training.train_step(state, cfg, opt, *args, gen,
+                                        attn_impl="dense")
+    e_res = _params_rel(model.parameters(), after_2)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                      after_2))
+    # control: the step-0 state restored instead (fast_init_dit_params'
+    # draws again, in place, and zero moments)
+    with torch.no_grad():
+        gi = torch.Generator(device=dev).manual_seed(14)
+        for prm in model.parameters():
+            prm.uniform_(-0.02, 0.02, generator=gi)
+        for m in state.opt_state["mu"] + state.opt_state["nu"]:
+            m.zero_()
+    state = training.TrainState(model, dict(state.opt_state, count=0), 0)
+    gen.set_state(gen_after_1)
+    state, loss_c = training.train_step(state, cfg, opt, *args, gen,
+                                        attn_impl="dense")
+    e_ctl = _params_rel(model.parameters(), after_2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(ckpt, ignore_errors=True)
+    s_step = sum(step_s) / len(step_s)
+    tokens = math.prod(args[0].shape[:4]) // math.prod(cfg.patch_size)
+    ok = (all(math.isfinite(v) for v in losses) and loss_r.item() == losses[1]
+          and resumed_at == 1 and e_res <= RESUME_BOUND < e_ctl
+          and refused.startswith("K1"))
+    log(f"  training, the 2B DiT fp32 ({n_params} params, AdamW lr "
+        f"{TRAIN_LR}), batch {tuple(args[0].shape)} = {tokens} visual "
+        f"tokens, text {tuple(args[1].shape)}: losses {losses}; "
+        f"{s_step:.3f} s/step (steps {[round(v, 3) for v in step_s]}), "
+        f"{tokens / s_step:.0f} visual tokens/s; attn_impl='auto' refused "
+        f"at {refused}; save {save_s:.1f} s, load {load_s:.1f} s; resumed "
+        f"step 2 loss {loss_r.item()} (uninterrupted {losses[1]}), params "
+        f"rel_l2 {e_res:.3e} (tol {RESUME_BOUND}, bit-equal {bit_equal}); "
+        f"control (step-0 state) loss {loss_c.item()}, rel_l2 {e_ctl:.3e} "
+        f"{'fails the bound' if e_ctl > RESUME_BOUND else 'PASSES'}; peak "
+        f"{peak:.2f} GiB ({base:.2f} GiB resident before) "
+        f"{'ok' if ok else 'FAIL'}")
+    del after_2, state, model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise Failure(f"training: losses {losses}, resumed {loss_r.item()}, "
+                      f"params rel_l2 {e_res:.3e}, control {e_ctl:.3e}, "
+                      f"guard {refused}")
+    return dict(request="train 2B fp32", s_per_step=s_step,
+                tokens_per_s=tokens / s_step, losses=losses,
+                save_s=save_s, load_s=load_s, resume_rel_l2=e_res,
+                resume_bit_equal=bit_equal, control_rel_l2=e_ctl,
+                peak_gib=peak, resident_gib=base), launches
+
+
+def phase_vision(dev):
+    """The Qwen2.5-VL vision tower at full width (1,280 wide, 16 heads), cut
+    to 2 blocks (the second full attention), bf16 on the card against the
+    same weights in fp32 on the CPU on a seeded 448 x 448 image (grid 1 x
+    32 x 32) within VISION_BOUND; a control that must fail: the window
+    permutation left out. Then the whole 32-block tower timed on it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.text import qwen_vision as qv
+
+    cfg = dataclasses.replace(qv.QwenVisionConfig(), depth=2,
+                              fullatt_block_indexes=(1,))
+    model = qv.init_vision_params_random(cfg, device=dev, seed=16)
+    cpu = _cpu_copy(model)
+    grid = np.asarray([VISION_GRID], np.int64)
+    g = torch.Generator().manual_seed(17)
+    patches = torch.randn((int(np.prod(VISION_GRID)), cfg.patch_dim),
+                          generator=g)
+    got = qv.vision_forward(model, patches.to(dev), grid)
+    ref = qv.vision_forward(cpu, patches, grid)
+    e = _rel(got, ref)
+    real = qv.vision_indices
+
+    def unpermuted(c, grid_thw):
+        idx = real(c, grid_thw)
+        n = len(idx["window_index"])
+        unit = c.spatial_merge_size ** 2
+        return dict(idx, perm=np.arange(n * unit), inverse=np.arange(n),
+                    seg_full=idx["seg_full"][np.argsort(idx["perm"])],
+                    pos_ids=idx["pos_ids"][np.argsort(idx["perm"])])
+
+    qv.vision_indices = unpermuted
+    try:
+        e_ctl = _rel(qv.vision_forward(model, patches.to(dev), grid), ref)
+    finally:
+        qv.vision_indices = real
+    del model, cpu
+    full = qv.init_vision_params_random(qv.QwenVisionConfig(), device=dev,
+                                        seed=18)
+    xd = patches.to(dev)
+    qv.vision_forward(full, xd, grid)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = qv.vision_forward(full, xd, grid)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    n_full = sum(p.numel() for p in full.parameters())
+    ok = (e <= VISION_BOUND < e_ctl and bool(torch.isfinite(out).all())
+          and tuple(out.shape) == (int(np.prod(VISION_GRID)) // 4, 3584))
+    log(f"  vision tower 2 blocks full width, grid {VISION_GRID}: rel_l2 "
+        f"{e:.3e} (tol {VISION_BOUND}); control (window permutation left "
+        f"out) {e_ctl:.3e} {'fails the bound' if e_ctl > VISION_BOUND else 'PASSES'}; "
+        f"the 32-block tower ({n_full} params, bf16) {full_s * 1e3:.1f} ms "
+        f"-> {tuple(out.shape)} {'ok' if ok else 'FAIL'}")
+    del full, out
+    torch.cuda.empty_cache()
+    if not ok:
+        raise Failure(f"vision tower: rel_l2 {e:.3e}, control {e_ctl:.3e}")
+    return dict(request="vision tower", rel_l2=e, control_rel_l2=e_ctl,
+                full_ms=full_s * 1e3)
+
+
+def phase_train(dev, conf5, built, out_dir, results):
+    """Phase 7 (see the module's docstring). Returns the launches by run,
+    the report and the readings."""
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+
+    dit, vae, towers = built
+    out_dir = os.path.join(out_dir, "training")
+    os.makedirs(out_dir, exist_ok=True)
+    log("  7.1 the encode against the CPU")
+    readings, launches = phase_encode_reference(dev, vae)
+    phase_encode_kernels(dev, results)
+    log("  7.2 the encodes at full size")
+    report, enc_launches = phase_full_encodes(dev, vae)
+    launches.update(enc_launches)
+    log("  7.3 the shard and the loader")
+    batch, line, launches["7-shard"] = phase_shard(dev, conf5, built, out_dir)
+    report.append(line)
+    conf_sft = load_config(os.path.join(CONFIG_DIR, CONF5_SFT))
+    log("  7.4 training against the CPU")
+    ref, launches["7-train-reference"] = phase_train_reference(
+        dev, conf_sft, batch)
+    readings.update(ref)
+    log("  7.5 training at full size")
+    line, launches["7-train"] = phase_train_full(dev, conf_sft, batch,
+                                                 out_dir)
+    report.append(line)
+    log("  7.6 the vision tower")
+    report.append(phase_vision(dev))
+    torch.cuda.empty_cache()
+    return launches, report, readings
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seconds", type=int, default=1, choices=(1, 5, 10),
@@ -3090,6 +3780,10 @@ def main() -> int:
                     "resume, the HTTP server, the parity consumer) on "
                     "freshly built models and print its readings (no smoke "
                     "result)")
+    ap.add_argument("--train", action="store_true",
+                    help="build, then run only phase 7 (the encode, the "
+                    "shard, training, the vision tower) on freshly built "
+                    "models and print its readings (no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -3182,6 +3876,18 @@ def main() -> int:
             log(gpu_line())
             log(json.dumps({"launches": sv_launches, "requests": sv_report}))
             return 0
+        if args.train:
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            built = build_models(dev, conf5)[:3]
+            results = {}
+            t = time.perf_counter()
+            tr_launches, tr_report, tr_readings = phase_train(
+                dev, conf5, built, args.out, results)
+            log(f"  phase 7 {time.perf_counter() - t:.1f} s")
+            log(gpu_line())
+            log(json.dumps({"launches": tr_launches, "requests": tr_report,
+                            "readings": tr_readings, "kernels": results}))
+            return 0
         if args.k4 or args.k6:
             results = {}
             g, normed = _seeded(dev)
@@ -3212,7 +3918,7 @@ def main() -> int:
 
         log("phase 4: pipeline at full width")
         t = time.perf_counter()
-        launches, report, tiled, text_added, built = phase_pipeline(
+        launches, report, text_added, built = phase_pipeline(
             dev, conf5, conf10, seconds5, seconds10, args.out)
         log(f"  phase 4 {time.perf_counter() - t:.1f} s")
         log(f"  the text stage added {t_text + text_added:.1f} s to the run "
@@ -3223,8 +3929,7 @@ def main() -> int:
         log("phase 5: tensor parallelism, 2 and 4 ranks sharing the card "
             "(gloo)")
         t = time.perf_counter()
-        tp_launches, tp_report = phase_tp(dev, conf5, seconds5, tiled,
-                                          args.out)
+        tp_launches, tp_report = phase_tp(dev, conf5, seconds5, args.out)
         launches.update(tp_launches)
         report += tp_report
         log(f"  phase 5 {time.perf_counter() - t:.1f} s")
@@ -3237,6 +3942,15 @@ def main() -> int:
         launches.update(sv_launches)
         report += sv_report
         log(f"  phase 6 {time.perf_counter() - t:.1f} s")
+
+        log("phase 7: the training path (the encode on K3 and K4, the shard, "
+            "training, the vision tower)")
+        t = time.perf_counter()
+        tr_launches, tr_report, tr_readings = phase_train(
+            dev, conf5, built, args.out, results)
+        launches.update(tr_launches)
+        report += tr_report
+        log(f"  phase 7 {time.perf_counter() - t:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3278,7 +3992,7 @@ def main() -> int:
         kernels.append(entry)
     log(gpu_line())
     log(json.dumps({"kernels": kernels, "requests": report,
-                    "text_reference": text_ref}))
+                    "text_reference": text_ref, "training": tr_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

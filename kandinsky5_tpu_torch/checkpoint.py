@@ -1,7 +1,7 @@
 """Checkpoint loading and conversion for the PyTorch port.
 
-Counterpart of ``kandinsky5_tpu/checkpoint.py`` (DiT, VAE and the Qwen and
-CLIP text towers).
+Counterpart of ``kandinsky5_tpu/checkpoint.py`` (DiT, VAE, the Qwen text
+and vision towers and CLIP).
 The port's DiT carries the released checkpoint's names and torch layouts,
 so a released state dict loads with ``load_state_dict`` as it is. The VAE
 is a nested dict of tensors keyed like the HF checkpoint, with the causal
@@ -17,7 +17,11 @@ The text towers carry HF's names too: ``convert_qwen_state_dict`` and
 ``convert_clip_state_dict`` only strip the HF prefixes and drop what the
 text path never reads (the vision tower, CLIP's projection and position
 ids); ``qwen_state_dict_from_jax`` and ``clip_state_dict_from_jax`` carry
-the JAX pytrees (layers stacked, linears (in, out)) to those names.
+the JAX pytrees (layers stacked, linears (in, out)) to those names. The
+vision tower likewise: ``convert_qwen_vision_state_dict`` keeps HF's
+``visual.*`` entries without the prefix, ``qwen_vision_state_dict_from_jax``
+carries the JAX tree (blocks stacked, linears (in, out), the patch conv
+flattened) to them.
 """
 
 from __future__ import annotations
@@ -203,6 +207,41 @@ def convert_qwen_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def qwen_vision_state_dict_from_jax(tree: Mapping,
+                                    cfg) -> Dict[str, np.ndarray]:
+    """JAX Qwen vision pytree (numpy leaves; ``blocks`` stacked; linears
+    (in, out); the patch conv as (embed, C * tps * ps * ps)) -> the port's
+    names and torch layouts (``blocks.<i>.*``, linears (out, in), the patch
+    conv (embed, C, tps, ps, ps) as ``cfg``, a ``QwenVisionConfig``, sizes
+    it)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "blocks":
+            _unstack(sub, "blocks", out)
+        else:
+            _flatten(sub, key, out)
+    out = _transpose_linears(out, "patch_embed")
+    key = "patch_embed.proj.weight"
+    out[key] = out[key].reshape(cfg.hidden_size, cfg.in_channels,
+                                cfg.temporal_patch_size, cfg.patch_size,
+                                cfg.patch_size)
+    return out
+
+
+def convert_qwen_vision_state_dict(state_dict: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """HF Qwen2.5-VL state dict -> the port's vision tower names: the
+    ``visual.*`` entries (``model.visual.*`` in transformers >= 4.52) without
+    the prefix, in HF's layouts; the text tower's entries are dropped."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        for prefix in ("model.visual.", "visual."):
+            if key.startswith(prefix):
+                out[key[len(prefix):]] = _as_tensor(value)
+                break
+    return out
+
+
 def convert_clip_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     """HF CLIPTextModel state dict -> the port's CLIP names (no
     ``text_model.`` prefix; ``text_projection`` and ``position_ids``
@@ -262,6 +301,24 @@ def clip_from_state_dict(state_dict: Mapping, cfg=None, device=None,
         model = ClipTextModel(cfg, dtype=dtype)
     return _load_module(model, convert_clip_state_dict(state_dict), device,
                         dtype)
+
+
+def vision_from_state_dict(state_dict: Mapping, cfg=None, device=None,
+                           dtype=torch.bfloat16):
+    """The port's Qwen2.5-VL vision tower from an HF state dict (its
+    ``visual.*`` entries), on ``device`` (the CUDA card when None); ``cfg``
+    None means the released 7B dims."""
+    from kandinsky5_tpu_torch.text.qwen_vision import (
+        QwenVisionConfig,
+        QwenVisionModel,
+    )
+
+    device = default_device(device)
+    cfg = cfg or QwenVisionConfig()
+    with torch.device("meta"):
+        model = QwenVisionModel(cfg, dtype=dtype)
+    return _load_module(model, convert_qwen_vision_state_dict(state_dict),
+                        device, dtype)
 
 
 def load_vae_state_dict(path: str) -> Dict[str, torch.Tensor]:

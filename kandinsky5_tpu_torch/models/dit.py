@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kandinsky5_tpu_torch.config import DiTParams
 from kandinsky5_tpu_torch.models.nn import (
@@ -267,17 +268,24 @@ def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
 
 def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, rope,
                       text_mask, attn_impl: str = "auto",
-                      sparse: Optional[SparseParams] = None):
-    """The visual block stack as a Python loop."""
+                      sparse: Optional[SparseParams] = None,
+                      remat: bool = False):
+    """The visual block stack as a Python loop. ``remat`` checkpoints each
+    block (its activations are recomputed in the backward), as the JAX
+    package remats every scanned block."""
     tp = model.tp
     if tp is not None and (sparse is not None or attn_impl in INT8_IMPLS):
         raise ValueError(
             "NABLA and int8-QK attention under tensor parallelism are not "
             "ported yet (ROADMAP.md, queue 1, item 7)")
     for blk in model.visual_transformer_blocks:
-        visual = visual_decoder_block(blk, visual, text, time_embed, rope,
-                                      text_mask, model.cfg.num_heads, attn_impl,
-                                      sparse, tp)
+        args = (blk, visual, text, time_embed, rope, text_mask,
+                model.cfg.num_heads, attn_impl, sparse, tp)
+        if remat:
+            visual = checkpoint(visual_decoder_block, *args,
+                                use_reentrant=False)
+        else:
+            visual = visual_decoder_block(*args)
     return visual
 
 
@@ -295,21 +303,34 @@ def dit_epilogue(model: DiffusionTransformer3D, visual, time_embed, grid,
     return unpatchify(x, cfg.patch_size, cfg.out_visual_dim)
 
 
+def dit_apply(model: DiffusionTransformer3D, x, text_embed,
+              pooled_text_embed, time, text_mask=None,
+              scale_factor: Sequence[float] = (1.0, 1.0, 1.0),
+              attn_impl: str = "auto",
+              sparse: Optional[SparseParams] = None, remat: bool = False):
+    """The forward as autograd sees it (``training.py``): (B, T, H, W, C_in)
+    -> (B, T, H, W, out_visual_dim). ``time`` is (B,) already scaled by
+    1000; ``sparse`` selects the NABLA path; ``remat`` checkpoints each
+    visual block. A kernel on the way raises under autograd
+    (``ops/_kernels.refuse_grad``)."""
+    to_fractal = sparse is not None
+    visual, text, time_embed, rope, grid = dit_prologue(
+        model, x, text_embed, pooled_text_embed, time, text_mask,
+        scale_factor, attn_impl, to_fractal)
+    visual = dit_visual_blocks(model, visual, text, time_embed, rope,
+                               text_mask, attn_impl, sparse, remat)
+    return dit_epilogue(model, visual, time_embed, grid, to_fractal)
+
+
 @torch.no_grad()
 def dit_forward(model: DiffusionTransformer3D, x, text_embed,
                 pooled_text_embed, time, text_mask=None,
                 scale_factor: Sequence[float] = (1.0, 1.0, 1.0),
                 attn_impl: str = "auto",
                 sparse: Optional[SparseParams] = None):
-    """(B, T, H, W, C_in) -> (B, T, H, W, out_visual_dim). ``time`` is
-    (B,) already scaled by 1000; ``sparse`` selects the NABLA path."""
-    to_fractal = sparse is not None
-    visual, text, time_embed, rope, grid = dit_prologue(
-        model, x, text_embed, pooled_text_embed, time, text_mask,
-        scale_factor, attn_impl, to_fractal)
-    visual = dit_visual_blocks(model, visual, text, time_embed, rope,
-                               text_mask, attn_impl, sparse)
-    return dit_epilogue(model, visual, time_embed, grid, to_fractal)
+    """The inference forward: :func:`dit_apply` without autograd."""
+    return dit_apply(model, x, text_embed, pooled_text_embed, time,
+                     text_mask, scale_factor, attn_impl, sparse)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""HunyuanVideo 3D causal VAE — decoder half, in PyTorch.
+"""HunyuanVideo 3D causal VAE in PyTorch: encoder and decoder.
 
-Counterpart of the decoder half of ``kandinsky5_tpu/models/vae.py``.
+Counterpart of ``kandinsky5_tpu/models/vae.py``.
 Activations are NDHWC (B, T, H, W, C) as in the JAX package. Parameters are
 a nested dict keyed like the HF checkpoint (``checkpoint.
 vae_params_from_state_dict``): Conv3d weights (Cout, Cin, kT, kH, kW),
@@ -20,14 +20,23 @@ package's ``conv_pallas_supported``), ``fuse`` folds GroupNorm + SiLU into
 K3's prologue and ``int8`` runs it W8A8; every other conv stays bf16 and
 unfused, as in the JAX package. The mid attention goes to K4
 (``ops/flash.flash_attention`` with segment ids) once it covers at least
-2048 voxels. The encoder waits for later work.
+2048 voxels.
+
+The encode (``HunyuanVideoVAE.encode``, the only caller being ``data.py``'s
+shard preparation) routes as the JAX package's: GroupNorm + SiLU fused into
+K3's prologue wherever the TPU kernel admits the conv (W8A8 with
+``int8_conv``), K3 plain for the other stride-1 convs, the mid attention on
+K4 from 2048 voxels, and the stride-2 downsamplers, conv_in (Cin 3) and
+conv_out (Cout 32) as plain convs (the JAX package runs them in XLA,
+outside any Pallas kernel). Its tiles are the reference's, untiled below
+450 px and 97 frames, spatially tiled above 900 px.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,12 +104,29 @@ def conv1x1(p, x):
     return F.linear(x.to(w.dtype), w, p["bias"].to(w.dtype)).to(x.dtype)
 
 
-def causal_conv3d(p, x, int8: bool = False):
-    """Time-causal conv with replicate padding (stride 1); W8A8 with
-    ``int8`` where the TPU kernel admits the conv."""
+def strided_conv3d(p, x, stride: Tuple[int, int, int]):
+    """Time-causal replicate-padded conv at a stride (the encoder's
+    downsamplers): the fp32 products of the x.dtype values, the bias added
+    in fp32, rounded once to x.dtype. Plain PyTorch: the JAX package runs
+    it in XLA (``lax.conv_general_dilated``), not in its Pallas conv."""
+    w = p["weight"]
+    kt, kh, kw = w.shape[2:]
+    xc = F.pad(x.permute(0, 4, 1, 2, 3).float(),
+               (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0),
+               mode="replicate")
+    y = F.conv3d(xc, w.to(x.dtype).float(), p["bias"].float(), stride=stride)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
+
+
+def causal_conv3d(p, x, int8: bool = False,
+                  stride: Tuple[int, int, int] = (1, 1, 1)):
+    """Time-causal conv with replicate padding; W8A8 with ``int8`` where
+    the TPU kernel admits the conv (stride 1 only)."""
     w = p["weight"]
     if tuple(w.shape[2:]) == (1, 1, 1):
         return conv1x1(p, x)
+    if tuple(stride) != (1, 1, 1):
+        return strided_conv3d(p, x, tuple(stride))
     if int8 and tpu_kernel_admits(x, w):
         return causal_conv3d_fused(x, w, p["bias"], quant=True)
     if conv_kernel_supported(w):
@@ -220,7 +246,29 @@ def _up_plan():
 
 
 def up_factor(add_s: bool, add_t: bool) -> Tuple[int, int, int]:
+    """A level's upsample factor, and its downsample stride in the
+    encoder."""
     return (2 if add_t else 1, 2 if add_s else 1, 2 if add_s else 1)
+
+
+def encoder_forward(p, x, mode: ConvMode = ConvMode(fuse=True)):
+    """(B, T, H, W, 3) -> (B, T', H/8, W/8, 32) moments, untiled; T' = (T -
+    1) / 4 + 1."""
+    h = causal_conv3d(p["conv_in"], x, mode.int8)
+    # the reference builds its down plan by the up plan's rule
+    for i, (add_s, add_t) in enumerate(_up_plan()):
+        blk = p["down_blocks"][str(i)]
+        for j in range(LAYERS_PER_BLOCK):
+            h = resnet_block(blk["resnets"][str(j)], h, mode)
+        if "downsamplers" in blk:
+            h = causal_conv3d(blk["downsamplers"]["0"]["conv"], h,
+                              stride=up_factor(add_s, add_t))
+    mid = p["mid_block"]
+    h = resnet_block(mid["resnets"]["0"], h, mode)
+    h = mid_attention(mid["attentions"]["0"], h)
+    h = resnet_block(mid["resnets"]["1"], h, mode)
+    return causal_conv3d(p["conv_out"], gn_silu(p["conv_norm_out"], h),
+                         mode.int8)
 
 
 def decoder_forward(p, z, mode: ConvMode = ConvMode()):
@@ -246,6 +294,23 @@ def _decode_tile(params, z, mode: ConvMode):
     return decoder_forward(params["decoder"], z, mode)
 
 
+def _encode_tile(params, x, mode: ConvMode):
+    return conv1x1(params["quant_conv"], encoder_forward(params["encoder"],
+                                                         x, mode))
+
+
+def posterior_sample(moments, noise=None):
+    """The latents of (..., 2C) mean || logvar moments: the mean, or with
+    ``noise`` (like the mean, fp32) mean + exp(0.5 clip(logvar, -30, 20))
+    noise in fp32, out in the moments' dtype (the reference's
+    DiagonalGaussianDistribution)."""
+    mean, logvar = moments.chunk(2, dim=-1)
+    if noise is None:
+        return mean
+    std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
+    return (mean.float() + std * noise).to(mean.dtype)
+
+
 def _blend(a, b, extent: int, axis: int):
     """Linear cross-fade of the last ``extent`` slices of a into the first
     ``extent`` slices of b along ``axis``, fp32, out in b.dtype (the
@@ -265,13 +330,14 @@ def _blend(a, b, extent: int, axis: int):
 
 
 class HunyuanVideoVAE:
-    """Decoder side of the VAE. Layout (B, T, H, W, C) throughout.
+    """The VAE's encode and decodes. Layout (B, T, H, W, C) throughout.
 
     Options, fixed at construction: ``fuse_gn`` folds GroupNorm + SiLU into
     K3 (None: the JAX package's per-mode default, fused in the tiled decode
-    and unfused in the streaming one, measured there on the TPU);
-    ``int8_conv`` runs the convs the TPU kernel admits W8A8 in both decodes
-    (the JAX package's ``KANDINSKY5_TPU_INT8_CONV``). The tiling state
+    and the encode and unfused in the streaming decode, measured there on
+    the TPU);
+    ``int8_conv`` runs the convs the TPU kernel admits W8A8 in the decodes
+    and the encode (the JAX package's ``KANDINSKY5_TPU_INT8_CONV``). The tiling state
     (``tile_sample_*``) lives on the object and is set per decode from the
     reference's tables, as in the JAX package."""
 
@@ -301,12 +367,13 @@ class HunyuanVideoVAE:
             setattr(vae, key, value)
         return vae
 
-    def conv_mode(self, decode: str) -> ConvMode:
-        """The conv routing of a decode ("tiled" or "stream")."""
-        fuse = decode == "tiled" if self.fuse_gn is None else self.fuse_gn
+    def conv_mode(self, kind: str) -> ConvMode:
+        """The conv routing of a decode ("tiled" or "stream") or of the
+        encode ("encode", fused by default as the tiled decode)."""
+        fuse = kind != "stream" if self.fuse_gn is None else self.fuse_gn
         return ConvMode(fuse=fuse, int8=self.int8_conv)
 
-    # -- tiling selection (reference get_dec_optimal_tiling)
+    # -- tiling selection (reference get_enc/dec_optimal_tiling)
     def _optimal_tiling(self, num_frames, height, width):
         if math.sqrt(height * width) < 450 and num_frames <= 97:
             ft, fs = num_frames, num_frames
@@ -432,6 +499,98 @@ class HunyuanVideoVAE:
                 result.append(tile[:, :self.tile_sample_stride_num_frames + 1])
         return torch.cat(result, dim=1)[:, :num_sample_frames]
 
+    # ------------------------------------------------------------------
+    # Encode
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_moments(self, x, opt_tiling: bool = True):
+        """(B, T, H, W, 3) in [-1, 1] -> (B, T', H/8, W/8, 32) mean ||
+        logvar moments, tiled by the reference's tables (``opt_tiling``)
+        or by the tiling state as it stands."""
+        x = x.to(self.dtype)
+        t, hh, ww = x.shape[1:4]
+        if opt_tiling:
+            self._apply_tiling(*self._optimal_tiling(t, hh, ww))
+        cm = self.conv_mode("encode")
+        if t > self.tile_sample_min_num_frames + 1:
+            return self._temporal_tiled_encode(x, cm)
+        return self._spatial_encode(x, cm)
+
+    def encode(self, x, seed: Optional[int] = None, opt_tiling: bool = True):
+        """Latents of ``x``: the posterior mean, or with ``seed`` a sample,
+        its noise drawn by a ``torch.Generator`` seeded on x's device (not
+        the JAX package's PRNG stream)."""
+        moments = self.encode_moments(x, opt_tiling)
+        if seed is None:
+            return posterior_sample(moments)
+        gen = torch.Generator(device=moments.device).manual_seed(seed)
+        noise = torch.randn(moments[..., :moments.shape[-1] // 2].shape,
+                            generator=gen, device=moments.device)
+        return posterior_sample(moments, noise)
+
+    def _spatial_encode(self, x, cm: ConvMode):
+        hh, ww = x.shape[2:4]
+        if ww > self.tile_sample_min_width or hh > self.tile_sample_min_height:
+            return self._spatial_tiled_encode(x, cm)
+        return _encode_tile(self.params, x, cm)
+
+    def _spatial_tiled_encode(self, x, cm: ConvMode):
+        """Overlap tiles over H and W, blended linearly in latent space
+        (reference tiled_encode), each blend chaining off the
+        already-blended neighbour."""
+        sc = self.spatial_compression
+        hh, ww = x.shape[2:4]
+        t_lat_h = self.tile_sample_min_height // sc
+        t_lat_w = self.tile_sample_min_width // sc
+        s_lat_h = self.tile_sample_stride_height // sc
+        s_lat_w = self.tile_sample_stride_width // sc
+        blend_h, blend_w = t_lat_h - s_lat_h, t_lat_w - s_lat_w
+        th, tw = self.tile_sample_min_height, self.tile_sample_min_width
+        rows = [[_encode_tile(self.params, x[:, :, i:i + th, j:j + tw], cm)
+                 for j in range(0, ww - tw + 1,
+                                self.tile_sample_stride_width)]
+                for i in range(0, hh - th + 1, self.tile_sample_stride_height)]
+        result_rows = []
+        for i, row in enumerate(rows):
+            result_row = []
+            for j, tile in enumerate(row):
+                if i > 0:
+                    tile = _blend(rows[i - 1][j], tile, blend_h, axis=2)
+                if j > 0:
+                    tile = _blend(rows[i][j - 1], tile, blend_w, axis=3)
+                rows[i][j] = tile
+                h_lim = t_lat_h if i == len(rows) - 1 else s_lat_h
+                w_lim = t_lat_w if j == len(row) - 1 else s_lat_w
+                result_row.append(tile[:, :, :h_lim, :w_lim])
+            result_rows.append(torch.cat(result_row, dim=3))
+        return torch.cat(result_rows, dim=2)[:, :, :hh // sc, :ww // sc]
+
+    def _temporal_tiled_encode(self, x, cm: ConvMode):
+        """Chunks over sample time, one overlap frame dropped from every
+        chunk but the first, blended linearly (reference
+        _temporal_tiled_encode)."""
+        t = x.shape[1]
+        latent_f = (t - 1) // self.temporal_compression + 1
+        t_lat_f = self.tile_sample_min_num_frames // self.temporal_compression
+        s_lat_f = self.tile_sample_stride_num_frames // self.temporal_compression
+        blend_f = t_lat_f - s_lat_f
+        n = self.tile_sample_min_num_frames
+        row = []
+        for i in range(0, t - n + 1, self.tile_sample_stride_num_frames):
+            enc = self._spatial_encode(x[:, i:i + n + 1], cm)
+            row.append(enc[:, 1:] if i > 0 else enc)
+        result = []
+        for i, tile in enumerate(row):
+            if i > 0:
+                tile = _blend(row[i - 1], tile, blend_f, axis=1)
+                row[i] = tile
+                result.append(tile[:, :t_lat_f if i == len(row) - 1
+                                   else s_lat_f])
+            else:
+                result.append(tile[:, :s_lat_f + 1])
+        return torch.cat(result, dim=1)[:, :latent_f]
+
 
 # ---------------------------------------------------------------------------
 # Parameter initialization (tests and smoke runs)
@@ -472,10 +631,11 @@ def _lin_p(gen, c, device, dtype):
 def init_vae_params(latent_channels: int = 16, device=None,
                     dtype=torch.bfloat16, seed: int = 0,
                     block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS):
-    """Random decoder-side parameters with the checkpoint's layout and the
-    JAX ``init_vae_params`` scheme (uniform +-1/sqrt(fan_in) weights, zero
-    biases, unit GroupNorms), drawn on ``device``, the CUDA card when
-    None."""
+    """Random parameters of both halves with the checkpoint's layout and
+    the JAX ``init_vae_params`` scheme (uniform +-1/sqrt(fan_in) weights,
+    zero biases, unit GroupNorms), drawn on ``device``, the CUDA card when
+    None. The decoder is drawn first, so its values for a seed do not
+    depend on the encoder."""
     device = default_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     rev = list(reversed(block_out_channels))
@@ -493,21 +653,44 @@ def init_vae_params(latent_channels: int = 16, device=None,
         up_blocks[str(i)] = blk
         c_in = c_out
     c = rev[0]
-    mid = {"resnets": {"0": _resnet_p(gen, c, c, **kw),
-                       "1": _resnet_p(gen, c, c, **kw)},
-           "attentions": {"0": {"group_norm": _gn_p(c, **kw),
-                                "to_q": _lin_p(gen, c, **kw),
-                                "to_k": _lin_p(gen, c, **kw),
-                                "to_v": _lin_p(gen, c, **kw),
-                                "to_out": {"0": _lin_p(gen, c, **kw)}}}}
+
+    def mid():
+        return {"resnets": {"0": _resnet_p(gen, c, c, **kw),
+                            "1": _resnet_p(gen, c, c, **kw)},
+                "attentions": {"0": {"group_norm": _gn_p(c, **kw),
+                                     "to_q": _lin_p(gen, c, **kw),
+                                     "to_k": _lin_p(gen, c, **kw),
+                                     "to_v": _lin_p(gen, c, **kw),
+                                     "to_out": {"0": _lin_p(gen, c, **kw)}}}}
+
     lc = latent_channels
-    return {
-        "decoder": {
-            "conv_in": _conv_p(gen, 3, lc, c, **kw),
-            "mid_block": mid,
-            "up_blocks": up_blocks,
-            "conv_norm_out": _gn_p(block_out_channels[0], **kw),
-            "conv_out": _conv_p(gen, 3, block_out_channels[0], 3, **kw),
-        },
-        "post_quant_conv": _conv_p(gen, 1, lc, lc, **kw),
+    decoder = {
+        "conv_in": _conv_p(gen, 3, lc, c, **kw),
+        "mid_block": mid(),
+        "up_blocks": up_blocks,
+        "conv_norm_out": _gn_p(block_out_channels[0], **kw),
+        "conv_out": _conv_p(gen, 3, block_out_channels[0], 3, **kw),
     }
+    post_quant_conv = _conv_p(gen, 1, lc, lc, **kw)
+    down_blocks = {}
+    c_in = block_out_channels[0]
+    for i, (add_s, add_t) in enumerate(_up_plan()):
+        c_out = block_out_channels[i]
+        blk = {"resnets": {str(j): _resnet_p(gen, c_in if j == 0 else c_out,
+                                             c_out, **kw)
+                           for j in range(LAYERS_PER_BLOCK)}}
+        if add_s or add_t:
+            blk["downsamplers"] = {"0": {"conv": _conv_p(gen, 3, c_out, c_out,
+                                                         **kw)}}
+        down_blocks[str(i)] = blk
+        c_in = c_out
+    encoder = {
+        "conv_in": _conv_p(gen, 3, 3, block_out_channels[0], **kw),
+        "down_blocks": down_blocks,
+        "mid_block": mid(),
+        "conv_norm_out": _gn_p(c, **kw),
+        "conv_out": _conv_p(gen, 3, c, 2 * lc, **kw),
+    }
+    return {"encoder": encoder, "decoder": decoder,
+            "quant_conv": _conv_p(gen, 1, 2 * lc, 2 * lc, **kw),
+            "post_quant_conv": post_quant_conv}

@@ -11,6 +11,12 @@ import every module of the port on a machine with no CUDA toolkit.
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`; a run reads the counts to show which kernels its main
 path went through.
+
+No kernel has a backward rule, as no ``pallas_call`` of the JAX package
+has one. A launch through ``ctypes`` is invisible to autograd, so every
+public kernel entry calls :func:`refuse_grad` first, on the CPU (where it
+would take the differentiable plain version) as on the card: a kernel under
+autograd raises instead of returning a detached result.
 """
 
 from __future__ import annotations
@@ -63,6 +69,19 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 BUILD_INFO: dict = {}
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record ``tensors`` going through kernel
+    ``name``: grad mode is on and an operand requires grad."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an operand requires grad. The JAX "
+            "package cannot differentiate its Pallas counterpart either. "
+            "Train on the routes that run no kernel: attn_impl=\"dense\", "
+            "and fp32 parameters or FF shapes that ff_supported refuses.")
 
 
 def reset_launches() -> None:

@@ -249,6 +249,7 @@ def quant_window_scales(x, bw: int, time_padded: bool = False, scale=None,
     reduction of K3's body (``csrc/conv3d.cu``) for a CUDA tensor (one
     count on ``K3_quant_windows``), :func:`window_scales` for a CPU one.
     x (1, T_in, H, W, Cin)."""
+    _kernels.refuse_grad("K3's window maxima", x, scale, shift)
     if x.device.type == "cpu":
         if scale is not None:
             x = conv_prologue(x, scale, shift, act, prefix_planes)
@@ -279,6 +280,7 @@ def causal_conv3d_fused(x, weight, bias, time_padded: bool = False,
     T', H, W, Cout) with T' = T - 2 when ``time_padded`` else T. Batch items
     run as separate launches. Under ``quant`` the window maxima come first
     (one launch of the reduction, its own count), then the int8 conv."""
+    _kernels.refuse_grad("K3", x, weight, bias, scale, shift)
     if x.device.type == "cpu":
         return conv3d_plain(x, weight, bias, time_padded, scale, shift, act,
                             prefix_planes, quant)

@@ -75,6 +75,7 @@ def modulate(x, scale, shift):
     """The modulation pass alone (K2's first kernel): x (B, L, D) bf16,
     scale/shift (B, D) -> (B, L, D) bf16. A CPU tensor takes the plain
     version."""
+    _kernels.refuse_grad("K2's modulation pass", x, scale, shift)
     if x.device.type == "cpu":
         return modulate_plain(x, scale, shift)
     b, l, d = x.shape
@@ -88,6 +89,7 @@ def modulate(x, scale, shift):
 def fused_ff_modulated(x, scale, shift, w1, w2, gate):
     """K2 wrapper. x (B, L, D) bf16; scale/shift/gate (B, D); w1 (FF, D)
     and w2 (D, FF) bf16, with D and FF multiples of 128."""
+    _kernels.refuse_grad("K2", x, scale, shift, w1, w2, gate)
     if x.device.type == "cpu":
         return ff_mod_plain(x, scale, shift, w1, w2, gate)
     b, l, d = x.shape
@@ -175,6 +177,7 @@ def fused_ff(x, w1, w2):
     """K8 wrapper: gelu_erf(x W1^T) W2^T. x (..., D) bf16, w1 (FF, D) and w2
     (D, FF) bf16 with D and FF multiples of 128; any number of rows (the
     kernel masks the ragged row tile, where the TPU kernel pads)."""
+    _kernels.refuse_grad("K8", x, w1, w2)
     if x.device.type == "cpu":
         return ff_plain(x, w1, w2)
     return launch_ff(x, w1, w2)

@@ -85,6 +85,7 @@ def flash_fixed_plain(q, k, v, kv_mask=None, shift=None):
 def flash_fixed(q, k, v, kv_mask: Optional[torch.Tensor] = None):
     """K1 wrapper. q (B, Lq, H, 64), k/v (B, Lk, H, 64) bf16; kv_mask
     (B, Lk) bool, True where the key is valid."""
+    _kernels.refuse_grad("K1", q, k, v)
     shift = score_bound(q, k)
     if q.device.type == "cpu":
         return flash_fixed_plain(q, k, v, kv_mask, shift)
@@ -197,6 +198,7 @@ def online_plan(b: int, lq: int, lk: int, kv_mask=None, q_ids=None,
 def flash_online(q, k, v, kv_mask=None, q_ids=None, kv_ids=None):
     """K4 wrapper. q (B, Lq, H, 512), k/v (B, Lk, H, 512) bf16; kv_mask
     (B, Lk) bool; q_ids (B, Lq) / kv_ids (B, Lk) non-decreasing int ids."""
+    _kernels.refuse_grad("K4", q, k, v)
     if (q_ids is None) != (kv_ids is None):
         raise ValueError("q_ids and kv_ids come together")
     if q.device.type == "cpu":
@@ -327,6 +329,7 @@ def flash_int8(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     k/v (B, Lk, H, 64) bf16; kv_mask (B, Lk) bool, True where the key is
     valid. Packs with :func:`pack_int8`, then runs
     :func:`flash_int8_packed`."""
+    _kernels.refuse_grad("K7" if pipe else "K5", q, k, v)
     q8, k8, coeff, shift = pack_int8(q, k)
     return flash_int8_packed(q8, k8, v, coeff, shift, kv_mask, pipe)
 
@@ -375,6 +378,7 @@ def flash_int8_packed(q8, k8, v, coeff, shift, kv_mask=None,
     """K5/K7 on :func:`pack_int8`'s outputs: the plain version for a CPU
     tensor, the kernel (K7 with ``pipe``) for a CUDA one, or raise
     (:func:`int8_operands` says what the kernel takes)."""
+    _kernels.refuse_grad("K7" if pipe else "K5", v, coeff, shift)
     if v.device.type == "cpu":
         return flash_int8_plain(q8, k8, v, coeff, shift, kv_mask)
     name = "K7" if pipe else "K5"

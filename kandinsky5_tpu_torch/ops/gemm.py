@@ -19,6 +19,7 @@ def launch_gemm(name, a, b, dtype):
     CUDA tensors of ``dtype``, under the shared GEMM's rules: any M, N a
     multiple of 8, K times the element size a multiple of 16, contiguous
     16-byte-aligned operands; raises otherwise."""
+    _kernels.refuse_grad(name, a, b)
     entry, out_dtype = ENTRIES[name]
     if a.dtype != dtype or b.dtype != dtype:
         raise ValueError(f"{name} takes {dtype} operands, got {a.dtype} "

@@ -101,6 +101,7 @@ def sparse_attention(q, k, v, kv_inds, kv_nb):
     a group once when the lists are ascending, as
     ``nabla.block_mask_to_kv_lists`` builds them; any order gives the same
     result."""
+    _kernels.refuse_grad("K6", q, k, v)
     b, s, h, d = q.shape
     sk = k.shape[1]
     if s % BLOCK or sk % BLOCK:

@@ -76,6 +76,7 @@ def i8_decomp(q8, k8, v, coeff, shift, mode: str):
     launches the kernel or raises."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _kernels.refuse_grad("T5", v, coeff, shift)
     if v.device.type == "cpu":
         return i8_decomp_plain(q8, k8, v, coeff, shift, mode)
     (b, lq, lk, h), coeff = int8_operands("T5", q8, k8, v, coeff, shift)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from kandinsky5_tpu_torch.ops import _kernels
 from kandinsky5_tpu_torch.ops.gemm import launch_gemm
 
 # (M, K, N): the JAX tool's shape, then the 5 s DiT's projections (47,616
@@ -39,6 +40,7 @@ def gemm(a, b):
     """T1 wrapper: a (M, K), b (N, K), both int8 or both bf16; any M, N a
     multiple of 8, K a multiple of 16 (int8) or 8 (bf16). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises."""
+    _kernels.refuse_grad("T1", a, b)
     if a.device.type == "cpu":
         return gemm_plain(a, b)
     i8 = a.dtype == torch.int8

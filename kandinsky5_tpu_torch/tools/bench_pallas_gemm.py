@@ -60,6 +60,7 @@ def gemm(x, w):
     """T2 wrapper: x (M, K) . w (N, K)^T -> (M, N) bf16; any M, N a multiple
     of 8, K of 8. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises."""
+    _kernels.refuse_grad("T2", x, w)
     if x.device.type == "cpu":
         return gemm_plain(x, w)
     return launch_gemm("T2_gemm", x, w, torch.bfloat16)
@@ -68,6 +69,7 @@ def gemm(x, w):
 def ff(x, w1, w2):
     """T3 wrapper: K8's entry, counted as T3. A CPU tensor takes the plain
     version (K8's)."""
+    _kernels.refuse_grad("T3", x, w1, w2)
     if x.device.type == "cpu":
         return ff_plain(x, w1, w2)
     return launch_ff(x, w1, w2, counter="T3_ff")
@@ -95,6 +97,7 @@ def ff_chunked(x, w1, w2, bf: int = T4_BF, parts: int = T4_UP | T4_DOWN):
     bf and bf of 128. A CPU tensor takes the plain version. ``parts``
     other than T4_UP | T4_DOWN launches only some of the kernels, for a
     timing split; the output is then not T4's."""
+    _kernels.refuse_grad("T4", x, w1, w2)
     if x.device.type == "cpu":
         return ff_chunked_plain(x, w1, w2, bf)
     x2 = _ff_operands("T4", x, w1, w2)

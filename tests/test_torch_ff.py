@@ -193,7 +193,10 @@ def test_modulated_feed_forward_routes_where_jax_does(monkeypatch, b, l,
     block = _ff_block(w1, w2, dtype)
     xt = torch.from_numpy(x).to(dtype)
     vecs = [torch.from_numpy(v[:, None]) for v in (sc, sh, g)]
-    got = tnn.modulated_feed_forward(block, xt, *vecs)
+    # inference runs without autograd; under it K2 refuses the block's
+    # parameters (ops/_kernels.refuse_grad)
+    with torch.no_grad():
+        got = tnn.modulated_feed_forward(block, xt, *vecs)
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     admitted = bool(jax_ff_supported(jax.ShapeDtypeStruct(x.shape, jdt),
                                      jax.ShapeDtypeStruct(w1.shape, jdt),
