@@ -19,6 +19,7 @@
                                              # built models
     python3 chip_smoke.py --train            # phase 7 alone, on freshly
                                              # built models
+    python3 chip_smoke.py --dp               # phases 5a and 5b alone
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -129,11 +130,37 @@ Phases, each of which must pass (any failure exits nonzero):
                the 5 s path's image request with 16 steps and its video
                request with TP_VIDEO_STEPS (2; cut from 16 so that phase 7
                fits the smoke's time) on phase 4's text embeddings and
-               expansion (replayed from ``--out``), rank 0 decoding tiled
-               and writing, exact K8/K1 counts per rank; s/step and the
-               all-reduce share (gloo through the host, 2 ranks on one
-               card, not a multi-GPU number). A failed rank fails the
-               run;
+               expansion (replayed from ``--out``), every rank decoding
+               its share of the tiles and rank 0 blending and writing, its
+               frames against the single-process tiled decode of the same
+               latents (FRAME_LEVELS, FRAME_SHARE), K3 and K4 summed over
+               the ranks equal to that decode's, exact K8/K1 counts per
+               rank; s/step and the all-reduce share (gloo through the
+               host, 2 ranks on one card, not a multi-GPU number). A failed
+               rank fails the run;
+  5a. dp serving — 2 ranks on the (2, 1, 1) mesh sharing the card:
+               config_5s_sft.yaml at full width and depth (seeded weights
+               drawn on each rank) answers the 1 s video with DP_STEPS (4)
+               steps at guidance 5.0 on phase 4's replayed text
+               embeddings, the CFG pair split (rank 0 cond, rank 1
+               uncond): both ranks' latents equal and within DP_BOUND of
+               the single-device batched-CFG run (rank 0, same weights,
+               seed and steps), each rank's K1 and K2 counts equal to that
+               run's; control: ranks that skip the predictions' gather.
+               The request's tiled decode split (a temporal tile a rank)
+               and phase 4's 17-frame 1024 x 1024 latents decoded split (2
+               x 2 tiles, two a rank): rank 0's frames against the
+               single-process tiled decode of the same latents, K3 and K4
+               summed over the ranks equal to its; control: two tiles
+               swapped before the blend. s/step, gather seconds and bytes,
+               peak memory per rank;
+  5b. dp x tp — 4 ranks on the (2, 1, 2) mesh: a two-item DiT call at the
+               1 s shape, full width, cut to DPTP_BLOCKS (2 text, 8 visual)
+               blocks, each dp group one item over its 2 tp ranks, the
+               predictions gathered over dp: every rank within TP_BOUND of
+               the single-device call, exact K8/K1 counts (K2 none);
+               control: the dp peers' predictions gathered in the wrong
+               order;
   6. serving — on phase 4's DiT, VAE and towers (moved back to the card)
                under config_5s_sft.yaml (50 steps, guidance 5.0, its MagCache
                ratios): the 1 s video (25 frames, 10,752 tokens, batched CFG,
@@ -194,7 +221,14 @@ Phases, each of which must pass (any failure exits nonzero):
                tower at full width cut to 2 blocks, bf16 on the card
                against fp32 on the CPU on a 448 x 448 image within
                VISION_BOUND (control: the window permutation left out),
-               then the whole 32-block tower timed.
+               then the whole 32-block tower timed; (7b) ZeRO-1 on 2 dp
+               ranks sharing the card: the cut sft DiT of (4), each rank
+               on its row of the dp-placed loader's batch of 2, one step's
+               loss and parameter update within TRAIN_BOUND of the
+               single-process step on the whole batch with the same t and
+               noise, each rank's moments at most half the unsharded ones
+               (plus any kept whole); control: a step without the
+               gradients' mean over dp.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -2412,7 +2446,7 @@ class _NoSum:
         return x
 
 
-def _tp_forward_rank(tp, cfg_kw, controls, seed):
+def _tp_forward_rank(mesh, cfg_kw, controls, seed):
     """One rank of a tp forward: its share of the DiT seeded with ``seed``
     (weights and inputs), built one parameter at a time; the sound forward,
     then each control. Returns per run the output (the controls' on rank 0
@@ -2432,6 +2466,7 @@ def _tp_forward_rank(tp, cfg_kw, controls, seed):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tp = mesh.tp
     cfg = DiTParams(**cfg_kw)
     t = time.perf_counter()
     model = fast_init_dit_shard(cfg, tp, seed=seed)
@@ -2476,11 +2511,13 @@ def _tp_forward_rank(tp, cfg_kw, controls, seed):
     return out
 
 
-def _tp_request_rank(tp, seconds, out_dir):
+def _tp_request_rank(mesh, seconds, out_dir):
     """One rank of the tp = 2 pipeline answering the 5 s path's image and
     video requests (prompts, seed, weights and VAE as phase 4's, and phase
-    4's text embeddings and expansion, replayed from ``out_dir``); rank 0
-    decodes (tiled) and writes."""
+    4's text embeddings and expansion, replayed from ``out_dir``); each
+    rank decodes its share of the tiles, rank 0 blends and writes, then
+    holds its frames against the single-process tiled decode of the same
+    latents (``_single_decodes``)."""
     import numpy as np
     import torch
 
@@ -2492,19 +2529,19 @@ def _tp_request_rank(tp, seconds, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tp = mesh.tp
     conf = load_config(os.path.join(CONFIG_DIR, CONF5))
     dit = fast_init_dit_shard(conf.model.dit_params, tp, seed=0)
-    vae = None
-    if tp.rank == 0:
-        vae = HunyuanVideoVAE(init_vae_params(device=tp.device,
-                                              dtype=torch.bfloat16, seed=1))
+    vae = HunyuanVideoVAE(init_vae_params(device=tp.device,
+                                          dtype=torch.bfloat16, seed=1))
     pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
-        os.path.join(out_dir, TEXT_FILE)), vae, tp=tp)
+        os.path.join(out_dir, TEXT_FILE)), vae, tp=mesh)
+    kept = _keep_latents(pipe, "tp2")
     _, prompt, _, shape, _, _ = IMAGE_REQUEST
     requests = [("tp2 image", prompt, 0, shape, "tp2_image.png", True, None),
                 _video("tp2", seconds, VIDEO_PROMPT) + (False,
                                                         TP_VIDEO_STEPS)]
-    report, frames = [], None
+    report, frames, decoded = [], None, []
     _kernels.reset_launches()
     for name, prompt, tl, shape, fname, expand, steps in requests:
         torch.cuda.synchronize()
@@ -2520,7 +2557,9 @@ def _tp_request_rank(tp, seconds, out_dir):
                     all_reduce_s=tm["all_reduce_s"],
                     all_reduce_calls=tm["all_reduce_calls"],
                     all_reduce_bytes=tm["all_reduce_bytes"],
+                    decoded_tiles=tm["decoded_tiles"],
                     latents_finite=tm["latents_finite"])
+        decoded.append((name, kept["tp2"], frames))
         if tp.rank == 0:
             saved = tm["saved"][0]
             line.update(decode_s=tm["decode_s"], saved=saved,
@@ -2532,7 +2571,10 @@ def _tp_request_rank(tp, seconds, out_dir):
         elif frames is not None:
             raise Failure(f"rank {tp.rank} returned frames")
         report.append(line)
-    return dict(report=report, launches=dict(_kernels.LAUNCHES))
+    out = dict(report=report, launches=dict(_kernels.LAUNCHES))
+    if mesh.rank == 0:
+        out.update(_single_decodes(pipe, decoded))
+    return out
 
 
 def tp_forwards(dev, cfg, seed: int = TP_SEED):
@@ -2630,7 +2672,10 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
 def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     """(a) :func:`tp_forwards` at TP_SEED. (b) The tp = 2 pipeline answers
     the 5 s path's image (the config's steps) and video (TP_VIDEO_STEPS
-    steps) requests."""
+    steps) requests, its decodes split over both ranks as the JAX factory
+    splits them over every device of the pipeline: rank 0's frames against
+    the single-process tiled decode of the same latents, K3 and K4 summed
+    over the ranks equal to that decode's."""
     from kandinsky5_tpu_torch.parallel import launch
 
     launches, report, failed = tp_forwards(dev, conf5.model.dit_params)
@@ -2640,20 +2685,22 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     n_vis = conf5.model.dit_params.num_visual_blocks
     log(f"  tp 2 pipeline ({os.path.basename(CONF5)}): the image request "
         f"({conf5.model.num_steps} steps) and the video request "
-        f"({TP_VIDEO_STEPS} steps), rank 0 decodes tiled")
+        f"({TP_VIDEO_STEPS} steps), the tiles decoded over both ranks")
     res = launch(_tp_request_rank, 2, "gloo", "cuda",
                  args=(seconds5, out_dir), timeout=900)
     steps = conf5.model.num_steps + TP_VIDEO_STEPS
     want = {"K8_ff": n_vis * steps,
             "K1_flash_fixed": (n_text + n_vis) * steps, "K2_ff_mod": 0}
-    bad = []
+    bad = _decode_split_faults(res, res[0]["single_launches"])
+    for name, m in res[0]["frames"].items():
+        log(f"  {name}: rank 0's frames against the single-process tiled "
+            f"decode of its latents: {m['max_levels']} levels at most, on "
+            f"{m['share']:.2e} of the values")
     for rank, r in enumerate(res):
         got = r["launches"]
         wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
-        decoded = got["K3_conv3d"] + got["K3_conv3d_fused"]
-        if wrong or (decoded > 0) != (rank == 0):
-            bad.append(f"rank {rank}: launches (got, want) {wrong}, K3 "
-                       f"{decoded}")
+        if wrong:
+            bad.append(f"rank {rank}: launches (got, want) {wrong}")
         for line in r["report"]:
             share = line["all_reduce_s"] / line["denoise_s"]
             line["all_reduce_share"] = share
@@ -2662,7 +2709,8 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
                 f"{line['all_reduce_s']:.3f} s in {line['all_reduce_calls']} "
                 f"calls = {share:.3f} of the denoise (gloo through the host, "
                 "2 ranks on one card)"
-                + (f"; decode (tiled) {line['decode_s']:.3f} s, frames "
+                + f"; decoded {line['decoded_tiles']} tiles"
+                + (f"; decode (tiled, split) {line['decode_s']:.3f} s, frames "
                    f"{line['frames']}, wrote {line['saved']} "
                    f"({line['saved_bytes']} bytes)" if rank == 0 else ""))
             if not line["latents_finite"] or (rank == 0
@@ -2674,6 +2722,490 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     if bad:
         raise Failure("tp 2 requests: " + "; ".join(bad))
     return launches, report
+
+
+# ---------------------------------------------------------------------------
+# the data axis (phases 5a, 5b and 7b): ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# 5a: the dp request's Euler steps and guidance (config_5s_sft's CFG)
+DP_STEPS = 4
+DP_GUIDANCE = 5.0
+# 5a: the dp run's latents against the single-device run of the same
+# weights, seed and steps with the CFG pair as two sequential calls, relative
+# L2: each rank's call is one of those calls, the same shapes through the
+# same kernels and routes, so only an unlike library GEMM algorithm could
+# part them. Half of TP_BOUND: dp reorders no sum inside an item, where tp
+# splits each row-parallel product.
+DP_BOUND = 4e-3
+# 5a: the same against the single-device batched-CFG run. Its text blocks
+# see 512 rows, which the JAX package's gate (``ff_supported``) admits to
+# K2, where a rank's 256-row call runs the bf16 chain; that rounding, carried
+# through 34 blocks and 4 steps and amplified by guidance 5, read 1.364e-2
+# on the card (H100 80GB HBM3, 700 W), against 1.761 for the weaker
+# no-gather control. The bound sits near 4x the first and 35x under the
+# second.
+BATCHED_BOUND = 5e-2
+# rank 0's frames against the single-process tiled decode of the same
+# latents: at most FRAME_LEVELS uint8 levels apart, on under FRAME_SHARE of
+# the values
+FRAME_LEVELS, FRAME_SHARE = 1, 0.01
+# 5b: the depth (text, visual blocks) of the full-width DiT of the dp x tp
+# forward (full depth is phase 5's tp forwards'), and its seed
+DPTP_BLOCKS = (2, 8)
+DPTP_SEED = 6
+# 7b: the seed of the ZeRO-1 step's DiT and of its t and noise
+ZERO_SEED = 14
+DECODE_KERNELS = ("K3_conv3d", "K3_conv3d_fused", "K4_flash_online")
+
+
+def _frames_match(frames, want) -> dict:
+    import numpy as np
+
+    diff = np.abs(frames.astype(np.int16) - want.astype(np.int16))
+    return dict(max_levels=int(diff.max()), share=float((diff > 0).mean()))
+
+
+def _frames_ok(m) -> bool:
+    return m["max_levels"] <= FRAME_LEVELS and m["share"] < FRAME_SHARE
+
+
+def _without_gather(self, x):
+    """A dp group that skips the predictions' gather: each rank holds its
+    own predictions in its slot and zeros, never filled, in its peers'."""
+    import torch
+
+    parts = [torch.zeros_like(x) for _ in range(self.size)]
+    parts[self.rank] = x
+    return torch.cat(parts)
+
+
+def _swapped_tiles(real):
+    """``decode_shared`` with the first two decoded tiles swapped before the
+    blend."""
+    def swapped(group, tiles, decode_one):
+        got = real(group, tiles, decode_one)
+        return None if got is None else [got[1], got[0]] + got[2:]
+
+    return swapped
+
+
+def _single_decodes(pipe, decoded, controls=None) -> dict:
+    """On rank 0 of a pipeline's mesh: the single-process tiled decode of
+    each (name, latents, frames of the split decode), on the same card with
+    the same VAE, its launches summed, and the frames compared; each of
+    ``controls`` (name: frames) is compared with the same decode."""
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    one = Kandinsky5T2VPipeline(None, pipe.conf, None,
+                                pipe.vae.replace(group=None),
+                                decode_mode="tiled")
+    controls = controls or {}
+    _kernels.reset_launches()
+    out = {"frames": {}, "controls": {}}
+    for name, latents, frames in decoded:
+        want = one.decode_latents(latents)
+        out["frames"][name] = _frames_match(frames, want)
+        if name in controls:
+            out["controls"][name] = _frames_match(controls[name], want)
+    out["single_launches"] = dict(_kernels.LAUNCHES)
+    return out
+
+
+def _decode_split_faults(res, single, key="launches") -> list:
+    """What is wrong with a split decode: rank 0's frames (``_frames_ok``),
+    a rank that decoded no tile, K3 and K4 summed over the ranks unlike the
+    single-process decode's ``single``."""
+    bad = [f"{name}: frames {m}" for name, m in res[0]["frames"].items()
+           if not _frames_ok(m)]
+    summed = {k: sum(r[key][k] for r in res) for k in DECODE_KERNELS}
+    if summed != {k: single[k] for k in DECODE_KERNELS}:
+        bad.append(f"decode launches over the ranks {summed}, single "
+                   f"{ {k: single[k] for k in DECODE_KERNELS} }")
+    idle = [rank for rank, r in enumerate(res)
+            if sum(r[key][k] for k in DECODE_KERNELS[:2]) == 0]
+    if idle:
+        bad.append(f"rank(s) {idle} decoded no tile")
+    return bad
+
+
+def _dp_rank(mesh, out_dir):
+    """One rank of phase 5a (see :func:`phase_dp`)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+    from kandinsky5_tpu_torch.models import vae as vae_mod
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel import DataParallel
+    from kandinsky5_tpu_torch.pipeline import (
+        DEFAULT_NEGATIVE,
+        SCHEDULER_SCALE,
+        Kandinsky5T2VPipeline,
+    )
+    from kandinsky5_tpu_torch.sampling import generate_latents
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    conf = load_config(os.path.join(CONFIG_DIR, CONF5_SFT))
+    t = time.perf_counter()
+    dit = fast_init_dit_params(conf.model.dit_params, device=dev, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                          seed=1))
+    pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
+        os.path.join(out_dir, TEXT_FILE)), vae, tp=mesh)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t}
+    kept = _keep_latents(pipe, "dp")
+    _, prompt, tl, _, fname = _video("dp", 1, VIDEO_PROMPT)
+    kw = dict(time_length=tl, width=768, height=512, seed=42,
+              num_steps=DP_STEPS, guidance_weight=DP_GUIDANCE,
+              expand_prompts=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    frames = pipe(prompt, save_path=os.path.join(out_dir, fname), **kw)
+    wall = time.perf_counter() - t
+    tm = dict(pipe.timings)
+    out["launches"] = dict(_kernels.LAUNCHES)
+    out["line"] = dict(
+        request="dp video 1s", rank=mesh.rank, wall_s=wall,
+        steps=tm["steps"], s_per_step=tm["denoise_s"] / tm["steps"],
+        denoise_s=tm["denoise_s"], decode_s=tm["decode_s"],
+        gather_s=tm["gather_s"], gather_calls=tm["gather_calls"],
+        gather_bytes=tm["gather_bytes"], dp_split=tm["dp_split"],
+        decoded_tiles=tm["decoded_tiles"],
+        latents_finite=tm["latents_finite"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    latents = kept["dp"]
+    out["latents"] = latents.float().cpu()
+    # control: ranks that skip the predictions' gather (nothing decoded)
+    with mock.patch.object(DataParallel, "all_gather", _without_gather), \
+            mock.patch.object(pipe, "decode_latents",
+                              lambda lat, mode=None: kept.update(ctl=lat)):
+        pipe(prompt, **kw)
+    out["no_gather"] = kept["ctl"].float().cpu()
+    # control: two tiles swapped before the blend (every rank takes part)
+    with mock.patch.object(vae_mod, "decode_shared",
+                           _swapped_tiles(vae_mod.decode_shared)):
+        swapped = pipe.decode_latents(latents)
+    # the 17-frame 1024 x 1024 latents of phase 4's decodes: 2 x 2 tiles
+    g = torch.Generator(device=dev).manual_seed(11)
+    big = torch.randn((1, 5, 128, 128, 16), generator=g,
+                      device=dev).bfloat16()
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    big_frames = pipe.decode_latents(big)
+    out["big"] = dict(decode_s=time.perf_counter() - t,
+                      decoded_tiles=pipe.vae.decoded_tiles,
+                      launches=dict(_kernels.LAUNCHES))
+    if mesh.rank == 0:
+        # the single-device runs of the same weights, seed and steps: the
+        # CFG pair as two sequential calls, then as one batch of two
+        spec = pipe._spec(DP_STEPS, DP_GUIDANCE, SCHEDULER_SCALE)
+        cond = pipe._encode([prompt], "video")
+        uncond = pipe._encode([DEFAULT_NEGATIVE], "video")
+        for key, sequential in (("sequential", True), ("batched", False)):
+            _kernels.reset_launches()
+            single = generate_latents(
+                dit, dataclasses.replace(spec, sequential_cfg=sequential),
+                tuple(latents.shape), cond, uncond, seed=42)
+            out[key] = single.float().cpu()
+            out[f"{key}_launches"] = dict(_kernels.LAUNCHES)
+        out.update(_single_decodes(pipe, [("dp video 1s", latents, frames)],
+                                   {"dp video 1s": swapped}))
+        out["big"].update(_single_decodes(
+            pipe, [("dp decode 1024x1024", big, big_frames)]))
+    return out
+
+
+def phase_dp(out_dir: str):
+    """5a: one launch of 2 ranks on the (2, 1, 1) mesh sharing the card over
+    gloo. config_5s_sft.yaml at full width and depth (seeded +-0.02 weights
+    drawn on each rank) answers the 1 s video (25 frames, 10,752 tokens)
+    with DP_STEPS Euler steps at guidance DP_GUIDANCE on phase 4's replayed
+    text embeddings, the CFG pair split (rank 0 cond, rank 1 uncond): both
+    ranks' latents equal, within DP_BOUND of the single-device batched-CFG
+    run on rank 0 with the pair as two sequential calls (same weights,
+    seed and steps; each rank's call is one of its two calls a step, so
+    each rank's K1 and K2 counts are half of its), and within
+    BATCHED_BOUND of the batched-CFG run; control: ranks that skip the predictions' gather fail both. The request's tiled decode is split, a temporal tile a rank,
+    and so is a 17-frame 1024 x 1024 decode (2 x 2 spatial tiles, two a
+    rank): rank 0's frames against the single-process tiled decode of the
+    same latents (FRAME_LEVELS, FRAME_SHARE), K3 and K4 summed over the
+    ranks equal to that decode's; control: two tiles swapped before the
+    blend fail it. Returns the launches by path and the report."""
+    from kandinsky5_tpu_torch.parallel import launch
+
+    t = time.perf_counter()
+    res = launch(_dp_rank, 2, "gloo", "cuda", args=(out_dir,), timeout=900,
+                 dp=2)
+    launch_s = time.perf_counter() - t
+    r0 = res[0]
+    single, batched = r0["sequential"], r0["batched"]
+    report, bad = [], []
+    for rank, r in enumerate(res):
+        line = r["line"]
+        line.update(rel_l2=_rel(r["latents"], single),
+                    batched_rel_l2=_rel(r["latents"], batched),
+                    no_gather_rel_l2=_rel(r["no_gather"], single),
+                    no_gather_batched_rel_l2=_rel(r["no_gather"], batched),
+                    build_s=r["build_s"], launch_s=launch_s,
+                    big_decode_s=r["big"]["decode_s"],
+                    big_decoded_tiles=r["big"]["decoded_tiles"])
+        got = {k: r["launches"][k] for k in ("K1_flash_fixed", "K2_ff_mod")}
+        # a rank makes one of the sequential run's two calls a step
+        want = {k: r0["sequential_launches"][k] // 2 for k in got}
+        log(f"  dp rank {rank}: {line['s_per_step']:.4f} s/step "
+            f"({line['steps']} steps, the CFG pair split: {line['dp_split']});"
+            f" gather {line['gather_s']:.3f} s in {line['gather_calls']} calls"
+            f" ({line['gather_bytes']} bytes; gloo through the host, 2 ranks "
+            f"on one card, not a multi-GPU figure); decode {line['decode_s']:.3f}"
+            f" s, {line['decoded_tiles']} tiles; 1024 x 1024 decode "
+            f"{line['big_decode_s']:.3f} s, {line['big_decoded_tiles']} tiles;"
+            f" peak {line['peak_gib']:.2f} GiB; build {line['build_s']:.1f} s;"
+            f" latents against the single-device run, sequential CFG: rel_l2 "
+            f"{line['rel_l2']:.3e} (bound {DP_BOUND}), batched CFG "
+            f"{line['batched_rel_l2']:.3e} (bound {BATCHED_BOUND}); control "
+            f"without the gather {line['no_gather_rel_l2']:.3e}, "
+            f"{line['no_gather_batched_rel_l2']:.3e}; K1, K2 {got} (half the "
+            f"single device's sequential run: {want}; its batched run "
+            f"{ {k: r0['batched_launches'][k] for k in got} })")
+        if not torch_equal(r["latents"], r0["latents"]):
+            bad.append(f"rank {rank}'s latents unlike rank 0's")
+        if (line["rel_l2"] > DP_BOUND or not line["latents_finite"]
+                or line["batched_rel_l2"] > BATCHED_BOUND):
+            bad.append(f"rank {rank}: rel_l2 {line['rel_l2']:.3e}, batched "
+                       f"{line['batched_rel_l2']:.3e}")
+        if (line["no_gather_rel_l2"] <= DP_BOUND
+                or line["no_gather_batched_rel_l2"] <= BATCHED_BOUND):
+            bad.append(f"rank {rank}: the control without the gather passes")
+        if got != want or 2 * sum(want.values()) != sum(
+                r0["sequential_launches"][k] for k in got):
+            bad.append(f"rank {rank}: K1, K2 {got}, half the sequential "
+                       f"run's {want}")
+        if (not line["dp_split"] or line["gather_calls"] != DP_STEPS
+                or line["decoded_tiles"] != 1
+                or line["big_decoded_tiles"] != 2):
+            bad.append(f"rank {rank}: split {line['dp_split']}, "
+                       f"{line['gather_calls']} gathers, tiles "
+                       f"{line['decoded_tiles']} / {line['big_decoded_tiles']}")
+        report.append(line)
+    for name, m in {**r0["frames"], **r0["big"]["frames"]}.items():
+        log(f"  {name}: rank 0's frames against the single-process tiled "
+            f"decode of the same latents: {m['max_levels']} levels at most, "
+            f"on {m['share']:.2e} of the values")
+    ctl = r0["controls"]["dp video 1s"]
+    log(f"  control (two tiles swapped before the blend): {ctl['max_levels']}"
+        f" levels at most, on {ctl['share']:.2e} of the values "
+        + ("fails the check" if not _frames_ok(ctl) else "PASSES"))
+    if _frames_ok(ctl):
+        bad.append("the control with two tiles swapped passes")
+    bad += _decode_split_faults(res, r0["single_launches"])
+    bad += _decode_split_faults([r["big"] for r in res],
+                                r0["big"]["single_launches"])
+    if bad:
+        raise Failure("dp: " + "; ".join(bad))
+    launches = {"dp-request": _summed(r["launches"] for r in res),
+                "dp-decode-1024x1024": _summed(r["big"]["launches"]
+                                               for r in res)}
+    return launches, report
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def _summed(counts) -> dict:
+    """Launch counts summed over the ranks."""
+    counts = list(counts)
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def dptp_inputs(cfg, device, seed: int):
+    """A two-item DiT call at the 1 s shape, as the CFG pair's: (2, 7, 64,
+    96, 33) latents (10,752 visual tokens an item), two 256-token texts of
+    which 200 and 150 are valid, their pooled embeddings. Unlike a CFG
+    pair's, the two latents differ: with random weights the two texts move
+    the output little, and an item gathered from the wrong dp peer must
+    show."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 7, 64, 96, cfg.visual_embed_dim, generator=g)
+    text = torch.randn(2, 256, cfg.in_text_dim, generator=g)
+    pooled = torch.randn(2, cfg.in_text_dim2, generator=g)
+    mask = torch.arange(256)[None] < torch.tensor([[200], [150]])
+    return (x.to(device, torch.bfloat16),
+            text.to(device, torch.bfloat16),
+            pooled.to(device, torch.bfloat16), mask.to(device))
+
+
+def _dptp_spec(cfg):
+    from kandinsky5_tpu_torch.sampling import DenoiseSpec
+
+    return DenoiseSpec(dit_params=cfg, num_steps=1,
+                       guidance_weight=DP_GUIDANCE, scheduler_scale=10.0,
+                       scale_factor=(1.0, 2.0, 2.0))
+
+
+def _dptp_rank(mesh, cfg_kw, seed):
+    """One rank of phase 5b: its tp share of the seeded cut DiT, the CFG
+    pair's DiT call split over dp (``sampling.dp_dit_call``); then the same
+    with the dp peers' predictions gathered in the wrong order (the
+    control)."""
+    from unittest import mock
+
+    import torch
+
+    from kandinsky5_tpu_torch.config import DiTParams
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel import DataParallel
+    from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
+    from kandinsky5_tpu_torch.sampling import dp_dit_call
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DiTParams(**cfg_kw)
+    model = fast_init_dit_shard(cfg, mesh.tp, seed=seed)
+    args = dptp_inputs(cfg, mesh.device, seed)
+    spec = _dptp_spec(cfg)
+
+    @torch.no_grad()
+    def call():
+        return dp_dit_call(model, spec, None, *args, 0.5, dp=mesh.dp)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    mesh.tp.reset_stats()
+    mesh.dp.reset_stats()
+    t = time.perf_counter()
+    y = call()
+    torch.cuda.synchronize()
+    out = dict(y=y.cpu(), wall_s=time.perf_counter() - t,
+               launches=dict(_kernels.LAUNCHES),
+               all_reduce_s=mesh.tp.seconds, all_reduce_calls=mesh.tp.calls,
+               gather_s=mesh.dp.seconds, gather_calls=mesh.dp.calls,
+               gather_bytes=mesh.dp.bytes,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    real = DataParallel.all_gather
+
+    def wrong_peer(self, x):
+        return torch.cat(real(self, x).chunk(self.size)[::-1])
+
+    with mock.patch.object(DataParallel, "all_gather", wrong_peer):
+        out["control"] = call().cpu()
+    return out
+
+
+def phase_dptp(dev, conf5):
+    """5b: one launch of 4 ranks on the (2, 1, 2) mesh sharing the card: a
+    two-item DiT call at the 1 s shape (``dptp_inputs``), full width,
+    DPTP_BLOCKS deep, each dp group computing one item with its two tp ranks
+    and the predictions gathered over dp; every rank's output within
+    TP_BOUND of the single-device calls of one item each (a dp group's
+    shapes) and within BATCHED_BOUND of the batched call (whose 512 text
+    rows take K2) of the same seeded weights, equal on every rank, launch
+    counts exact (K8 and K1 per block, K2 none); control: the dp peers'
+    predictions gathered in the wrong order fail both bounds."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel import launch
+    from kandinsky5_tpu_torch.sampling import _dit_call
+
+    n_text, n_vis = DPTP_BLOCKS
+    cfg = dataclasses.replace(conf5.model.dit_params,
+                              num_text_blocks=n_text,
+                              num_visual_blocks=n_vis)
+    model = fast_init_dit_params(cfg, device=dev, seed=DPTP_SEED)
+    args = dptp_inputs(cfg, dev, DPTP_SEED)
+    spec = _dptp_spec(cfg)
+    _kernels.reset_launches()
+    with torch.no_grad():
+        # one call an item (a dp group's shapes), then the batch of two
+        ref = torch.cat([_dit_call(model, spec, None,
+                                   *(a[i:i + 1] for a in args), 0.5)[0]
+                         for i in range(2)]).cpu()
+        single = dict(_kernels.LAUNCHES)
+        batched = _dit_call(model, spec, None, *args, 0.5)[0].cpu()
+    del args
+    del model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = launch(_dptp_rank, 4, "gloo", "cuda",
+                 args=(dataclasses.asdict(cfg), DPTP_SEED), timeout=900, dp=2)
+    launch_s = time.perf_counter() - t
+    want = {"K8_ff": n_vis, "K1_flash_fixed": n_text + n_vis, "K2_ff_mod": 0}
+    bad, line = [], dict(request="dp x tp forward", blocks=DPTP_BLOCKS,
+                         launch_s=launch_s, single_launches={
+                             k: single[k] for k in want})
+    for rank, r in enumerate(res):
+        rel, ctl = _rel(r["y"], ref), _rel(r["control"], ref)
+        rel_b, ctl_b = _rel(r["y"], batched), _rel(r["control"], batched)
+        got = {k: r["launches"][k] for k in want}
+        for k in ("wall_s", "all_reduce_s", "gather_s", "peak_gib"):
+            line.setdefault(k, []).append(r[k])
+        line.setdefault("rel_l2", []).append(rel)
+        line.setdefault("batched_rel_l2", []).append(rel_b)
+        line.setdefault("wrong_peer_rel_l2", []).append(ctl)
+        log(f"  dp x tp rank {rank} (dp {rank // 2}, tp {rank % 2}): forward "
+            f"{r['wall_s']:.3f} s, all-reduce {r['all_reduce_s']:.3f} s in "
+            f"{r['all_reduce_calls']} calls, gather {r['gather_s']:.3f} s in "
+            f"{r['gather_calls']} ({r['gather_bytes']} bytes; gloo through "
+            f"the host, 4 ranks on one card), peak {r['peak_gib']:.2f} GiB; "
+            f"against one device, a call an item: rel_l2 {rel:.3e} (bound "
+            f"{TP_BOUND}), the batch of two {rel_b:.3e} (bound "
+            f"{BATCHED_BOUND}); control (wrong dp peer) {ctl:.3e}, "
+            f"{ctl_b:.3e}; launches {got}")
+        if (rel > TP_BOUND or rel_b > BATCHED_BOUND or got != want
+                or r["gather_calls"] != 1
+                or r["all_reduce_calls"] != 3 * n_vis
+                or not torch.equal(r["y"], res[0]["y"])):
+            bad.append(f"rank {rank}: rel_l2 {rel:.3e}, launches {got}, "
+                       f"{r['gather_calls']} gathers, "
+                       f"{r['all_reduce_calls']} all-reduces, or unlike "
+                       "rank 0")
+        if ctl <= TP_BOUND or ctl_b <= BATCHED_BOUND:
+            bad.append(f"rank {rank}: the wrong-peer control passes")
+    if bad:
+        raise Failure("dp x tp: " + "; ".join(bad))
+    return {"dp-tp-forward": _summed(r["launches"] for r in res)}, [line]
+
+
+def dp_alone(out_dir, dev, conf5) -> dict:
+    """Phases 5a and 5b alone (``--dp``): the request's text embeddings
+    come from :class:`SeededEmbedder`, not from phase 4's towers."""
+    from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE
+
+    os.makedirs(out_dir, exist_ok=True)
+    rec = RecordingEmbedder(SeededEmbedder())
+    for text in (VIDEO_PROMPT, DEFAULT_NEGATIVE):
+        rec.encode([text], "video")
+    rec.save(os.path.join(out_dir, TEXT_FILE))
+    out = {}
+    for sub, run in (("5a", lambda: phase_dp(out_dir)),
+                     ("5b", lambda: phase_dptp(dev, conf5))):
+        t = time.perf_counter()
+        launches, report = run()
+        out[sub] = dict(launches=launches, report=report,
+                        seconds=time.perf_counter() - t)
+        log(f"  phase {sub} {out[sub]['seconds']:.1f} s")
+    return out
 
 
 def tp_seed_study(dev, seeds) -> int:
@@ -3705,6 +4237,153 @@ def phase_vision(dev):
                 full_ms=full_s * 1e3)
 
 
+def _zero_rank(mesh, cfg_kw, shard_path):
+    """One rank of phase 7b: a ZeRO-1 step on the rank's row of the
+    dp-placed loader's first batch; the same without the gradients' mean
+    over dp (the control); on rank 0 the single-process step on the whole
+    batch, and each step's parameter update held against its update (one
+    step of lr 1e-5 moves a +-0.02 weight by about 5e-4 of itself, so the
+    parameters alone would hide a wrong update)."""
+    from unittest import mock
+
+    import torch
+
+    from kandinsky5_tpu_torch import training
+    from kandinsky5_tpu_torch.config import DiTParams
+    from kandinsky5_tpu_torch.data import LatentShardLoader
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.ops import _kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DiTParams(**cfg_kw)
+    opt = training.make_optimizer(lr=TRAIN_LR)
+    keys = ("latents", "text_embeds", "pooled_embed", "text_mask")
+
+    def first_batch(dp):
+        loader = LatentShardLoader([shard_path], SHARD_BATCH, seed=0,
+                                   dtype=torch.float32, device=mesh.device,
+                                   dp=dp)
+        return list(loader.epoch(0))[0]
+
+    def step(batch, zero):
+        """The model built and sharded, then one timed step: (model, state,
+        loss, step seconds)."""
+        model = fast_init_dit_params(cfg, device=mesh.device,
+                                     dtype=torch.float32, seed=ZERO_SEED)
+        state = training.init_train_state(model, opt)
+        if zero:
+            state = training.shard_train_state(state, mesh)
+        gen = torch.Generator(device=mesh.device).manual_seed(ZERO_SEED)
+        mesh.dp.reset_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = training.train_step(state, cfg, opt,
+                                          *(batch[k] for k in keys), gen,
+                                          attn_impl="dense")
+        loss = loss.item()
+        return model, state, loss, time.perf_counter() - t
+
+    batch = first_batch(mesh.dp)
+    init = [p.detach().clone() for p in fast_init_dit_params(
+        cfg, device=mesh.device, dtype=torch.float32,
+        seed=ZERO_SEED).parameters()]
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model, state, loss, wall = step(batch, True)
+    mom = [(m.numel() * m.element_size(), d) for key in ("mu", "nu")
+           for m, d in zip(state.opt_state[key], state.opt_state["dims"])]
+    params = [p.detach() for p in model.parameters()]
+    out = dict(rows=int(batch["latents"].shape[0]), loss=loss, step_s=wall,
+               launches=dict(_kernels.LAUNCHES),
+               collective_s=mesh.dp.seconds, collective_calls=mesh.dp.calls,
+               collective_bytes=mesh.dp.bytes,
+               moment_bytes=sum(b for b, _ in mom),
+               replicated_bytes=sum(b for b, d in mom if d is None),
+               unsharded_bytes=2 * sum(p.numel() * p.element_size()
+                                       for p in params),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               sums=torch.stack([p.double().sum() for p in params]).cpu())
+    with mock.patch.object(training, "mean_over_dp", lambda dp, xs: None):
+        ctl_model = step(batch, True)[0]
+    if mesh.rank == 0:
+        single, _, single_loss, single_s = step(first_batch(None), False)
+
+        def update(m):
+            return [p.detach() - p0 for p, p0 in zip(m.parameters(), init)]
+
+        want = update(single)
+        out.update(single_loss=single_loss, single_step_s=single_s,
+                   loss_rel=abs(loss - single_loss) / abs(single_loss),
+                   update_rel_l2=_params_rel(update(model), want),
+                   no_all_reduce_rel_l2=_params_rel(update(ctl_model), want))
+    return out
+
+
+def phase_zero(conf_sft, shard_path):
+    """7b: ZeRO-1 on 2 dp ranks sharing the card: phase 7's sft DiT (full
+    width, 2 text and 2 visual blocks, fp32, dense), each rank on its row of
+    the dp-placed loader's batch of SHARD_BATCH; one step's loss and
+    parameters within TRAIN_BOUND of the single-process step on the whole
+    batch, t and noise (rank 0; the parameters' update held against its
+    update), equal on both ranks; each rank's moments
+    at most half of the unsharded ones plus those kept whole; control: a
+    step without the gradients' mean over dp fails the bound."""
+    import dataclasses
+
+    from kandinsky5_tpu_torch.parallel import launch
+
+    cfg = dataclasses.replace(conf_sft.model.dit_params, num_text_blocks=2,
+                              num_visual_blocks=2)
+    t = time.perf_counter()
+    res = launch(_zero_rank, 2, "gloo", "cuda",
+                 args=(dataclasses.asdict(cfg), shard_path), timeout=900,
+                 dp=2)
+    launch_s = time.perf_counter() - t
+    r0, bad = res[0], []
+    line = dict(request="zero-1 step", launch_s=launch_s,
+                loss=r0["loss"], single_loss=r0["single_loss"],
+                single_step_s=r0["single_step_s"],
+                loss_rel=r0["loss_rel"], update_rel_l2=r0["update_rel_l2"],
+                no_all_reduce_rel_l2=r0["no_all_reduce_rel_l2"])
+    for rank, r in enumerate(res):
+        limit = r["unsharded_bytes"] / 2 + r["replicated_bytes"]
+        for k in ("step_s", "moment_bytes", "collective_s", "peak_gib"):
+            line.setdefault(k, []).append(r[k])
+        log(f"  ZeRO-1 rank {rank}: {r['rows']} row(s), step {r['step_s']:.3f}"
+            f" s (all-reduce and gathers {r['collective_s']:.3f} s in "
+            f"{r['collective_calls']} calls, {r['collective_bytes']} bytes; "
+            f"gloo through the host, 2 ranks on one card), moments "
+            f"{r['moment_bytes']} bytes of {r['unsharded_bytes']} unsharded "
+            f"({r['replicated_bytes']} kept whole), peak {r['peak_gib']:.2f} "
+            f"GiB, loss {r['loss']:.6f}")
+        if (r["moment_bytes"] > limit or r["rows"] != SHARD_BATCH // 2
+                or not torch_equal(r["sums"], r0["sums"])
+                or r["loss"] != r0["loss"]):
+            bad.append(f"rank {rank}: moments {r['moment_bytes']} (limit "
+                       f"{limit:.0f}), {r['rows']} rows, or its parameters "
+                       "or loss unlike rank 0's")
+        if any(r["launches"].values()):
+            bad.append(f"rank {rank} launched kernels: fp32 training on "
+                       "dense attention runs none")
+    log(f"  ZeRO-1 against the single-process step: loss {r0['loss']:.6f} "
+        f"(single {r0['single_loss']:.6f}, rel {r0['loss_rel']:.3e}; its "
+        f"step {r0['single_step_s']:.3f} s alone on rank 0), "
+        f"the parameters' update rel_l2 {r0['update_rel_l2']:.3e} (bound "
+        f"{TRAIN_BOUND});"
+        f" control without the gradients' mean {r0['no_all_reduce_rel_l2']:.3e}"
+        + (" fails the bound" if r0["no_all_reduce_rel_l2"] > TRAIN_BOUND
+           else " PASSES"))
+    if r0["loss_rel"] > TRAIN_BOUND or r0["update_rel_l2"] > TRAIN_BOUND:
+        bad.append(f"loss rel {r0['loss_rel']:.3e}, update "
+                   f"{r0['update_rel_l2']:.3e}")
+    if r0["no_all_reduce_rel_l2"] <= TRAIN_BOUND:
+        bad.append("the control without the gradients' mean passes")
+    if bad:
+        raise Failure("ZeRO-1: " + "; ".join(bad))
+    return line, _summed(r["launches"] for r in res)
+
+
 def phase_train(dev, conf5, built, out_dir, results):
     """Phase 7 (see the module's docstring). Returns the launches by run,
     the report and the readings."""
@@ -3736,6 +4415,13 @@ def phase_train(dev, conf5, built, out_dir, results):
     log("  7.6 the vision tower")
     report.append(phase_vision(dev))
     torch.cuda.empty_cache()
+    log("  7.7 (7b) ZeRO-1 on two dp ranks")
+    t = time.perf_counter()
+    line, launches["7b-zero"] = phase_zero(
+        conf_sft, os.path.join(out_dir, "shard0.npz"))
+    line["phase_s"] = time.perf_counter() - t
+    log(f"  7b {line['phase_s']:.1f} s")
+    report.append(line)
     return launches, report, readings
 
 
@@ -3784,6 +4470,10 @@ def main() -> int:
                     help="build, then run only phase 7 (the encode, the "
                     "shard, training, the vision tower) on freshly built "
                     "models and print its readings (no smoke result)")
+    ap.add_argument("--dp", action="store_true",
+                    help="build, then run only phases 5a and 5b (dp serving "
+                    "and dp x tp) with seeded stand-in text embeddings, and "
+                    "print their readings (no smoke result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -3888,6 +4578,12 @@ def main() -> int:
             log(json.dumps({"launches": tr_launches, "requests": tr_report,
                             "readings": tr_readings, "kernels": results}))
             return 0
+        if args.dp:
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            dp_out = dp_alone(args.out, dev, conf5)
+            log(gpu_line())
+            log(json.dumps(dp_out))
+            return 0
         if args.k4 or args.k6:
             results = {}
             g, normed = _seeded(dev)
@@ -3926,13 +4622,24 @@ def main() -> int:
             f"encodes, expansions and offload request {text_added:.1f} s)")
         torch.cuda.empty_cache()
 
-        log("phase 5: tensor parallelism, 2 and 4 ranks sharing the card "
-            "(gloo)")
+        log("phase 5: tensor and data parallelism, 2 and 4 ranks sharing the "
+            "card (gloo)")
         t = time.perf_counter()
         tp_launches, tp_report = phase_tp(dev, conf5, seconds5, args.out)
         launches.update(tp_launches)
         report += tp_report
-        log(f"  phase 5 {time.perf_counter() - t:.1f} s")
+        log(f"  phase 5 (tp) {time.perf_counter() - t:.1f} s")
+        for sub, what, run in (
+                ("5a", "dp serving: 2 ranks on (2, 1, 1)",
+                 lambda: phase_dp(args.out)),
+                ("5b", "dp x tp: 4 ranks on (2, 1, 2)",
+                 lambda: phase_dptp(dev, conf5))):
+            log(f"phase {sub}: {what}")
+            t = time.perf_counter()
+            sub_launches, sub_report = run()
+            launches.update(sub_launches)
+            report += sub_report
+            log(f"  phase {sub} {time.perf_counter() - t:.1f} s")
 
         log(f"phase 6: serving ({CONF5_SFT}: MagCache on and off, resume, "
             "the HTTP server, the parity consumer)")

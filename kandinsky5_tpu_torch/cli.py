@@ -10,9 +10,11 @@ It runs on the CUDA card unless ``--device cpu`` is given. ``--int8_linear``
 prompt expansion) are flags here, where the JAX package reads environment
 variables. ``--tp N`` runs N ranks over ``torch.distributed`` (NCCL with a
 card per rank, else gloo), each building the pipeline from the same
-checkpoints; rank 0 decodes and writes. ``--trace_dir DIR`` traces the
-request with ``torch.profiler`` into ``DIR/trace.json`` (rank 0's), where
-the JAX package reads ``KANDINSKY5_TPU_TRACE_DIR``.
+checkpoints on the (1, 1, N) mesh, as the JAX factory plans it; every
+rank decodes its share of the tiles, rank 0 blends them and writes.
+``--trace_dir DIR`` traces the request with ``torch.profiler`` into
+``DIR/trace.json`` (rank 0's), where the JAX package reads
+``KANDINSKY5_TPU_TRACE_DIR``.
 """
 
 from __future__ import annotations
@@ -61,19 +63,20 @@ def validate_args(args):
             "(512, 768) or (768, 512)")
 
 
-def generate(tp, args):
-    """Build the pipeline from ``args`` (as rank ``tp``, or alone when None)
-    and answer the one request; returns the path written (None off rank
-    0). Module-level, so that ``parallel.launch``'s ranks can import it."""
+def generate(mesh, args):
+    """Build the pipeline from ``args`` (as the rank at ``mesh``, a
+    ``RankMesh``, or alone when None) and answer the one request; returns
+    the path written (None off rank 0). Module-level, so that
+    ``parallel.launch``'s ranks can import it."""
     from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE, get_T2V_pipeline
     from kandinsky5_tpu_torch.utils.trace import profiled
 
     pipe = get_T2V_pipeline(
         conf_path=args.config, cache_dir=args.cache_dir,
-        offload=args.offload, magcache=args.magcache, tp=tp,
+        offload=args.offload, magcache=args.magcache, tp=mesh,
         int8_linear=args.int8_linear, int8_expand=args.int8_expand,
         device=args.device)
-    trace_dir = args.trace_dir if tp is None or tp.rank == 0 else None
+    trace_dir = args.trace_dir if mesh is None or mesh.rank == 0 else None
     with profiled(trace_dir):
         frames = pipe(
             args.prompt,

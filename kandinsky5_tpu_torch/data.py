@@ -13,8 +13,10 @@ the 7B text tower and the VAE inside the step would dominate it:
     background thread onto a device while the caller's step runs. Its
     shuffles are the JAX loader's (``np.random.RandomState((seed, epoch))``,
     the same carry across shards), so both yield the same batches in the
-    same order. The JAX loader's ``mesh=`` (dp placement) is not ported
-    (ROADMAP.md, queue 1, item 7).
+    same order. Given a rank's data-parallel group (``dp=``, the JAX
+    loader's ``mesh=`` with its batches on ``P("dp")``), each rank gets
+    its rows [d n, (d + 1) n) of every global batch, n = batch / dp, on
+    its device.
 """
 
 from __future__ import annotations
@@ -91,12 +93,16 @@ class LatentShardLoader:
     ``device`` (the CUDA card when None) while the caller's step runs.
     Batches hold ``dtype`` tensors (bf16 by default) and a bool
     ``text_mask``. Several hosts each pass ``host_shard=(index, count)`` to
-    read disjoint subsets of the shards."""
+    read disjoint subsets of the shards. With ``dp`` (a
+    :class:`~kandinsky5_tpu_torch.parallel.DataParallel` group, whose every
+    rank passes the same shards and seed) each batch holds this rank's
+    contiguous block of the global batch's rows, on the group's device
+    unless ``device`` is given; a batch that dp does not divide raises."""
 
     def __init__(self, shard_paths: Sequence[str], batch_size: int,
                  seed: int = 0, prefetch: int = 2, host_shard=None,
                  drop_remainder: bool = True, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, dp=None):
         paths = sorted(shard_paths)
         if host_shard is not None:
             idx, count = host_shard
@@ -109,7 +115,12 @@ class LatentShardLoader:
         self.prefetch = prefetch
         self.drop_remainder = drop_remainder
         self.dtype = dtype
-        self.device = default_device(device)
+        self.dp = dp if dp is not None and dp.size > 1 else None
+        if self.dp is not None and batch_size % self.dp.size:
+            raise ValueError(f"dp={self.dp.size} does not divide the batch "
+                             f"of {batch_size}")
+        self.device = default_device(device if device is not None or dp is None
+                                     else dp.device)
 
     def _iter_host_batches(self, epoch: int):
         rng = np.random.RandomState((self.seed, epoch))
@@ -133,6 +144,14 @@ class LatentShardLoader:
             yield carry
 
     def _place(self, batch) -> dict:
+        if self.dp is not None:
+            rows = len(batch["latents"])
+            if rows % self.dp.size:
+                raise ValueError(f"dp={self.dp.size} does not divide a batch "
+                                 f"of {rows} rows")
+            n = rows // self.dp.size
+            batch = {k: v[self.dp.rank * n:(self.dp.rank + 1) * n]
+                     for k, v in batch.items()}
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                     device=self.device,
                     dtype=torch.bool if k == "text_mask" else self.dtype)

@@ -10,7 +10,12 @@ Two decodes, as in the JAX package: the faithful overlap-tiled decode
 (``HunyuanVideoVAE.decode(mode="tiled")``, the reference's, with its
 ``OPT_*_TILING`` tables and linear blends) and the streaming decode
 (``models/vae_stream.py``, the single-device default), which falls back to
-tiled where spatial tiling would apply (above 900 px).
+tiled where spatial tiling would apply (above 900 px). On a mesh
+(``group``: the pipeline's ranks, the JAX package's VAE mesh with dp over
+every device) the tiled decode splits its equal-shaped tiles over the
+ranks (:func:`decode_shared`), gathers the decoded tiles to rank 0 once and
+blends them there in the original order; ragged temporal tiles decode on
+their own, unpadded, as GroupNorm is not time-causal.
 
 Routing of the 3x3x3 convs (``ConvMode``, fixed per decode from the VAE's
 options): 128-512 channels go to K3 (``ops/conv.causal_conv3d_fused``), the
@@ -311,6 +316,35 @@ def posterior_sample(moments, noise=None):
     return (mean.float() + std * noise).to(mean.dtype)
 
 
+def decoded_shape(z_shape) -> Tuple[int, ...]:
+    """The (B, T, H, W, 3) shape the decoder gives a (B, T', H', W', C)
+    latent: T = 4 (T' - 1) + 1, H = 8 H', W = 8 W'."""
+    b, t, h, w = z_shape[:4]
+    return (b, 4 * (t - 1) + 1, 8 * h, 8 * w, 3)
+
+
+def decode_shared(group, tiles: Sequence[torch.Tensor], decode_one):
+    """Decode equal-shaped latent ``tiles`` split over the ranks of
+    ``group``: rank r decodes the contiguous block [r k, (r + 1) k) of them
+    with ``decode_one``, k = ceil(n / size) (the JAX package's P("dp")
+    placement of the batch padded to a multiple of dp; a padding slot is
+    sent as zeros, not decoded), and the decoded tiles are gathered to group
+    rank 0 once. Returns the n decoded tiles in order on rank 0, None on the
+    others."""
+    n = len(tiles)
+    k = -(-n // group.size)
+    z = tiles[0]
+    block = torch.zeros((k,) + decoded_shape(z.shape), dtype=z.dtype,
+                        device=z.device)
+    for m, tile in enumerate(tiles[group.rank * k:(group.rank + 1) * k]):
+        out = decode_one(tile)
+        if out.dtype != block.dtype:
+            raise TypeError(f"a tile decoded to {out.dtype}, not {z.dtype}")
+        block[m] = out
+    gathered = group.gather(block)
+    return None if gathered is None else list(gathered[:n])
+
+
 def _blend(a, b, extent: int, axis: int):
     """Linear cross-fade of the last ``extent`` slices of a into the first
     ``extent`` slices of b along ``axis``, fp32, out in b.dtype (the
@@ -337,20 +371,27 @@ class HunyuanVideoVAE:
     and the encode and unfused in the streaming decode, measured there on
     the TPU);
     ``int8_conv`` runs the convs the TPU kernel admits W8A8 in the decodes
-    and the encode (the JAX package's ``KANDINSKY5_TPU_INT8_CONV``). The tiling state
-    (``tile_sample_*``) lives on the object and is set per decode from the
-    reference's tables, as in the JAX package."""
+    and the encode (the JAX package's ``KANDINSKY5_TPU_INT8_CONV``);
+    ``group`` (a :class:`~kandinsky5_tpu_torch.parallel.ranks.RankGroup`,
+    the JAX package's ``vae.mesh``) makes each decode one rank's part of a
+    decode split over the group, every rank calling it: rank 0 returns the
+    frames, the others None. The tiling state (``tile_sample_*``) lives on
+    the object and is set per decode from the reference's tables, as in
+    the JAX package; ``decoded_tiles`` counts the tiles this rank decoded in
+    the last decode (a stream decode counts none)."""
 
     spatial_compression = 8
     temporal_compression = 4
     scaling_factor = SCALING_FACTOR
 
     def __init__(self, params: dict, dtype=torch.bfloat16, fuse_gn=None,
-                 int8_conv: bool = False):
+                 int8_conv: bool = False, group=None):
         self.params = params
         self.dtype = dtype
         self.fuse_gn = fuse_gn
         self.int8_conv = int8_conv
+        self.group = group
+        self.decoded_tiles = 0
         self.tile_sample_min_num_frames = 16
         self.tile_sample_stride_num_frames = 12
         self.tile_sample_min_height = 256
@@ -362,7 +403,7 @@ class HunyuanVideoVAE:
         """A VAE over the same parameters with other options."""
         vae = copy.copy(self)
         for key, value in options.items():
-            if key not in ("fuse_gn", "int8_conv"):
+            if key not in ("fuse_gn", "int8_conv", "group"):
                 raise TypeError(f"unknown VAE option {key!r}")
             setattr(vae, key, value)
         return vae
@@ -403,11 +444,15 @@ class HunyuanVideoVAE:
         ``mode``: "tiled" is the reference's overlap-tile decode; "stream"
         decodes disjoint chunks with carried causal state
         (``models/vae_stream.py``) and falls back to tiled where spatial
-        tiling would apply."""
+        tiling would apply. Under ``group`` rank 0 returns the frames and the
+        other ranks None (a stream decode runs on rank 0 alone)."""
         if mode not in DECODE_MODES:
             raise ValueError(f"decode mode must be one of {DECODE_MODES}, "
                              f"got {mode!r}")
         z = z.to(self.dtype)
+        group = self.group if self.group is not None and self.group.size > 1 \
+            else None
+        self.decoded_tiles = 0
         tf, hl, wl = z.shape[1:4]
         if opt_tiling:
             sample_frames = 4 * (tf - 1) + 1
@@ -422,28 +467,41 @@ class HunyuanVideoVAE:
                     streaming_decode,
                 )
 
+                if group is not None and group.rank != 0:
+                    return None
                 return streaming_decode(self.params, z,
                                         mode=self.conv_mode("stream"))
         cm = self.conv_mode("tiled")
         tile_lat_f = self.tile_sample_min_num_frames // self.temporal_compression
         if tf > tile_lat_f + 1:
-            return self._temporal_tiled_decode(z, cm)
-        return self._spatial_decode(z, cm)
+            return self._temporal_tiled_decode(z, cm, group)
+        return self._spatial_decode(z, cm, group)
 
-    def _spatial_decode(self, z, cm: ConvMode):
+    def _decode(self, z, cm: ConvMode):
+        """One tile, counted."""
+        self.decoded_tiles += 1
+        return _decode_tile(self.params, z, cm)
+
+    def _spatial_decode(self, z, cm: ConvMode, group=None):
+        """Under ``group`` (every rank calling) rank 0 gets the result, the
+        other ranks None."""
         hl, wl = z.shape[2:4]
         tile_lat_h = self.tile_sample_min_height // self.spatial_compression
         # the reference compares the width against the STRIDE here (its
         # vae.py:854-856), a quirk kept for parity
         tile_lat_w = self.tile_sample_stride_width // self.spatial_compression
         if wl > tile_lat_w or hl > tile_lat_h:
-            return self._spatial_tiled_decode(z, cm)
-        return _decode_tile(self.params, z, cm)
+            return self._spatial_tiled_decode(z, cm, group)
+        if group is not None and group.rank != 0:
+            return None
+        return self._decode(z, cm)
 
-    def _spatial_tiled_decode(self, z, cm: ConvMode):
+    def _spatial_tiled_decode(self, z, cm: ConvMode, group=None):
         """Overlap tiles over H and W, blended linearly (reference
         tiled_decode); each blend chains off the already-blended
-        neighbour, as the reference's in-place blend does."""
+        neighbour, as the reference's in-place blend does. Under ``group``
+        the tiles (all of one shape) are split over the ranks and the blend
+        runs on rank 0."""
         sc = self.spatial_compression
         hl, wl = z.shape[2:4]
         t_lat_h = self.tile_sample_min_height // sc
@@ -452,10 +510,20 @@ class HunyuanVideoVAE:
         s_lat_w = self.tile_sample_stride_width // sc
         blend_h = self.tile_sample_min_height - self.tile_sample_stride_height
         blend_w = self.tile_sample_min_width - self.tile_sample_stride_width
-        rows = [[_decode_tile(self.params, z[:, :, i:i + t_lat_h,
-                                             j:j + t_lat_w], cm)
-                 for j in range(0, wl - t_lat_w + 1, s_lat_w)]
-                for i in range(0, hl - t_lat_h + 1, s_lat_h)]
+        i_starts = range(0, hl - t_lat_h + 1, s_lat_h)
+        j_starts = range(0, wl - t_lat_w + 1, s_lat_w)
+        tiles = [z[:, :, i:i + t_lat_h, j:j + t_lat_w]
+                 for i in i_starts for j in j_starts]
+        if group is not None and len(tiles) > 1:
+            flat = decode_shared(group, tiles, lambda t: self._decode(t, cm))
+        elif group is not None and group.rank != 0:
+            flat = None
+        else:
+            flat = [self._decode(t, cm) for t in tiles]
+        if flat is None:
+            return None
+        nw = len(j_starts)
+        rows = [flat[r * nw:(r + 1) * nw] for r in range(len(i_starts))]
         result_rows = []
         for i, row in enumerate(rows):
             result_row = []
@@ -474,19 +542,36 @@ class HunyuanVideoVAE:
         out = torch.cat(result_rows, dim=2)
         return out[:, :, :hl * sc, :wl * sc]
 
-    def _temporal_tiled_decode(self, z, cm: ConvMode):
+    def _temporal_tiled_decode(self, z, cm: ConvMode, group=None):
         """Chunks over latent time, re-decoding one overlap frame, blended
-        linearly (reference _temporal_tiled_decode)."""
+        linearly (reference _temporal_tiled_decode). Under ``group`` the
+        full-length chunks are split over the ranks (each decodes its own,
+        spatially tiled where that applies) and the ragged ones decode on
+        their own; the blend runs on rank 0."""
         tf = z.shape[1]
         num_sample_frames = (tf - 1) * self.temporal_compression + 1
         t_lat_f = self.tile_sample_min_num_frames // self.temporal_compression
         s_lat_f = self.tile_sample_stride_num_frames // self.temporal_compression
         blend_f = (self.tile_sample_min_num_frames
                    - self.tile_sample_stride_num_frames)
+        starts = list(range(0, tf - t_lat_f + 1, s_lat_f))
+        full = [i for i in starts if i + t_lat_f + 1 <= tf]
+        shared = {}
+        if group is not None and len(full) > 1:
+            out = decode_shared(group, [z[:, i:i + t_lat_f + 1] for i in full],
+                                lambda t: self._spatial_decode(t, cm))
+            shared = dict(zip(full, out or [None] * len(full)))
         row = []
-        for i in range(0, tf - t_lat_f + 1, s_lat_f):
-            decoded = self._spatial_decode(z[:, i:i + t_lat_f + 1], cm)
-            row.append(decoded[:, 1:] if i > 0 else decoded)
+        for i in starts:
+            if i in shared:
+                decoded = shared[i]
+            else:
+                decoded = self._spatial_decode(z[:, i:i + t_lat_f + 1], cm,
+                                               group)
+            row.append(decoded)
+        if group is not None and group.rank != 0:
+            return None
+        row = [d[:, 1:] if i > 0 else d for i, d in zip(starts, row)]
         result = []
         for i, tile in enumerate(row):
             if i > 0:

@@ -1,6 +1,11 @@
-"""Tensor parallelism for the port's DiT: the plan (:mod:`.sharding`) and
-the rank processes (:mod:`.ranks`)."""
+"""The port's mesh: the DiT's tensor-parallel plan (:mod:`.sharding`) and
+the rank processes with their tp and dp groups (:mod:`.ranks`)."""
 
-from kandinsky5_tpu_torch.parallel.ranks import TensorParallel, launch
+from kandinsky5_tpu_torch.parallel.ranks import (
+    DataParallel,
+    RankMesh,
+    TensorParallel,
+    launch,
+)
 
-__all__ = ["TensorParallel", "launch"]
+__all__ = ["DataParallel", "RankMesh", "TensorParallel", "launch"]

@@ -1,11 +1,18 @@
-"""Rank processes of a tensor-parallel group: :class:`TensorParallel` and
+"""Rank processes of a (dp, 1, tp) mesh: :class:`TensorParallel`,
+:class:`DataParallel`, the rank's place :class:`RankMesh`, and
 :func:`launch`.
 
 The JAX package runs one controller over a device mesh and keeps the mesh
 in a module global (``parallel/sharding.py`` ``_ACTIVE_MESH``). PyTorch runs
 one process per rank, as the reference does under torchrun; here each rank
-gets a :class:`TensorParallel` holder, which the caller passes to the model
-or pipeline it builds. No module global holds it.
+gets a :class:`RankMesh` holding its tensor-parallel and data-parallel
+groups, which the caller passes to the model, sampler or pipeline it
+builds. No module global holds it.
+
+The layout is the device order of JAX's ``make_mesh``: the ranks reshaped
+to (dp, sp, tp) with sp = 1, so rank r has dp index r // tp and tp index
+r % tp (:func:`rank_grid`). The tp groups are contiguous ranks (with NCCL
+they stay inside a node); a dp group holds the ranks of one tp index.
 
 The backend is the caller's explicit choice and nothing switches it:
 ``"nccl"`` for one GPU per rank, ``"gloo"`` for ranks that share one card
@@ -22,8 +29,9 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -32,25 +40,31 @@ from kandinsky5_tpu_torch.utils import default_device
 BACKENDS = ("nccl", "gloo")
 
 
-class TensorParallel:
-    """One rank's place in a tensor-parallel group of ``size`` ranks:
-    the process group, the rank, the backend (``"nccl"`` or ``"gloo"``, no
-    default) and the rank's device: the card unless ``device="cpu"`` is
-    given (with no card and no device it raises). It counts its
-    all-reduces (``calls``, ``bytes``) and the host seconds they took
-    (``seconds``). With gloo on a CUDA tensor the card is
-    synchronized before and after the timed call: gloo's copy to the host
-    waits for the stream anyway, and so the time is the collective's and
-    not that of the work queued before it."""
+class RankGroup:
+    """One rank's place in a group of ``size`` ranks: the process group
+    (None for a group of one), the rank within it, the backend (``"nccl"``
+    or ``"gloo"``, no default), the rank's device (the card unless
+    ``device="cpu"`` is given; with no card and no device it raises) and
+    the global ranks of the members in group order (``ranks``; 0 to size -
+    1 when None). It counts its all-reduces and gathers (``calls``,
+    ``bytes``) and the host seconds they took (``seconds``); broadcasts are
+    not counted. Under gloo a CUDA tensor is synchronized before and after
+    the timed call, so the time is the collective's and not that of the
+    work queued before it, and a gather stages it through the host, as
+    gloo's own all-reduce does."""
 
     def __init__(self, group, rank: int, size: int, backend: str,
-                 device=None):
+                 device=None, ranks: Optional[Sequence[int]] = None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{backend!r}")
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a group of {size}")
         self.group, self.rank, self.size = group, rank, size
+        self.ranks = list(range(size)) if ranks is None else list(ranks)
+        if len(self.ranks) != size:
+            raise ValueError(f"{len(self.ranks)} global ranks for a group "
+                             f"of {size}")
         self.backend = backend
         device = default_device(device)
         if device.type == "cuda" and device.index is None:
@@ -65,6 +79,17 @@ class TensorParallel:
         if x.is_cuda and self.backend == "gloo":
             torch.cuda.synchronize(x.device)
 
+    def _count(self, t0: float, x: torch.Tensor, parts: int = 1) -> None:
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.bytes += x.numel() * x.element_size() * parts
+
+    def _staged(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the backend moves it: a CUDA tensor goes through the
+        host under gloo."""
+        x = x.contiguous()
+        return x.cpu() if x.is_cuda and self.backend == "gloo" else x
+
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the group in place (in its own dtype) and return
         it."""
@@ -72,19 +97,107 @@ class TensorParallel:
         t = time.perf_counter()
         dist.all_reduce(x, group=self.group)
         self._sync(x)
-        self.seconds += time.perf_counter() - t
-        self.calls += 1
-        self.bytes += x.numel() * x.element_size()
+        self._count(t, x)
         return x
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (all of one shape), concatenated along dim 0
+        in group order, on every rank, on ``x``'s device."""
+        self._sync(x)
+        t = time.perf_counter()
+        src = self._staged(x)
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        out = torch.cat(parts).to(x.device)
+        self._sync(out)
+        self._count(t, src, self.size)
+        return out
+
+    def gather(self, x: torch.Tensor, dst: int = 0) -> Optional[torch.Tensor]:
+        """Every rank's ``x`` (all of one shape), concatenated along dim 0
+        in group order, on group rank ``dst`` (on its ``x``'s device); None
+        on the others."""
+        self._sync(x)
+        t = time.perf_counter()
+        src = self._staged(x)
+        parts = ([torch.empty_like(src) for _ in range(self.size)]
+                 if self.rank == dst else None)
+        dist.gather(src, parts, dst=self.ranks[dst], group=self.group)
+        out = None if parts is None else torch.cat(parts).to(x.device)
+        self._count(t, src, self.size)
+        return out
+
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``x`` on every rank (in place)."""
-        dist.broadcast(x, src=src, group=self.group)
+        """Group rank ``src``'s ``x`` on every rank (in place)."""
+        dist.broadcast(x, src=self.ranks[src], group=self.group)
         return x
 
     def __repr__(self) -> str:
-        return (f"TensorParallel(rank={self.rank}, size={self.size}, "
+        return (f"{type(self).__name__}(rank={self.rank}, size={self.size}, "
                 f"backend={self.backend!r}, device={self.device})")
+
+
+class TensorParallel(RankGroup):
+    """A tensor-parallel group: the ranks that hold one model's shares and
+    all-reduce its row-parallel products (``models/nn.py``)."""
+
+
+class DataParallel(RankGroup):
+    """A data-parallel group: the ranks of one tp index, each computing its
+    block of the batch; the sampler all-gathers their predictions, the
+    trainer all-reduces their gradients (ZeRO-1: each keeps a slice of the
+    moments)."""
+
+
+class RankMesh(NamedTuple):
+    """One rank's place on the (dp, 1, tp) mesh: its data-parallel group,
+    its tensor-parallel group and the group of every rank (``world``: the
+    tiled decode splits its tiles over it, the noise is rank 0's of it).
+    A group of one rank has no process group."""
+
+    dp: DataParallel
+    tp: TensorParallel
+    world: RankGroup
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def shape(self):
+        """(dp, sp, tp), as JAX's ``mesh.shape``; sp is 1."""
+        return self.dp.size, 1, self.tp.size
+
+
+def as_mesh(place) -> RankMesh:
+    """The :class:`RankMesh` of ``place``: itself, or for a bare
+    :class:`TensorParallel` the (1, 1, tp) mesh of its group."""
+    if isinstance(place, RankMesh):
+        return place
+    if not isinstance(place, TensorParallel):
+        raise TypeError("a rank's place is a RankMesh or a TensorParallel "
+                        f"group, got {type(place).__name__}")
+    one = DataParallel(None, 0, 1, place.backend, place.device,
+                       ranks=[place.ranks[place.rank]])
+    world = RankGroup(place.group, place.rank, place.size, place.backend,
+                      place.device, ranks=place.ranks)
+    return RankMesh(one, place, world)
+
+
+def rank_grid(world: int, dp: int = 1) -> np.ndarray:
+    """The ranks of a ``world``-rank launch laid out as the (dp, 1, tp)
+    mesh: JAX's ``make_mesh(world, dp)`` device order, tp = world / dp."""
+    if dp < 1 or world % dp:
+        raise ValueError(f"dp={dp} must divide {world} ranks")
+    return np.arange(world).reshape(dp, 1, world // dp)
 
 
 def rank_device(device: str, rank: int, world: int, backend: str):
@@ -103,7 +216,26 @@ def rank_device(device: str, rank: int, world: int, backend: str):
     return torch.device("cuda", rank % n)
 
 
-def _rank_main(fn, rank: int, world: int, backend: str, device: str,
+def _groups(world: int, dp: int, backend: str):
+    """Every tp group and every dp group of the (dp, 1, tp) mesh, as
+    (global ranks, process group), created on every rank in the same order
+    (``new_group`` is collective); a group of one has no process group, one
+    of every rank is the default group."""
+    grid = rank_grid(world, dp)[:, 0, :]
+    out = {"tp": [], "dp": []}
+    for kind, rows in (("tp", grid), ("dp", grid.T)):
+        for ranks in rows.tolist():
+            if len(ranks) == 1:
+                group = None
+            elif len(ranks) == world:
+                group = dist.group.WORLD
+            else:
+                group = dist.new_group(ranks, backend=backend)
+            out[kind].append((ranks, group))
+    return out
+
+
+def _rank_main(fn, rank: int, world: int, dp: int, backend: str, device: str,
                store_path: str, results, args) -> None:
     try:
         dev = rank_device(device, rank, world, backend)
@@ -113,8 +245,16 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world)
         try:
-            tp = TensorParallel(dist.group.WORLD, rank, world, backend, dev)
-            out = fn(tp, *args)
+            groups = _groups(world, dp, backend)
+            tp_ranks, tp_group = groups["tp"][rank // (world // dp)]
+            dp_ranks, dp_group = groups["dp"][rank % (world // dp)]
+            mesh = RankMesh(
+                DataParallel(dp_group, dp_ranks.index(rank), len(dp_ranks),
+                             backend, dev, ranks=dp_ranks),
+                TensorParallel(tp_group, tp_ranks.index(rank), len(tp_ranks),
+                               backend, dev, ranks=tp_ranks),
+                RankGroup(dist.group.WORLD, rank, world, backend, dev))
+            out = fn(mesh, *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, pickle.dumps(out)))
@@ -124,9 +264,11 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
 
 
 def launch(fn: Callable[..., Any], world: int, backend: str, device: str,
-           args: Sequence = (), timeout: Optional[float] = 3600.0) -> List[Any]:
-    """Run ``fn(tp, *args)`` in ``world`` rank processes and return their
-    results in rank order.
+           args: Sequence = (), timeout: Optional[float] = 3600.0,
+           dp: int = 1) -> List[Any]:
+    """Run ``fn(mesh, *args)`` in ``world`` rank processes, ``mesh`` each
+    rank's :class:`RankMesh` on the (dp, 1, world / dp) mesh, and return
+    their results in rank order.
 
     ``fn`` is a module-level function (the ranks are started with the
     ``spawn`` method and import it); what it returns is pickled, so it
@@ -137,11 +279,12 @@ def launch(fn: Callable[..., Any], world: int, backend: str, device: str,
     run past ``timeout`` seconds, ends every rank and raises here."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    rank_grid(world, dp)
     ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="k5_tp_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="k5_ranks_") as tmp:
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world, backend, device,
+                             args=(fn, r, world, dp, backend, device,
                                    os.path.join(tmp, "store"), results,
                                    tuple(args)))
                  for r in range(world)]

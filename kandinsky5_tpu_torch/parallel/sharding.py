@@ -5,9 +5,10 @@ reference shards the DiT with a DTensor plan over 1, 2 or 4 GPUs
 (``parallelize.py``; torchrun world size): head-sharded Q/K/V (column
 parallel), row-parallel attention and FF out layers, column-parallel FF in
 layer, replicated modulation, embeddings, text blocks and out layer. The
-JAX package's mesh adds a sequence axis (sp) and a data axis (dp); the port
-runs tp alone, and a plan that asks for sp or dp raises (ROADMAP.md, queue
-1 item 1, lists what they need).
+JAX package's mesh adds a data axis (dp) and a sequence axis (sp). The
+port runs dp beside tp (``parallel/ranks.py`` ``RankMesh``: the sampler
+splits the batch, the tiled decode its tiles, the trainer its moments); a
+plan that asks for sp raises (ROADMAP.md, queue 1, item 7b).
 
 Specs are in the port's names and torch layouts: a linear weight is (out,
 in), so column parallel splits dim 0 and row parallel dim 1.
@@ -39,14 +40,13 @@ def plan_dit_mesh(n_devices: int, num_heads: int = 28,
 
 
 def tp_width(plan: Tuple[int, int, int]) -> int:
-    """The tp width of a (dp, sp, tp) plan; the port runs tp alone, so a
-    plan with sp > 1 or dp > 1 raises."""
+    """The tp width of a (dp, sp, tp) plan; the port runs dp and tp, so a
+    plan with sp > 1 raises."""
     dp, sp, tp = plan
-    if dp != 1 or sp != 1:
+    if sp != 1:
         raise ValueError(
-            f"plan (dp, sp, tp) = {plan}: the port runs tensor parallelism "
-            "alone; sequence (sp) and data (dp) parallelism are not ported "
-            "yet (ROADMAP.md, queue 1, item 7)")
+            f"plan (dp, sp, tp) = {plan}: sequence parallelism (sp) is not "
+            "ported yet (ROADMAP.md, queue 1, item 7b)")
     return tp
 
 

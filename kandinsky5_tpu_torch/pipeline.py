@@ -16,13 +16,17 @@ and K6 whatever the impl; its text blocks then follow the impl.
 single-device default, "stream"; "tiled" is the reference's overlap-tiled
 decode (its parity gate and bench protocol). ``int8_conv=True`` runs the
 decoder's convs that the TPU kernel admits W8A8, as the JAX package's
-``KANDINSKY5_TPU_INT8_CONV`` does. ``tp`` (a
-:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`) makes this one rank
-of a tensor-parallel pipeline (the JAX package's ``get_T2V_pipeline(tp=)``
-mesh, tp axis only): the DiT is the rank's share (a full DiT is sharded
-here), every rank runs the same Euler loop on rank 0's noise, and rank 0
-alone decodes, tiled by default as the JAX package decodes on a mesh, and
-writes; the other ranks return None.
+``KANDINSKY5_TPU_INT8_CONV`` does. ``tp`` (the rank's place: a
+:class:`~kandinsky5_tpu_torch.parallel.RankMesh`, or a bare
+:class:`~kandinsky5_tpu_torch.parallel.TensorParallel` as a (1, 1, tp)
+mesh) makes this one rank of a pipeline on a (dp, 1, tp) mesh (the JAX
+package's ``Kandinsky5T2VPipeline(mesh=)``): the DiT is the rank's tp
+share (a full DiT is sharded here), each DiT call's batch is split over dp
+(the CFG pair and extra prompts; replicated where dp does not divide it),
+every rank runs the same Euler loop on rank 0's noise, and every rank
+decodes its share of the tiles (tiled by default, as the JAX package
+decodes on a mesh, its VAE's tiles over every device); rank 0 blends them,
+returns the frames and writes, the other ranks return None.
 
 The text stage is the Qwen2.5-VL + CLIP embedder of ``text/embedder.py``
 (prompt expansion, then the encode of the captions and of the negative
@@ -39,9 +43,12 @@ each, a rerun resuming where a killed one stopped. A call runs under
 ``torch.no_grad()`` whatever thread makes it (grad mode is per thread).
 ``timings`` holds ``text_s`` (expansion and encode), ``denoise_s`` and
 ``decode_s`` of the last request (and ``start_step`` with a
-``checkpoint_path``). :func:`get_T2V_pipeline` builds the whole
-pipeline from reference-layout checkpoints and a YAML (or the default
-configuration), as the JAX package's does.
+``checkpoint_path``; on a mesh the tp group's all-reduce and the dp
+group's gather seconds, calls and bytes, whether dp split the batch
+(``dp_split``) and the tiles this rank decoded (``decoded_tiles``)).
+:func:`get_T2V_pipeline` builds the whole pipeline from reference-layout
+checkpoints and a YAML (or the default configuration), as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -57,7 +64,11 @@ from kandinsky5_tpu_torch.config import Config, get_default_conf, load_config
 from kandinsky5_tpu_torch.models.dit import quantize_dit_params
 from kandinsky5_tpu_torch.models.vae import DECODE_MODES
 from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS
-from kandinsky5_tpu_torch.sampling import DenoiseSpec, generate_latents
+from kandinsky5_tpu_torch.sampling import (
+    DenoiseSpec,
+    dp_splits,
+    generate_latents,
+)
 from kandinsky5_tpu_torch.text.embedder import TextEmbeddings
 from kandinsky5_tpu_torch.utils import default_device
 from kandinsky5_tpu_torch.utils.offload import ParamStore, staged
@@ -87,18 +98,25 @@ class Kandinsky5T2VPipeline:
                          or not conf.magcache.mag_ratios):
             raise ValueError("magcache=True needs a configuration with "
                              "MagCache ratios (the *_sft and *_nocfg YAMLs)")
+        mesh = None
         if tp is not None:
+            from kandinsky5_tpu_torch.parallel.ranks import as_mesh
+
+            mesh = as_mesh(tp)
             if dit.tp is None:
                 from kandinsky5_tpu_torch.parallel.sharding import shard_dit
 
-                dit = shard_dit(dit, tp)
-            elif dit.tp is not tp:
+                dit = shard_dit(dit, mesh.tp)
+            elif dit.tp is not mesh.tp:
                 raise ValueError("the DiT is sharded for another group")
-            tp = dit.tp  # None for a group of one
-        if tp is not None and (int8_linear or attn_impl in INT8_IMPLS):
-            raise ValueError("int8-QK attention and W8A8 under tensor "
-                             "parallelism are not ported yet (ROADMAP.md, "
-                             "queue 1, item 7)")
+            if mesh.size == 1:
+                mesh = None
+        if mesh is not None and (int8_linear or attn_impl in INT8_IMPLS):
+            raise ValueError("int8-QK attention and W8A8 on a mesh are not "
+                             "ported yet (ROADMAP.md, queue 1, item 7c)")
+        if mesh is not None and vae is None:
+            raise ValueError("on a mesh every rank decodes its share of the "
+                             "tiles: give every rank the VAE")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
@@ -109,9 +127,15 @@ class Kandinsky5T2VPipeline:
         self.int8_linear = int8_linear
         self.conf = conf
         self.text_embedder = text_embedder
-        self.vae = vae.replace(int8_conv=True) if int8_conv and vae else vae
-        self.tp = tp
-        self.decode_mode = decode_mode or ("stream" if tp is None else "tiled")
+        if vae is not None and (int8_conv or mesh is not None):
+            vae = vae.replace(int8_conv=int8_conv or vae.int8_conv,
+                              group=None if mesh is None else mesh.world)
+        self.vae = vae
+        self.mesh = mesh
+        self.tp = dit.tp if dit is not None else None  # None for one rank
+        self.dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
+        self.decode_mode = decode_mode or ("stream" if mesh is None
+                                           else "tiled")
         self.attn_impl = attn_impl
         self.magcache = magcache
         self.resolution = conf.resolution
@@ -154,13 +178,15 @@ class Kandinsky5T2VPipeline:
                 "threshold_method sort, no max_density, no shared_mask); "
                 f"got {att}")
         # a 10 s CFG pair runs as two sequential forwards on one device, as
-        # in the JAX package (half the activation memory)
+        # in the JAX package (half the activation memory); on two devices
+        # or more it is one batched call, split over dp
+        world = 1 if self.mesh is None else self.mesh.size
         return DenoiseSpec(
             dit_params=self.conf.model.dit_params, num_steps=num_steps,
             guidance_weight=guidance_weight, scheduler_scale=scheduler_scale,
             scale_factor=tuple(self.conf.metrics.scale_factor),
             attn_impl=self.attn_impl, int8_linear=self.int8_linear,
-            sequential_cfg=nabla,
+            sequential_cfg=nabla and world < 2,
             attention_type=att.type, nabla_P=att.P, nabla_wT=att.wT,
             nabla_wH=att.wH, nabla_wW=att.wW)
 
@@ -195,11 +221,14 @@ class Kandinsky5T2VPipeline:
         """Generate (B, T, H, W, 3) uint8 frames; T = 1 for an image, else
         time_length * 24 // 4 + 1. ``noise`` (B, T', H/8, W/8, 16) replaces
         the seeded noise. ``checkpoint_path`` makes the denoise resumable
-        from that state file (seeded noise only). Under ``tp`` rank 0
-        returns the frames and the other ranks None."""
+        from that state file (seeded noise only). On a mesh rank 0 returns
+        the frames and the other ranks None."""
         if checkpoint_path is not None and noise is not None:
             raise ValueError("a resumable request draws its noise from its "
                              "seed: pass checkpoint_path or noise, not both")
+        if checkpoint_path is not None and self.mesh is not None:
+            raise ValueError("resumable generation on a mesh is not ported "
+                             "yet (ROADMAP.md, queue 1, item 7d)")
         num_steps = self.conf.model.num_steps if num_steps is None else num_steps
         guidance_weight = (self.conf.model.guidance_weight
                            if guidance_weight is None else guidance_weight)
@@ -238,8 +267,9 @@ class Kandinsky5T2VPipeline:
         magcache = self.conf.magcache if self.magcache else None
         resume = {}
         with self._staged("dit"):
-            if self.tp is not None:
-                self.tp.reset_stats()
+            for group in (self.tp, self.dp):
+                if group is not None:
+                    group.reset_stats()
             with timer.stage("denoise_s"):
                 if checkpoint_path is not None:
                     latents = resumable_generate(
@@ -249,7 +279,8 @@ class Kandinsky5T2VPipeline:
                 else:
                     latents = generate_latents(
                         self.dit, spec, latent_shape, cond, uncond, seed=seed,
-                        noise=noise, magcache=magcache, on_step=on_step)
+                        noise=noise, magcache=magcache, on_step=on_step,
+                        dp=self.dp)
                 finite = bool(torch.isfinite(latents).all())
         self.timings = {**timer.report(), **expansion,
                         "steps": num_steps, "cfg": spec.use_cfg,
@@ -259,11 +290,18 @@ class Kandinsky5T2VPipeline:
             self.timings.update(all_reduce_s=self.tp.seconds,
                                 all_reduce_calls=self.tp.calls,
                                 all_reduce_bytes=self.tp.bytes)
-            if self.tp.rank != 0:
-                return None
+        if self.dp is not None:
+            self.timings.update(gather_s=self.dp.seconds,
+                                gather_calls=self.dp.calls,
+                                gather_bytes=self.dp.bytes,
+                                dp_split=dp_splits(spec, batch, self.dp))
         with timer.stage("decode_s"):
             frames = self.decode_latents(latents)
         self.timings["decode_s"] = timer.stages["decode_s"]
+        if self.mesh is not None:
+            self.timings["decoded_tiles"] = self.vae.decoded_tiles
+            if self.mesh.rank != 0:
+                return None
         if save_path is not None:
             self.timings["saved"] = self.save(frames, save_path, time_length)
         return frames
@@ -276,12 +314,16 @@ class Kandinsky5T2VPipeline:
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor,
-                       mode: Optional[str] = None) -> np.ndarray:
+                       mode: Optional[str] = None) -> Optional[np.ndarray]:
         """(B, T', H', W', 16) -> (B, T, H, W, 3) uint8, by the decode
-        ``mode`` names, else the pipeline's ``decode_mode``."""
+        ``mode`` names, else the pipeline's ``decode_mode``. On a mesh every
+        rank calls it with the same latents and decodes its share; rank 0
+        gets the frames, the others None."""
         with self._staged("vae"):
             z = latents / self.vae.scaling_factor
             video = self.vae.decode(z, mode=mode or self.decode_mode)
+            if video is None:
+                return None
             video = video.float().clamp(-1.0, 1.0)
             video = ((video + 1.0) * 127.5).to(torch.uint8)
             return video.cpu().numpy()
@@ -329,15 +371,18 @@ def get_T2V_pipeline(
     moved to ``device`` stage by stage); ``dtype`` for the DiT, the VAE and Qwen (CLIP
     stays fp32). ``device_map`` is accepted and ignored, as in the JAX
     package. ``magcache`` runs every request on the YAML's MagCache
-    schedule. ``tp`` is this rank's
+    schedule. ``tp`` is this rank's place: a
+    :class:`~kandinsky5_tpu_torch.parallel.RankMesh` or a bare
     :class:`~kandinsky5_tpu_torch.parallel.TensorParallel` (each rank calls
-    this; the DiT is sharded over the group). ``int8_linear`` quantizes the
+    this; the DiT is sharded over the tp group, every rank holds the VAE
+    and decodes its share of the tiles). ``int8_linear`` quantizes the
     visual blocks' projections to W8A8, ``int8_expand`` runs prompt
     expansion on int8 decode weights: both arguments, where the JAX package
     reads environment flags."""
     if tp is not None and not hasattr(tp, "rank"):
-        raise TypeError("tp takes a TensorParallel group (one process per "
-                        "rank; parallel.launch), not a width")
+        raise TypeError("tp takes a rank's place, a RankMesh or a "
+                        "TensorParallel group (one process per rank; "
+                        "parallel.launch), not a width")
     if resolution not in RESOLUTIONS:
         raise ValueError("Resolution can be only 512")
     from kandinsky5_tpu_torch.checkpoint import (
@@ -367,11 +412,9 @@ def get_T2V_pipeline(
     dit = dit.to_empty(device=host if tp is None else device)
     dit = dit_from_state_dict(dit, load_state_dict_file(
         conf.model.checkpoint_path))
-    vae = None
-    if tp is None or tp.rank == 0:
-        vae = HunyuanVideoVAE(vae_params_from_state_dict(
-            load_vae_state_dict(conf.model.vae.checkpoint_path),
-            device=host, dtype=dtype), dtype=dtype)
+    vae = HunyuanVideoVAE(vae_params_from_state_dict(
+        load_vae_state_dict(conf.model.vae.checkpoint_path),
+        device=host, dtype=dtype), dtype=dtype)
     text_embedder = Kandinsky5TextEmbedder.from_pretrained(
         conf.model.text_embedder, dtype=dtype, device=host,
         int8_expand=int8_expand)

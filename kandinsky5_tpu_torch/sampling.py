@@ -14,6 +14,17 @@ A skipping branch adds its cached residual (the blocks' last output minus
 their input) to its visual tokens; when every branch of a call skips, the
 visual blocks do not run at all. The text blocks, the prologue and the
 epilogue run on every step.
+
+Data parallelism (``dp``, a :class:`~kandinsky5_tpu_torch.parallel.
+DataParallel` group; the JAX package's "dp" mesh axis): each DiT call's
+batch, ``b_eff`` items in the order [cond x B, uncond x B] with the CFG
+pair batched, is split into dp contiguous blocks; each rank forwards its
+block, the predictions are all-gathered over dp, and every rank combines
+the CFG velocity on the whole batch and takes the same Euler step. Where
+dp does not divide a call's batch, every rank runs it whole (replicated),
+as the JAX package's shard_map bodies do. Under MagCache a rank takes its
+items' columns of the skip schedule and carries its items' rows of the
+residual. The noise is rank 0's on every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -159,6 +170,25 @@ def _visual_cond_input(cfg: DiTParams, x, pdtype):
     return x.to(pdtype)
 
 
+def _dp(dp):
+    """The group when it splits anything (more than one rank), else None."""
+    return dp if dp is not None and dp.size > 1 else None
+
+
+def local_rows(nb: int, dp) -> int:
+    """The rows of an ``nb``-item DiT call that one dp rank forwards: its
+    block when dp divides ``nb``, else all of them (replicated)."""
+    dp = _dp(dp)
+    return nb if dp is None or nb % dp.size else nb // dp.size
+
+
+def dp_splits(spec: DenoiseSpec, batch: int, dp) -> bool:
+    """Whether dp splits the DiT calls of a ``batch``-prompt run (False:
+    every rank runs them whole, or there is no dp)."""
+    nb = batch if spec.sequential_cfg or not spec.use_cfg else 2 * batch
+    return _dp(dp) is not None and local_rows(nb, dp) < nb
+
+
 def _dit_call(model, spec: DenoiseSpec, sparse, model_in, text, pooled, mask,
               t, skip=None, residual=None):
     """One DiT evaluation. ``skip`` (host bools, one per batch row) and
@@ -190,17 +220,37 @@ def _dit_call(model, spec: DenoiseSpec, sparse, model_in, text, pooled, mask,
     return pred, residual
 
 
+def dp_dit_call(model, spec: DenoiseSpec, sparse, model_in, text, pooled,
+                mask, t, skip=None, residual=None, dp=None):
+    """:func:`_dit_call` on the whole batch of ``model_in`` under ``dp``:
+    this rank forwards its block of the batch (``residual`` holds its
+    rows), then the predictions are all-gathered; where dp does not divide
+    the batch, the whole batch (replicated). Returns (the whole batch's
+    velocity fp32, this rank's residual)."""
+    nb = model_in.shape[0]
+    n = local_rows(nb, dp)
+    if n == nb:
+        return _dit_call(model, spec, sparse, model_in, text, pooled, mask, t,
+                         skip, residual)
+    rows = slice(dp.rank * n, (dp.rank + 1) * n)
+    pred, residual = _dit_call(model, spec, sparse, model_in[rows],
+                               text[rows], pooled[rows], mask[rows], t,
+                               None if skip is None else skip[rows], residual)
+    return dp.all_gather(pred), residual
+
+
 @torch.no_grad()
 def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
                  times, dts, cond: dict, uncond: dict, skip=None,
-                 residual=None, on_step=None):
+                 residual=None, on_step=None, dp=None):
     """Integrate the Euler steps ``times``/``dts`` (host arrays) from
     ``noise`` (B, T, H, W, C) fp32. cond/uncond: {"text_embeds",
     "pooled_embed", "mask"}. ``skip`` is the (k, 2) slice of the MagCache
     schedule for these steps and ``residual`` the (b_eff, S, D) residual
-    carried in (zeros at step 0, :func:`denoise_residual0`); both None
-    without MagCache. ``on_step(i)`` is called after each step. Returns
-    (x, residual)."""
+    carried in (zeros at step 0, :func:`zero_residual`; under ``dp`` this
+    rank's rows of it); both None without MagCache. ``on_step(i)`` is
+    called after each step. ``dp`` splits each DiT call's batch over its
+    ranks (see the module's docstring). Returns (x, residual)."""
     cfg = spec.dit_params
     if spec.int8_linear != is_quantized(model):
         raise ValueError(f"spec.int8_linear is {spec.int8_linear} but the "
@@ -227,54 +277,61 @@ def denoise_span(model: DiffusionTransformer3D, spec: DenoiseSpec, noise,
         if use_cfg and spec.sequential_cfg:
             res_c = res_u = None
             if residual is not None:
-                res_c, res_u = residual[:batch], residual[batch:]
-            v_cond, res_c = _dit_call(model, spec, sparse, model_in,
-                                      cond["text_embeds"],
-                                      cond["pooled_embed"], cond["mask"], t,
-                                      skip_c, res_c)
-            v_uncond, res_u = _dit_call(model, spec, sparse, model_in,
-                                        uncond["text_embeds"],
-                                        uncond["pooled_embed"],
-                                        uncond["mask"], t, skip_u, res_u)
+                rows = local_rows(batch, dp)
+                res_c, res_u = residual[:rows], residual[rows:]
+            v_cond, res_c = dp_dit_call(model, spec, sparse, model_in,
+                                        cond["text_embeds"],
+                                        cond["pooled_embed"], cond["mask"],
+                                        t, skip_c, res_c, dp)
+            v_uncond, res_u = dp_dit_call(model, spec, sparse, model_in,
+                                          uncond["text_embeds"],
+                                          uncond["pooled_embed"],
+                                          uncond["mask"], t, skip_u, res_u,
+                                          dp)
             if residual is not None:
                 residual = torch.cat([res_c, res_u])
             velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
         elif use_cfg:
-            pred, residual = _dit_call(
+            pred, residual = dp_dit_call(
                 model, spec, sparse, torch.cat([model_in, model_in]), text,
                 pooled, mask, t, None if skip is None else skip_c + skip_u,
-                residual)
+                residual, dp)
             v_cond, v_uncond = pred[:batch], pred[batch:]
             velocity = v_uncond + spec.guidance_weight * (v_cond - v_uncond)
         else:
-            velocity, residual = _dit_call(
+            velocity, residual = dp_dit_call(
                 model, spec, sparse, model_in, cond["text_embeds"],
-                cond["pooled_embed"], cond["mask"], t, skip_c, residual)
+                cond["pooled_embed"], cond["mask"], t, skip_c, residual, dp)
         x = x + float(dt) * velocity
         if on_step is not None:
             on_step(i)
     return x, residual
 
 
-def zero_residual(model, spec: DenoiseSpec, noise_shape):
+def zero_residual(model, spec: DenoiseSpec, noise_shape, dp=None):
     """MagCache's residual at step 0: zeros (b_eff, S, D) in the model's
-    dtype on its device."""
+    dtype on its device; under ``dp`` this rank's rows of it."""
     b_eff, seq_len = denoise_residual0(spec, noise_shape)
-    return torch.zeros((b_eff, seq_len, spec.dit_params.model_dim),
+    if spec.use_cfg and spec.sequential_cfg:
+        rows = 2 * local_rows(b_eff // 2, dp)
+    else:
+        rows = local_rows(b_eff, dp)
+    return torch.zeros((rows, seq_len, spec.dit_params.model_dim),
                        dtype=model.dtype,
                        device=next(model.parameters()).device)
 
 
 def denoise(model, spec: DenoiseSpec, noise, cond: dict, uncond: dict,
-            skip=None, on_step=None):
+            skip=None, on_step=None, dp=None):
     """The full Euler integration over :func:`timestep_grid`; ``skip`` is
-    the MagCache schedule (:func:`magcache_schedule`), None for off."""
+    the MagCache schedule (:func:`magcache_schedule`), None for off;
+    ``dp`` as in :func:`denoise_span`."""
     ts = timestep_grid(spec.num_steps, spec.scheduler_scale)
     residual = (None if skip is None
-                else zero_residual(model, spec, noise.shape))
+                else zero_residual(model, spec, noise.shape, dp))
     return denoise_span(model, spec, noise, ts[:-1], np.diff(ts), cond,
                         uncond, skip=skip, residual=residual,
-                        on_step=on_step)[0]
+                        on_step=on_step, dp=dp)[0]
 
 
 def seeded_noise(model, shape, seed: Optional[int] = None,
@@ -293,19 +350,25 @@ def generate_latents(model, spec: DenoiseSpec, shape, cond: dict,
                      uncond: dict, seed: Optional[int] = None, noise=None,
                      generator: Optional[torch.Generator] = None,
                      magcache: Optional[MagCacheConfig] = None,
-                     on_step=None):
+                     on_step=None, dp=None):
     """Seed noise (or take ``noise``) and denoise, with MagCache's schedule
     when ``magcache`` carries ratios. The noise is standard normal fp32 from
     ``generator`` (or one seeded with ``seed``) on the model's device; torch
     and JAX generators differ, so parity tests pass ``noise`` explicitly.
-    Under tensor parallelism every rank integrates rank 0's noise,
-    broadcast, whatever seed the others were given; the MagCache schedule
-    is the same host array on every rank."""
+    On a mesh (the model's tp group, ``dp``) every rank integrates rank 0's
+    noise, broadcast over tp and then over dp, whatever seed the others
+    were given; the MagCache schedule is the same host array on every
+    rank."""
     device = next(model.parameters()).device
     if noise is None:
         noise = seeded_noise(model, shape, seed, generator)
-    noise = noise.to(device=device, dtype=torch.float32)
+    noise = noise.to(device=device, dtype=torch.float32).contiguous()
     if model.tp is not None:
-        noise = model.tp.broadcast(noise.contiguous(), src=0)
+        noise = model.tp.broadcast(noise, src=0)
+    if _dp(dp) is not None:
+        # the dp group of tp index j has rank j first, which now holds rank
+        # 0's noise
+        noise = dp.broadcast(noise, src=0)
     return denoise(model, spec, noise, cond, uncond,
-                   skip=skip_schedule(spec, magcache), on_step=on_step)
+                   skip=skip_schedule(spec, magcache), on_step=on_step,
+                   dp=dp)

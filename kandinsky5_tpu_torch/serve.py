@@ -336,7 +336,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.tp is not None and args.tp > 1:
         raise SystemExit("serving under tensor parallelism is not ported yet "
-                         "(ROADMAP.md, queue 1, item 7)")
+                         "(ROADMAP.md, queue 1, item 7d)")
 
     from kandinsky5_tpu_torch.pipeline import get_T2V_pipeline
 

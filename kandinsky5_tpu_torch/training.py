@@ -22,8 +22,15 @@ training runs where the JAX package trains, on ``attn_impl="dense"`` with
 fp32 parameters (whose FFs the K2 gate refuses); ``"auto"`` reaches K1 and
 raises, on the CPU as on the card.
 
-``shard_train_state`` (ZeRO-1 over dp) is not ported (ROADMAP.md, queue 1,
-item 7).
+ZeRO-1 over dp (:func:`shard_train_state`, the JAX package's placement of
+Adam's moments over the mesh's "dp" axis): each dp rank keeps the moments
+of its slice of every rank-local parameter, along the first dim that tp
+leaves whole and dp divides (a moment with no such dim stays whole on every
+rank). A step then computes the loss on the rank's rows of the global
+batch, all-reduces the gradients as their mean over dp, clips on the
+global norm, updates the rank's slices and all-gathers the updated
+parameters; its loss is the global mean. The JAX package lets GSPMD place
+the same collectives; here they are explicit.
 """
 
 from __future__ import annotations
@@ -52,7 +59,9 @@ class AdamW(NamedTuple):
       u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p;
       p <- p + (-lr) u,
     with b1, b2, eps = B1, B2, EPS and weight decay on every parameter
-    (optax's default mask)."""
+    (optax's default mask). Every term is elementwise, so under ZeRO-1 a
+    rank updates its slices of p, mu and nu alone and the slices gather to
+    what the whole update gives."""
 
     lr: float
     weight_decay: float = 0.01
@@ -65,15 +74,25 @@ class AdamW(NamedTuple):
 
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
-               grads: Sequence[torch.Tensor], state: dict) -> dict:
+               grads: Sequence[torch.Tensor], state: dict, dp=None) -> dict:
         """One step: the parameters and moments change in place; returns
-        the state with its count advanced."""
+        the state with its count advanced. A ZeRO-1 state (``state["dims"]``,
+        :func:`shard_train_state`) updates this dp rank's slice of each
+        sharded parameter and all-gathers it over ``dp``; ``grads`` are the
+        whole (dp-averaged) gradients on every rank."""
         norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         clipped = bool(norm >= self.clip)
         count = state["count"] + 1
         bc1 = 1.0 - B1 ** count
         bc2 = 1.0 - B2 ** count
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+        dims = state.get("dims") or [None] * len(params)
+        for p, g, mu, nu, dim in zip(params, grads, state["mu"], state["nu"],
+                                     dims):
+            whole = p
+            if dim is not None:
+                n = p.shape[dim] // dp.size
+                p = p.narrow(dim, dp.rank * n, n)
+                g = g.narrow(dim, dp.rank * n, n)
             if clipped:
                 g = g / norm.to(g.dtype) * self.clip
             mu.mul_(B1).add_((1.0 - B1) * g)
@@ -81,6 +100,9 @@ class AdamW(NamedTuple):
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
             u = u + self.weight_decay * p
             p.add_(-self.lr * u)
+            if dim is not None:
+                slices = dp.all_gather(p.movedim(dim, 0).contiguous())
+                whole.copy_(slices.movedim(0, dim))
         return dict(state, count=count)
 
 
@@ -90,11 +112,14 @@ def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.01,
 
 
 class TrainState(NamedTuple):
-    """The model (its parameters), the optimizer's moments and the step."""
+    """The model (its parameters), the optimizer's moments and the step;
+    ``dp`` the data-parallel group of a ZeRO-1 state
+    (:func:`shard_train_state`), else None."""
 
     model: DiffusionTransformer3D
     opt_state: dict
     step: int
+    dp: Optional[object] = None
 
 
 def trained_params(model: torch.nn.Module) -> List[torch.Tensor]:
@@ -128,12 +153,21 @@ def flow_matching_loss(model: DiffusionTransformer3D, cfg: DiTParams, x0,
     return (pred.float() - target).square().mean()
 
 
+def mean_over_dp(dp, tensors: Sequence[torch.Tensor]) -> None:
+    """Each tensor replaced in place by its mean over the dp group."""
+    for x in tensors:
+        dp.all_reduce(x).div_(dp.size)
+
+
 def train_step_on(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
                   text_embeds, pooled_embed, text_mask, t, noise,
                   attn_impl: str = "auto"):
     """One optimization step at the given t and noise: the loss, its
     gradients, then the optimizer's update in place. Returns (the state
-    with its step advanced, the loss as a detached fp32 scalar)."""
+    with its step advanced, the loss as a detached fp32 scalar). Under a
+    ZeRO-1 state the batch, t and noise are this dp rank's rows of the
+    global batch's (all ranks holding as many); the gradients are averaged
+    over dp before the update, and the loss returned is the global mean."""
     params = trained_params(state.model)
     with torch.enable_grad():
         loss = flow_matching_loss(state.model, cfg, x0, text_embeds,
@@ -142,8 +176,13 @@ def train_step_on(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    opt_state = optimizer.update(params, grads, state.opt_state)
-    return TrainState(state.model, opt_state, state.step + 1), loss.detach()
+    loss = loss.detach()
+    if state.dp is not None:
+        mean_over_dp(state.dp, grads)
+        loss = loss.clone()
+        mean_over_dp(state.dp, [loss])
+    opt_state = optimizer.update(params, grads, state.opt_state, state.dp)
+    return state._replace(opt_state=opt_state, step=state.step + 1), loss
 
 
 def train_step(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
@@ -151,19 +190,66 @@ def train_step(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
                generator: torch.Generator, attn_impl: str = "auto"):
     """One step with t ~ U(1e-4, 1) per item and noise ~ N(0, 1) like x0,
     drawn from ``generator`` on its device (not the JAX package's PRNG
-    stream); see :func:`train_step_on`."""
+    stream); see :func:`train_step_on`. Under a ZeRO-1 state every rank
+    draws the global batch's t and noise (x0 holds this rank's rows of it)
+    and takes its rows, so the step is the unsharded one whatever the dp
+    width."""
     dev = generator.device
-    t = 1e-4 + (1.0 - 1e-4) * torch.rand(x0.shape[0], generator=generator,
+    dp = state.dp
+    n = x0.shape[0]
+    total = n if dp is None else n * dp.size
+    t = 1e-4 + (1.0 - 1e-4) * torch.rand(total, generator=generator,
                                          device=dev)
-    noise = torch.randn(x0.shape, generator=generator, device=dev)
+    noise = torch.randn((total,) + tuple(x0.shape[1:]), generator=generator,
+                        device=dev)
+    if dp is not None:
+        rows = slice(dp.rank * n, (dp.rank + 1) * n)
+        t, noise = t[rows], noise[rows]
     return train_step_on(state, cfg, optimizer, x0, text_embeds,
                          pooled_embed, text_mask, t, noise, attn_impl)
 
 
+def moment_dim(shape: Sequence[int], tp_dim: Optional[int],
+               dp: int) -> Optional[int]:
+    """The dim along which ZeRO-1 splits a moment of ``shape`` over ``dp``
+    ranks: the first that tp leaves whole (not ``tp_dim``) and that dp
+    divides, as the JAX package's ``moment_spec``; None keeps it whole."""
+    for ax, n in enumerate(shape):
+        if ax != tp_dim and n % dp == 0 and n >= dp > 1:
+            return ax
+    return None
+
+
 def shard_train_state(state: TrainState, mesh) -> TrainState:
-    raise NotImplementedError(
-        "ZeRO-1 placement of the optimizer state over dp is not ported yet "
-        "(ROADMAP.md, queue 1, item 7)")
+    """ZeRO-1: the state with Adam's moments cut to this rank's slices over
+    the dp group of ``mesh`` (a :class:`~kandinsky5_tpu_torch.parallel.
+    RankMesh`), each along :func:`moment_dim` (the tp split of a sharded
+    model's parameter excluded); the parameters stay whole on every dp rank,
+    in their tp shares. A dp group of one rank leaves the state as it is."""
+    from kandinsky5_tpu_torch.parallel.ranks import as_mesh
+    from kandinsky5_tpu_torch.parallel.sharding import split_dim
+
+    dp = as_mesh(mesh).dp
+    if dp.size == 1:
+        return state
+    if state.dp is not None:
+        raise ValueError("the state is sharded already")
+    model = state.model
+    dims, mu, nu = [], [], []
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    for (name, p), m, v in zip(named, state.opt_state["mu"],
+                               state.opt_state["nu"]):
+        tp_dim = None if model.tp is None else split_dim(name)
+        dim = moment_dim(p.shape, tp_dim, dp.size)
+        if dim is not None:
+            n = p.shape[dim] // dp.size
+            m = m.narrow(dim, dp.rank * n, n).clone()
+            v = v.narrow(dim, dp.rank * n, n).clone()
+        dims.append(dim)
+        mu.append(m)
+        nu.append(v)
+    return TrainState(model, dict(state.opt_state, mu=mu, nu=nu, dims=dims),
+                      state.step, dp)
 
 
 def save_checkpoint(model: DiffusionTransformer3D, path: str) -> None:
@@ -175,12 +261,20 @@ def save_checkpoint(model: DiffusionTransformer3D, path: str) -> None:
                for k, v in model.state_dict().items()}, path)
 
 
+def _state_file(state: TrainState) -> str:
+    """The state's file name: one per dp rank under ZeRO-1 (each holds its
+    moment slices)."""
+    if state.dp is None:
+        return STATE_FILE
+    return f"train_state.dp{state.dp.rank}of{state.dp.size}.pt"
+
+
 def save_train_state(state: TrainState, ckpt_dir: str, step: int) -> str:
     """The whole training state (parameters, moments, step) with
-    ``torch.save`` under ``ckpt_dir/<step>/``, restartable mid-run. The
-    port's own format, not the JAX package's orbax checkpoint. Returns the
-    file written."""
-    path = os.path.join(ckpt_dir, str(step), STATE_FILE)
+    ``torch.save`` under ``ckpt_dir/<step>/``, restartable mid-run; a ZeRO-1
+    state writes one file per dp rank. The port's own format, not the JAX
+    package's orbax checkpoint. Returns the file written."""
+    path = os.path.join(ckpt_dir, str(step), _state_file(state))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"model": state.model.state_dict(),
                 "opt_state": state.opt_state, "step": state.step}, path)
@@ -197,7 +291,8 @@ def load_train_state(ckpt_dir: str, state_like: TrainState,
         if not steps:
             raise FileNotFoundError(f"no training state under {ckpt_dir}")
         step = max(steps)
-    saved = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE),
+    saved = torch.load(os.path.join(ckpt_dir, str(step),
+                                    _state_file(state_like)),
                        map_location="cpu", weights_only=True, mmap=True)
     state_like.model.load_state_dict(saved["model"])
     opt = state_like.opt_state
@@ -205,5 +300,6 @@ def load_train_state(ckpt_dir: str, state_like: TrainState,
         for key in ("mu", "nu"):
             for dst, src in zip(opt[key], saved["opt_state"][key]):
                 dst.copy_(src)
-    return TrainState(state_like.model, dict(opt, count=saved["opt_state"][
-        "count"]), saved["step"])
+    return state_like._replace(
+        opt_state=dict(opt, count=saved["opt_state"]["count"]),
+        step=saved["step"])

@@ -111,7 +111,7 @@ def resumable_generate(
     at (0, or where a saved state left off)."""
     if model.tp is not None:
         raise ValueError("resumable generation under tensor parallelism is "
-                         "not ported yet (ROADMAP.md, queue 1, item 7)")
+                         "not ported yet (ROADMAP.md, queue 1, item 7d)")
     skip = skip_schedule(spec, magcache)
     fp = _fingerprint(spec, shape, seed, cond, uncond, skip)
     ts = timestep_grid(spec.num_steps, spec.scheduler_scale)

@@ -55,22 +55,19 @@ class StubEmbedder:
                               torch.randn(len(texts), 16, generator=g), mask)
 
 
-def pipeline(tp=None, decode_mode=None):
+def pipeline(tp=None, decode_mode=None, vae_cls=HunyuanVideoVAE,
+             guidance_weight=1.0):
     """The tiny pipeline: a seeded DiT (sharded by the pipeline under
-    ``tp``) and, off the ranks that do not decode, the full VAE decoder.
-    The caller admits the 64 x 64 image (``RESOLUTIONS[512] = [(64,
-    64)]``)."""
+    ``tp``, a rank's place) and the full VAE decoder. The caller admits
+    the 64 x 64 image (``RESOLUTIONS[512] = [(64, 64)]``)."""
     cfg = DiTParams(**PIPE_DIT)
     dit = fast_init_dit_params(cfg, device="cpu", dtype=torch.float32,
                                seed=0, scale=0.05)
     conf = Config(model=ModelConfig(dit_params=cfg, num_steps=2,
-                                    guidance_weight=1.0),
+                                    guidance_weight=guidance_weight),
                   metrics=MetricsConfig())
-    vae = None
-    if tp is None or tp.rank == 0:
-        vae = HunyuanVideoVAE(init_vae_params(device="cpu",
-                                              dtype=torch.float32, seed=1),
-                              dtype=torch.float32)
+    vae = vae_cls(init_vae_params(device="cpu", dtype=torch.float32, seed=1),
+                  dtype=torch.float32)
     return Kandinsky5T2VPipeline(dit, conf, StubEmbedder(), vae,
                                  decode_mode=decode_mode, tp=tp)
 
@@ -79,8 +76,9 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-def run(tp, ff_case, dit_case):
+def run(mesh, ff_case, dit_case):
     """Everything the test asks of two ranks, in one launch."""
+    tp = mesh.tp
     torch.set_num_threads(2)
     out = {}
     # the Megatron FF with K8's plain version, bf16
@@ -117,16 +115,18 @@ def run(tp, ff_case, dit_case):
                   seed=3 + tp.rank, expand_prompts=False)
     out["frames"] = frames
     out["decode_mode"] = pipe.decode_mode
+    out["decoded_tiles"] = pipe.timings["decoded_tiles"]
     return out
 
 
-def card_forward(tp, cfg_kw, seed):
+def card_forward(mesh, cfg_kw, seed):
     """A bf16 DiT forward on the card: the rank's share of the seeded DiT,
     built one parameter at a time, on seeded inputs; the output and the
     kernel launches it made."""
     from kandinsky5_tpu_torch.ops import _kernels
     from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
 
+    tp = mesh.tp
     cfg = DiTParams(**cfg_kw)
     model = fast_init_dit_shard(cfg, tp, seed=seed)
     args = card_inputs(cfg, tp.device)
@@ -149,13 +149,14 @@ def card_inputs(cfg, device, latent=(1, 2, 32, 32), text_len=64):
             torch.tensor([500.0], device=device), mask.to(device))
 
 
-def magcache_run(tp, cfg_kw, state_dict, noise, cond, uncond, spec_kw,
+def magcache_run(mesh, cfg_kw, state_dict, noise, cond, uncond, spec_kw,
                  mag_kw):
     """A MagCache denoise on the rank's share of the DiT, fp32; then the
     same with every carried residual forced to zero (the control)."""
     from kandinsky5_tpu_torch import sampling
     from kandinsky5_tpu_torch.config import MagCacheConfig
 
+    tp = mesh.tp
     torch.set_num_threads(2)
     cfg = DiTParams(**cfg_kw)
     model = DiffusionTransformer3D(cfg, device="cpu", dtype=torch.float32,

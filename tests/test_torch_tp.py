@@ -168,11 +168,15 @@ def test_plan_dit_mesh_matches_jax(n):
 
 def test_tp_dit_from_sp_or_dp_plan_raises():
     """8 devices plan (1, 2, 4): a tp DiT built for them raises and names
-    ROADMAP, as do explicit sp or dp plans; tp alone passes."""
-    for n, dp in ((8, 1), (3, 1), (4, 2)):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    ROADMAP's item 7b, as does any plan with sp; dp plans pass (the port
+    runs dp beside tp), as does tp alone; 6 devices over dp 2 plan (2, 3,
+    1)."""
+    for n, dp in ((8, 1), (3, 1), (6, 2)):
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 1, item 7b"):
             tp_width(plan_dit_mesh(n, num_heads=28, dp=dp))
     assert tp_width(plan_dit_mesh(4, num_heads=28)) == 4
+    assert tp_width(plan_dit_mesh(4, num_heads=28, dp=2)) == 2
+    assert tp_width(plan_dit_mesh(2, num_heads=28, dp=2)) == 1
     # a tiny DiT of 8 heads over 3 ranks plans (1, 3, 1)
     cfg = DiTParams(model_dim=128, ff_dim=256, num_text_blocks=1,
                     num_visual_blocks=1, axes_dims=(8, 4, 4), time_dim=32,

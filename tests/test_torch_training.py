@@ -209,7 +209,81 @@ def test_save_checkpoint_matches_jax_export(tmp_path):
 
 
 def test_shard_train_state_raises():
+    """ZeRO-1 placement without processes: dp rank d of 2 keeps the slice
+    [d n, (d + 1) n) of each moment along its first dim that dp divides,
+    the two ranks' slices joining to the whole moment, half of its
+    elements each; a dp group of one leaves the state as it is, and a
+    state sharded twice raises."""
+    from kandinsky5_tpu_torch.parallel import (
+        DataParallel,
+        RankMesh,
+        TensorParallel,
+    )
+    from kandinsky5_tpu_torch.parallel.ranks import RankGroup
+
     _, _, _, model, _ = _setup()
-    state = tt.init_train_state(model, tt.make_optimizer())
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tt.shard_train_state(state, None)
+    opt = tt.make_optimizer()
+    state = tt.init_train_state(model, opt)
+    for key in ("mu", "nu"):
+        for i, m in enumerate(state.opt_state[key]):
+            m.copy_(torch.arange(m.numel(), dtype=m.dtype).reshape(m.shape)
+                    + i)
+
+    def place(rank, size):
+        return RankMesh(DataParallel(None, rank, size, "gloo", "cpu"),
+                        TensorParallel(None, 0, 1, "gloo", "cpu"),
+                        RankGroup(None, rank, size, "gloo", "cpu"))
+
+    assert tt.shard_train_state(state, place(0, 1)) is state
+    shards = [tt.shard_train_state(state, place(d, 2)) for d in range(2)]
+    total = sum(m.numel() for m in state.opt_state["mu"])
+    for d, sh in enumerate(shards):
+        assert sh.dp.rank == d and sh.model is model and sh.step == 0
+        assert sum(m.numel() for m in sh.opt_state["mu"]) == total // 2
+        with pytest.raises(ValueError, match="sharded already"):
+            tt.shard_train_state(sh, place(d, 2))
+    for key in ("mu", "nu"):
+        for i, whole in enumerate(state.opt_state[key]):
+            dim = shards[0].opt_state["dims"][i]
+            assert dim == tt.moment_dim(whole.shape, None, 2)
+            assert dim == next(a for a, n in enumerate(whole.shape)
+                               if n % 2 == 0)
+            joined = torch.cat([sh.opt_state[key][i] for sh in shards], dim)
+            assert torch.equal(joined, whole)
+
+
+def test_zero1_state_saves_one_file_per_dp_rank(tmp_path):
+    """A ZeRO-1 state writes its rank's moment slices to a file of its own
+    (two ranks sharing a directory do not overwrite each other) and loads
+    them back into a state sharded alike."""
+    from kandinsky5_tpu_torch.parallel import (
+        DataParallel,
+        RankMesh,
+        TensorParallel,
+    )
+    from kandinsky5_tpu_torch.parallel.ranks import RankGroup
+
+    def place(rank):
+        return RankMesh(DataParallel(None, rank, 2, "gloo", "cpu"),
+                        TensorParallel(None, 0, 1, "gloo", "cpu"),
+                        RankGroup(None, rank, 2, "gloo", "cpu"))
+
+    opt = tt.make_optimizer()
+    paths = []
+    for rank in range(2):
+        _, _, _, model, _ = _setup()
+        state = tt.shard_train_state(tt.init_train_state(model, opt),
+                                     place(rank))
+        for m in state.opt_state["mu"]:
+            m.fill_(rank + 1.0)
+        paths.append(tt.save_train_state(state._replace(step=3),
+                                         str(tmp_path), 3))
+    assert len(set(paths)) == 2
+    for rank in range(2):
+        _, _, _, model, _ = _setup()
+        like = tt.shard_train_state(tt.init_train_state(model, opt),
+                                    place(rank))
+        back = tt.load_train_state(str(tmp_path), like)
+        assert back.step == 3 and back.dp is like.dp
+        assert all(torch.equal(m, torch.full_like(m, rank + 1.0))
+                   for m in back.opt_state["mu"])
