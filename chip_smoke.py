@@ -6,6 +6,8 @@
                                              # controls at other seeds only
     python3 chip_smoke.py --k1               # phase 2's K1 cases only
     python3 chip_smoke.py --k3               # phase 2's K3 cases only
+    python3 chip_smoke.py --windows          # phase 2's K3 window-maxima
+                                             # cases only
     python3 chip_smoke.py --ff               # phase 2's K2, K8, T2-T4 cases
     python3 chip_smoke.py --gemm             # phase 2's T1, T2, K8, T3, T4
                                              # cases only
@@ -20,6 +22,8 @@
     python3 chip_smoke.py --train            # phase 7 alone, on freshly
                                              # built models
     python3 chip_smoke.py --dp               # phases 5a and 5b alone
+    python3 chip_smoke.py --load             # phase 8 alone, on a freshly
+                                             # built DiT and VAE
 
 Phases, each of which must pass (any failure exits nonzero):
   1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
@@ -41,7 +45,10 @@ Phases, each of which must pass (any failure exits nonzero):
                and with carried prefix planes; K3's W8A8 mode plain and with
                the prologue over several TPU W tiles, with a control that
                one scale for the whole tensor fails, and its window-max
-               reduction; K3 on ragged tiles (H, W not multiples of its
+               reduction in every instance the decodes and the encode give
+               it (with and without the prologue, prefix planes, 128, 256
+               and 512 channels, the encoder's shapes), with a control
+               (every window one column short); K3 on ragged tiles (H, W not multiples of its
                8 x 16 tile, one output frame, every plane carried, a batch
                of two), each with a control that must fail; every K3 case
                with its TFLOP/s (TOP/s), share of bound and cuDNN's time; K4
@@ -228,7 +235,22 @@ Phases, each of which must pass (any failure exits nonzero):
                single-process step on the whole batch with the same t and
                noise, each rank's moments at most half the unsharded ones
                (plus any kept whole); control: a step without the
-               gradients' mean over dp.
+               gradients' mean over dp;
+  8. loading — phase 4's 2B DiT and VAE, Qwen2.5-VL cut to 2 of its 28
+               layers at full width and CLIP ViT-L/14 (seeded) written by
+               the port's safetensors writer in the released layouts (the
+               DiT file, the diffusers VAE, Qwen in two shards under an HF
+               index beside a vision entry, the whole-CLIPModel names),
+               with small byte-level BPE tokenizers written by hand in
+               both released layouts, into a temporary directory under
+               ``--out`` (removed after), then loaded back through
+               ``get_T2V_pipeline`` (``Kandinsky5TextEmbedder.
+               from_pretrained`` inside): every parameter, a DiT forward
+               (1,152 visual tokens) and a text encode bit-equal to the
+               models in memory fed the same ids; ``transformers``,
+               ``tokenizers`` and ``safetensors`` absent from
+               ``sys.modules``; control: the VAE file with one header
+               offset changed must not load.
 The last two stdout lines are the kernels' JSON summary, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
@@ -927,7 +949,8 @@ def phase_k3_modes(dev, g, results):
     + 2 frames, time_padded); W8A8 plain at 256->256 (9x256x384, four W
     tiles of 96) and with the prologue at 128->128 (17x512x768, four W
     tiles of 192), the latter with a control that one scale for the whole
-    tensor fails; the window-max reduction alone at that shape. The
+    tensor fails; then the window-max reduction alone in every instance
+    (:func:`phase_windows`). The
     library call is cuDNN's conv3d on an input transformed and padded
     beforehand; no PyTorch call is an int8 conv3d or a window max, so bf16
     cuDNN is timed beside W8A8 as a yardstick, and so is K3's bf16 instance
@@ -1013,14 +1036,51 @@ def phase_k3_modes(dev, g, results):
             lambda: conv_mod.causal_conv3d_fused(x, wt, bias, **bf16), 2)
         log(f"    K3's bf16 instance on the same inputs {r['bf16_k3_ms']:.3f} ms: "
             f"W8A8 {r['ms'] / r['bf16_k3_ms']:.2f}x")
-        if fuse:
-            _compare("K3_quant_windows", f"{cin} ch {t}x{hh}x{ww} bw {bw} "
-                     "with the prologue",
-                     lambda: torch.stack(conv_mod.quant_window_scales(
-                         x, bw, False, sc, sh, True)),
-                     lambda: torch.stack(conv_mod.window_scales(xt, bw, False)),
-                     results, work=(0.0, _nbytes(x, sc, sh)
-                                    + 8 * t * (hh // 8) * (ww // bw)), reps=5)
+        del x, xt
+    phase_windows(dev, g, results)
+
+
+def phase_windows(dev, g, results):
+    """K3's W8A8 window maxima (``ops.conv.quant_window_scales``) in every
+    instance the decodes and the encode give it (``tests/_torch_windows.py``:
+    WINDOW_CASES, window_inputs), each equal to its plain version, with a
+    control that must fail: every window one column short. The bound is
+    the bytes; with the prologue the log gives beside it the MUFU floor, an
+    ex2 and a reciprocal an element over the card's 16 MUFU results a clock
+    an SM at its highest SM clock (computed, not measured, so it stays out
+    of the kernels line). No PyTorch call computes this function."""
+    import torch
+
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+    from tests._torch_windows import (
+        WINDOW_CASES,
+        short_window_scales,
+        window_inputs,
+    )
+
+    clock = _max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case in WINDOW_CASES:
+        x, kw, xt, bw, label = window_inputs(case, g, dev)
+        _, tin, hh, ww, _ = x.shape
+        tp, prefix = kw["time_padded"], kw.get("prefix_planes", 0)
+        tiles = (tin - 2 if tp else tin) * (hh // 8) * (ww // bw)
+        _compare("K3_quant_windows", label,
+                 lambda: torch.stack(conv_mod.quant_window_scales(x, bw, **kw)),
+                 lambda: torch.stack(conv_mod.window_scales(xt, bw, tp)),
+                 results, work=(0.0, _nbytes(x, kw.get("scale"), kw.get("shift"))
+                                + 8 * tiles),
+                 reps=5, control_fn=lambda: torch.stack(
+                     short_window_scales(xt, bw, tp)),
+                 control_label="every window one column short")
+        r = results["K3_quant_windows"][-1]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        note = ""
+        if "scale" in kw:
+            elements = (tin - prefix) * hh * ww * x.shape[-1]
+            mufu_ms = 2.0 * elements / (16 * sms * clock) * 1e3
+            note = f", MUFU floor {mufu_ms:.3f} ms"
+        log(f"    {100 * r['bound_share']:.1f} % of the byte bound{note}")
         del x, xt
 
 
@@ -4425,6 +4485,61 @@ def phase_train(dev, conf5, built, out_dir, results):
     return launches, report, readings
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the released checkpoint layouts, written and loaded back with no
+# transformers, tokenizers or safetensors
+# ---------------------------------------------------------------------------
+
+def phase_load(dev, conf5, out_dir, dit=None, vae=None) -> dict:
+    """Phase 8: the seeded full-width 2B DiT and the VAE (phase 4's, or
+    built here), Qwen2.5-VL cut to 2 layers at full width and CLIP ViT-L/14
+    written in the released layouts into a temporary directory under
+    ``out_dir`` (deleted after) and loaded back through
+    ``get_T2V_pipeline`` (``tests/_torch_released.load_round_trip``), on a
+    DiT forward of 3 x 32 x 48 latents (1,152 visual tokens)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from tests._torch_released import load_round_trip
+
+    t0 = time.perf_counter()
+    if dit is None:
+        dit = fast_init_dit_params(conf5.model.dit_params, device=dev,
+                                   dtype=torch.bfloat16, seed=0)
+        vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                              seed=1))
+    towers = seeded_text_embedder(dev, conf5.model.text_embedder, qwen_layers=2)
+    cfg = conf5.model.dit_params
+    g = torch.Generator().manual_seed(8)
+    inputs = (torch.randn(1, 3, 32, 48, cfg.visual_embed_dim, generator=g),
+              torch.randn(1, 64, cfg.in_text_dim, generator=g),
+              torch.randn(1, cfg.in_text_dim2, generator=g))
+    inputs = tuple(t.to(dev, torch.bfloat16) for t in inputs) + (
+        torch.tensor([500.0], device=dev), (torch.arange(64) < 40)[None].to(dev))
+    os.makedirs(out_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="released_", dir=out_dir)
+    try:
+        out = load_round_trip(root, dit, vae, towers, conf5, dev, inputs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if out["faults"]:
+        raise Failure("the load round trip: " + "; ".join(out["faults"]))
+    del towers
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  wrote {out['written_gb']:.2f} GB in {out['write_s']:.1f} s, loaded "
+        f"{out['params']} parameters through get_T2V_pipeline in "
+        f"{out['load_s']:.1f} s: every parameter, the DiT forward and the "
+        f"text encode bit-equal; absent from sys.modules: "
+        f"{', '.join(out['absent'])}; control (an offset changed): "
+        f"{out['control']}; {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seconds", type=int, default=1, choices=(1, 5, 10),
@@ -4474,6 +4589,16 @@ def main() -> int:
                     help="build, then run only phases 5a and 5b (dp serving "
                     "and dp x tp) with seeded stand-in text embeddings, and "
                     "print their readings (no smoke result)")
+    ap.add_argument("--windows", action="store_true",
+                    help="build, then run only phase 2's K3 window-maxima "
+                    "cases (every instance, with the control) and print "
+                    "their readings (no smoke result)")
+    ap.add_argument("--load", action="store_true",
+                    help="build, then run only phase 8 (the released "
+                    "checkpoint layouts written and loaded back with no "
+                    "transformers, tokenizers or safetensors) on a freshly "
+                    "built DiT and VAE, and print its readings (no smoke "
+                    "result)")
     ap.add_argument("--k3", action="store_true",
                     help="build, then run only phase 2's K3 cases (classes, "
                     "modes, ragged cases) and print their readings (no smoke "
@@ -4535,6 +4660,18 @@ def main() -> int:
         if args.int8:
             results = {}
             phase_int8(dev, *_seeded(dev), results)
+            log(gpu_line())
+            log(json.dumps(results))
+            return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
+        if args.load:
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            out = phase_load(dev, conf5, args.out)
+            log(gpu_line())
+            log(json.dumps(out))
+            return 0
+        if args.windows:
+            results = {}
+            phase_windows(dev, _seeded(dev)[0], results)
             log(gpu_line())
             log(json.dumps(results))
             return 0 if all(r["ok"] for rs in results.values() for r in rs) else 1
@@ -4658,6 +4795,12 @@ def main() -> int:
         launches.update(tr_launches)
         report += tr_report
         log(f"  phase 7 {time.perf_counter() - t:.1f} s")
+
+        log("phase 8: the released checkpoint layouts, written and loaded "
+            "back with no transformers, tokenizers or safetensors")
+        t = time.perf_counter()
+        load_out = phase_load(dev, conf5, args.out, built[0], built[1])
+        log(f"  phase 8 {time.perf_counter() - t:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4699,7 +4842,8 @@ def main() -> int:
         kernels.append(entry)
     log(gpu_line())
     log(json.dumps({"kernels": kernels, "requests": report,
-                    "text_reference": text_ref, "training": tr_readings}))
+                    "text_reference": text_ref, "training": tr_readings,
+                    "load": load_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -243,16 +243,58 @@ def convert_qwen_vision_state_dict(state_dict: Mapping
 
 
 def convert_clip_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
-    """HF CLIPTextModel state dict -> the port's CLIP names (no
-    ``text_model.`` prefix; ``text_projection`` and ``position_ids``
+    """HF CLIPTextModel (or whole CLIPModel, as the released ViT-L/14
+    checkpoint is) state dict -> the port's CLIP names (no ``text_model.``
+    prefix; ``text_projection``, ``position_ids`` and the vision half,
+    ``vision_model.*``, ``visual_projection`` and ``logit_scale``,
     dropped)."""
     out: Dict[str, torch.Tensor] = {}
     for key, value in state_dict.items():
         if key.startswith("text_model."):
             key = key[len("text_model."):]
-        if key.startswith("text_projection") or "position_ids" in key:
+        if key.startswith(("text_projection", "vision_model.",
+                           "visual_projection", "logit_scale")) \
+                or "position_ids" in key:
             continue
         out[key] = _as_tensor(value)
+    return out
+
+
+def qwen_hf_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The port's Qwen text tower under the names of the released
+    Qwen2.5-VL checkpoint (``model.*``, ``lm_head.weight``): the inverse of
+    :func:`convert_qwen_state_dict` for its text half."""
+    return {k if k == "lm_head.weight" else f"model.{k}": v
+            for k, v in model.state_dict().items()}
+
+
+def clip_hf_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The port's CLIP text tower under HF's names (``text_model.*``)."""
+    return {f"text_model.{k}": v for k, v in model.state_dict().items()}
+
+
+def vae_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's nested VAE params under the diffusers checkpoint's names
+    (the causal convs' weights and biases under ``<name>.conv.*``): the
+    inverse of :func:`vae_params_from_state_dict`."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            key = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                flat[key] = v
+    walk(params, "")
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        name, leaf = key.rsplit(".", 1)
+        weight = flat.get(f"{name}.weight")
+        if weight is not None and weight.ndim == 5 \
+                and name.rsplit(".", 1)[-1] not in _PLAIN_CONVS:
+            key = f"{name}.conv.{leaf}"
+        out[key] = value
     return out
 
 

@@ -20,7 +20,7 @@
 // Cout, Cin) with per-Cout scales ws; f(x) is quantized with the scale of
 // the TPU tile (t, h / 8, w / bw) of its OUTPUT voxel, q = rint(f(x) * inv)
 // (no clip), the s8 x s8 products sum exactly in int32, and y = float(acc) *
-// (s * ws[n]) + bias[n]. The scales come from window_rowmax_kernel +
+// (s * ws[n]) + bias[n]. The scales come from window_rowmax_kernel and
 // window_scale_kernel below: the max |f(x)| over the TPU window (3 planes,
 // rows [8 hb - 1, 8 hb + 9), columns [wb bw - 1, wb bw + bw + 7), clamped),
 // part of K3's body on the TPU.
@@ -483,68 +483,256 @@ conv3d_kernel(const __grid_constant__ CUtensorMap wmap, const ConvArgs a) {
   }
 }
 
-// rowmax[p, h, wb] = max |f(x[p, h, w, c])| over the columns [wb bw - 1,
-// wb bw + bw + 6] (clamped) of TPU W tile wb and all channels: one block
-// per (wb, h, p). The columns of a window are contiguous in memory.
-template <bool FUSE>
-__global__ void __launch_bounds__(256)
-window_rowmax_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ shift, float* __restrict__ rowmax,
-                     int H, int W, int Cin, int bw, int act, int prefix) {
-  const int wb = blockIdx.x, h = blockIdx.y, p = blockIdx.z, nw = gridDim.x;
-  const int c_lo = max(wb * bw - 1, 0), c_hi = min(wb * bw + bw + 6, W - 1);
-  const int n = (c_hi - c_lo + 1) * (Cin / 8);
-  const bf16* row = x + (((size_t)p * H + h) * W + c_lo) * Cin;
-  const bool tr = FUSE && p >= prefix;
-  float m = 0.f;
-  for (int i = threadIdx.x; i < n; i += 256) {
-    uint4 r = *reinterpret_cast<const uint4*>(row + (size_t)i * 8);
-    if (tr) {
-      float sc[8], sh[8];
-      bool rare = false;
-      load8(scale, (i * 8) % Cin, sc);
-      load8(shift, (i * 8) % Cin, sh);
-      r = transform8<true>(r, sc, sh, act, rare);
-    }
-    const uint32_t* u = reinterpret_cast<const uint32_t*>(&r);
+// ---- K3's W8A8 window maxima ---------------------------------------------------
+//
+// s[t, hb, wb] = max(m, 1e-8) / 127 and inv = 1 / s, where m is the largest
+// |f(x)| over the TPU window of tile (t, hb, wb): 3 planes (t .. t + 2 of the
+// time-padded input), 10 rows [8 hb - 1, 8 hb + 9) and the columns [wb bw - 1,
+// wb bw + bw + 7), clamped, all channels (conv_pallas.py:183-198). f is the
+// prologue on planes >= prefix with FUSE (transform8<false>, redone with
+// EXACT where ``rare`` is set, as K3's producer applies it, so these are the
+// maxima of the very values K3 quantizes), else the identity.
+//
+// Two kernels, the second a programmatic dependent launch of the first:
+//   * window_rowmax_kernel, a persistent grid of warps: a warp takes one row
+//     of one W window at a time, (bw + 8) x Cin contiguous bf16, and leaves
+//     its max |f(x)| in rowmax[p, h, wb]. Every element is read and
+//     transformed once (the 8 columns two windows share, twice), which
+//     matters: with the prologue the cost is issue (about 20 instructions an
+//     element), not bytes. A lane's 16-byte pieces are lane + 32 u (u < U)
+//     of each 32 U-piece step, so its channels are fixed (two sets at Cin
+//     512) and its scales and shifts live in registers. The max is kept on
+//     |bf16| bit patterns (the sign cleared: a non-negative bf16 orders as
+//     its bits), two 16-bit lanes a register. Bytes stay in flight as U
+//     independent 16-byte loads a lane (1-D bulk copies of the row's steps
+//     into a ring of shared-memory stages a warp measured slower, PERF.md
+//     §6). U is 4 without the prologue and 2 with it, where the registers of
+//     4 pieces in flight through the prologue would spill at the occupancy
+//     that hides its latencies.
+//     With the prologue a step first bounds |f| over its pieces from the
+//     affine part alone (piece_bound: four instructions an element against
+//     about twenty for the whole prologue) and skips the prologue when every
+//     bound is below the row's max so far (the warp's, after every step), for
+//     then no piece can raise it: the maxima stay exactly those of the
+//     transformed values, and on data whose maxima are not all at the end
+//     of a row most steps skip the exponentials and reciprocals.
+//   * window_scale_kernel: a thread a tile gathers its 3 planes x 10 rows of
+//     rowmax (from L2) and writes s and inv. It is launched with programmatic
+//     stream serialization, so it is resident while the first kernel drains
+//     and waits on griddepcontrol.wait for its results. Keeping a band's row
+//     maxima in shared memory instead would make each block read, and
+//     transform, its two halo rows again (a quarter more at 8 rows a band).
+constexpr int WIN_THREADS = 256;
+// pieces in flight a lane and blocks an SM, without and with the prologue
+constexpr int WIN_U = 4, WIN_U_FUSE = 2;
+constexpr int WIN_BLOCKS = 4, WIN_BLOCKS_FUSE = 3;
+
+struct WinArgs {
+  const bf16* x;
+  const float* scale;
+  const float* shift;
+  uint32_t* rowmax;  // (T_in, H, W / bw): bits of the max |f(x)| of a row
+  float* s;
+  float* inv;
+  int T_in, T, H, W, Cin, bw, nw, time_padded, act, prefix, rows;
+};
+
+__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.u16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The running max of |v| (bf16 bit patterns, sign cleared) over 8 values.
+__device__ __forceinline__ uint32_t absmax8(const uint4& r, uint32_t m) {
+  const uint32_t k = 0x7fff7fffu;
+  return max_u16x2(m, max_u16x2(max_u16x2(r.x & k, r.y & k),
+                                max_u16x2(r.z & k, r.w & k)));
+}
+
+// max(a, b), NaN when either is NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// A bound on |f| over the 8 values of a piece, from the prologue's affine y
+// = v * s + h (the rounded operations of transform8): max |y|, and at least
+// 0.28 with SiLU (silu(y) <= y for y >= 0 and |silu(y)| < 0.28 for finite
+// y < 0, so too after the monotone roundings to fp32 and bf16); NaN when a
+// y is. A y of -inf, whose silu is NaN (-inf * 0), bounds at +inf, which no
+// running max exceeds strictly, so that its piece is always transformed.
+__device__ __forceinline__ float piece_bound(const uint4& r, const float (&s)[8],
+                                             const float (&h)[8], int act) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+  float top = act ? 0.28f : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = unpack_f2(u[j]);
-      m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = unpack_f2(w[j]);
+    const float y0 = __fadd_rn(__fmul_rn(f.x, s[2 * j]), h[2 * j]);
+    const float y1 = __fadd_rn(__fmul_rn(f.y, s[2 * j + 1]), h[2 * j + 1]);
+    top = max_nan(top, fabsf(y0));
+    top = max_nan(top, fabsf(y1));
+  }
+  return top;
+}
+
+// Fold pieces r[0..U) into the running max m: with ``tr`` through the
+// prologue (piece u with channel set u & 1 under TWO; the EXACT redo of all
+// U where any is rare), unless every piece's bound is below ``t``, the
+// row's max so far, in which case none can raise it and none is
+// transformed; a piece with ok false is left out.
+template <bool FUSE, bool TWO, int U>
+__device__ __forceinline__ uint32_t fold_pieces(const uint4 (&r)[U],
+                                                const bool (&ok)[U], bool tr,
+                                                const float (&sc)[2][8],
+                                                const float (&sh)[2][8], int act,
+                                                float t, uint32_t m) {
+  static_assert(!TWO || U % 2 == 0, "two channel sets alternate piece by piece");
+  uint4 v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = r[u];
+  if (FUSE && tr) {
+    bool need = false;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      need |= ok[u] && !(piece_bound(r[u], sc[TWO ? u & 1 : 0], sh[TWO ? u & 1 : 0],
+                                     act) < t);
+    if (!need) return m;
+    bool rare = false;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      v[u] = transform8<false>(r[u], sc[TWO ? u & 1 : 0], sh[TWO ? u & 1 : 0], act, rare);
+    if (rare) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[u] = transform8<true>(r[u], sc[TWO ? u & 1 : 0], sh[TWO ? u & 1 : 0], act,
+                                rare);
     }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ float part[8];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  for (int u = 0; u < U; ++u)
+    if (ok[u]) m = absmax8(v[u], m);
+  return m;
+}
+
+// The warp's max so far as a float (a bf16 value), from each lane's m.
+__device__ __forceinline__ float warp_max(uint32_t m) {
+  return __uint_as_float(__reduce_max_sync(0xffffffffu, max(m & 0xffffu, m >> 16))
+                         << 16);
+}
+
+// Row window r = (p * H + h) * nw + wb: its first element and its pieces.
+__device__ __forceinline__ const bf16* row_at(const WinArgs& a, int r, int& n16, int& p) {
+  const int wb = r % a.nw;
+  const int h = (r / a.nw) % a.H;
+  p = r / (a.nw * a.H);
+  const int c_lo = max(wb * a.bw - 1, 0);
+  const int c_hi = min(wb * a.bw + a.bw + 6, a.W - 1);
+  n16 = (c_hi - c_lo + 1) * (a.Cin / 8);
+  return a.x + (((size_t)p * a.H + h) * a.W + c_lo) * a.Cin;
+}
+
+template <bool FUSE, bool TWO>
+__global__ void __launch_bounds__(WIN_THREADS, FUSE ? WIN_BLOCKS_FUSE : WIN_BLOCKS)
+window_rowmax_kernel(const WinArgs a) {
+  constexpr int U = FUSE ? WIN_U_FUSE : WIN_U;
+  constexpr int STEP = 32 * U;  // pieces of one warp step
+  // the scale kernel may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (WIN_THREADS / 32);
+  float sc[2][8] = {}, sh[2][8] = {};
+  if (FUSE) {
 #pragma unroll
-    for (int i = 1; i < 8; ++i) m = fmaxf(m, part[i]);
-    rowmax[((size_t)p * H + h) * nw + wb] = m;
+    for (int q = 0; q < (TWO ? 2 : 1); ++q) {
+      const int c = ((lane + 32 * q) * 8) % a.Cin;
+      load8(a.scale, c, sc[q]);
+      load8(a.shift, c, sh[q]);
+    }
+  }
+  for (int r = blockIdx.x * (WIN_THREADS / 32) + (threadIdx.x >> 5); r < a.rows;
+       r += warps) {
+    int n16, p;
+    const uint4* row = reinterpret_cast<const uint4*>(row_at(a, r, n16, p));
+    const bool tr = p >= a.prefix;
+    uint32_t m = 0;
+    float t = 0.f;  // the row's max so far (with the prologue)
+    for (int j0 = 0; j0 < n16; j0 += STEP) {
+      uint4 v[U];
+      bool ok[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + lane + 32 * u;
+        ok[u] = j < n16;
+        v[u] = ok[u] ? __ldg(row + j) : make_uint4(0, 0, 0, 0);
+      }
+      m = fold_pieces<FUSE, TWO, U>(v, ok, tr, sc, sh, a.act, t, m);
+      if (FUSE) t = warp_max(m);
+    }
+    m = __reduce_max_sync(0xffffffffu, max(m & 0xffffu, m >> 16));
+    if (lane == 0) a.rowmax[r] = m;
   }
 }
 
-// One thread per TPU tile (t, hb, wb): m = max of rowmax over the window's
-// 3 planes and 10 rows; s = max(m, 1e-8) / 127, inv = 1 / s.
-__global__ void __launch_bounds__(256)
-window_scale_kernel(const float* __restrict__ rowmax, float* __restrict__ s,
-                    float* __restrict__ inv, int T, int H, int nw, int time_padded) {
-  const int nh = H >> 3;
+// A thread a tile (t, hb, wb): the max of its window's 3 planes x 10 rows of
+// rowmax, then s and inv.
+__global__ void __launch_bounds__(256) window_scale_kernel(const WinArgs a) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int nh = a.H >> 3;
   const int idx = blockIdx.x * 256 + threadIdx.x;
-  if (idx >= T * nh * nw) return;
-  const int wb = idx % nw, hb = (idx / nw) % nh, t = idx / (nw * nh);
-  float m = 0.f;
+  if (idx >= a.T * nh * a.nw) return;
+  const int wb = idx % a.nw, hb = (idx / a.nw) % nh, t = idx / (a.nw * nh);
+  uint32_t bits = 0;
   for (int dt = 0; dt < 3; ++dt) {
-    const int p = time_padded ? t + dt : max(t + dt - 2, 0);
+    const int p = a.time_padded ? t + dt : max(t + dt - 2, 0);
     for (int r = 8 * hb - 1; r <= 8 * hb + 8; ++r) {
-      const int rr = min(max(r, 0), H - 1);
-      m = fmaxf(m, rowmax[((size_t)p * H + rr) * nw + wb]);
+      const int rr = min(max(r, 0), a.H - 1);
+      bits = max(bits, __ldcg(a.rowmax + ((size_t)p * a.H + rr) * a.nw + wb));
     }
   }
-  const float sv = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
-  s[idx] = sv;
-  inv[idx] = __fdiv_rn(1.f, sv);
+  const float m = __uint_as_float(bits << 16);
+  // max(m, 1e-8) keeping a NaN, as torch's clamp_min does
+  const float sv = __fdiv_rn(m < 1e-8f ? 1e-8f : m, 127.f);
+  a.s[idx] = sv;
+  a.inv[idx] = __fdiv_rn(1.f, sv);
+}
+
+template <bool FUSE, bool TWO>
+int launch_windows(const WinArgs& a, cudaStream_t st) {
+  // per device: the blocks a persistent grid may hold
+  static int slots[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, window_rowmax_kernel<FUSE, TWO>, WIN_THREADS, 0);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    slots[dev] = per_sm * sms;
+  }
+  const int need = (a.rows + WIN_THREADS / 32 - 1) / (WIN_THREADS / 32);
+  window_rowmax_kernel<FUSE, TWO>
+      <<<need < slots[dev] ? need : slots[dev], WIN_THREADS, 0, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = a.T * (a.H / 8) * a.nw;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + 255) / 256);
+  cfg.blockDim = dim3(256);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, window_scale_kernel, a);
 }
 
 template <bool FUSE, bool QUANT>
@@ -622,29 +810,35 @@ extern "C" int k5_conv3d_fused(const void* x, const void* w27, const void* bias,
                                   act, prefix, 1, stream);
 }
 
-// The W8A8 scales: rowmax (T_in, H, W / bw) fp32 scratch; s, inv (T, H / 8,
-// W / bw) fp32 out. scale/shift are read only with fuse.
+// The W8A8 scales: s, inv (T, H / 8, W / bw) fp32 out, T = T_in - 2 when
+// time_padded else T_in; rowmax (T_in, H, W / bw) 32-bit scratch;
+// scale/shift are read only with fuse. Two launches: the row maxima, then,
+// dependent on them, the tiles.
 extern "C" int k5_conv3d_window_scale(const void* x, const void* scale,
                                       const void* shift, void* rowmax, void* s,
                                       void* inv, int T_in, int H, int W, int Cin,
                                       int bw, int time_padded, int fuse, int act,
                                       int prefix, void* stream) {
-  const int nw = W / bw, T = time_padded ? T_in - 2 : T_in;
-  const dim3 grid(nw, H, T_in);
+  // a lane's channels are fixed: Cin divides 32 * 8 * 2 (two sets at 512)
+  if (Cin % 8 != 0 || 512 % Cin != 0 || H % 8 != 0 || bw < 1 || W % bw != 0 ||
+      T_in < (time_padded ? 3 : 1) || (long long)T_in * H * (W / bw) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  WinArgs a;
+  a.x = (const bf16*)x;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.rowmax = (uint32_t*)rowmax;
+  a.s = (float*)s;
+  a.inv = (float*)inv;
+  a.T_in = T_in;
+  a.T = time_padded ? T_in - 2 : T_in;
+  a.H = H, a.W = W, a.Cin = Cin, a.bw = bw, a.nw = W / bw;
+  a.time_padded = time_padded, a.act = act, a.prefix = fuse ? prefix : T_in;
+  a.rows = T_in * H * a.nw;
   cudaStream_t st = (cudaStream_t)stream;
-  if (fuse)
-    window_rowmax_kernel<true><<<grid, 256, 0, st>>>(
-        (const bf16*)x, (const float*)scale, (const float*)shift, (float*)rowmax, H,
-        W, Cin, bw, act, prefix);
-  else
-    window_rowmax_kernel<false><<<grid, 256, 0, st>>>(
-        (const bf16*)x, nullptr, nullptr, (float*)rowmax, H, W, Cin, bw, 0, 0);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const int n = T * (H / 8) * nw;
-  window_scale_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)rowmax, (float*)s, (float*)inv, T, H, nw, time_padded);
-  return (int)cudaGetLastError();
+  if (!fuse) return launch_windows<false, false>(a, st);
+  return Cin > 256 ? launch_windows<true, true>(a, st)
+                   : launch_windows<true, false>(a, st);
 }
 
 // W8A8 conv: w8 (27, Cout, Cin) int8, ws (Cout,) fp32, s/inv from

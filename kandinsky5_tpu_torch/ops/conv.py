@@ -246,24 +246,33 @@ def quant_window_scales(x, bw: int, time_padded: bool = False, scale=None,
                         shift=None, act: bool = False, prefix_planes: int = 0):
     """The W8A8 mode's activation scales (s, inv), each (T, H/8, W/bw) fp32,
     over the prologue's output when ``scale`` is given: the window-max
-    reduction of K3's body (``csrc/conv3d.cu``) for a CUDA tensor (one
-    count on ``K3_quant_windows``), :func:`window_scales` for a CPU one.
-    x (1, T_in, H, W, Cin)."""
+    reduction of K3's body (``csrc/conv3d.cu``: the row maxima, then the
+    tiles in a programmatic dependent launch) for a CUDA tensor (one count
+    on ``K3_quant_windows``), :func:`window_scales` for a CPU one. x (1,
+    T_in, H, W, Cin)."""
     _kernels.refuse_grad("K3's window maxima", x, scale, shift)
     if x.device.type == "cpu":
         if scale is not None:
             x = conv_prologue(x, scale, shift, act, prefix_planes)
         return window_scales(x, bw, time_padded)
     _, t, h, w, cin = x.shape
-    if x.dtype != torch.bfloat16 or h % QUANT_BH or w % bw or cin % 8:
-        raise ValueError(f"K3's window scales take bf16 (1, T, 8k, bw k, C), "
-                         f"got {x.shape} {x.dtype} bw {bw}")
+    if x.dtype != torch.bfloat16 or h % QUANT_BH or w % bw or cin % 8 \
+            or 512 % cin:
+        raise ValueError(f"K3's window scales take bf16 (1, T, 8k, bw k, C) "
+                         f"with C dividing 512, got {tuple(x.shape)} "
+                         f"{x.dtype} bw {bw}")
     t_out = t - 2 if time_padded else t
-    rowmax = torch.empty((t, h, w // bw), dtype=torch.float32, device=x.device)
+    rowmax = torch.empty((t, h, w // bw), dtype=torch.int32, device=x.device)
     s = torch.empty((t_out, h // QUANT_BH, w // bw), dtype=torch.float32,
                     device=x.device)
     inv = torch.empty_like(s)
+    x = x.contiguous()
+    if scale is not None:
+        scale, shift = scale.float().contiguous(), shift.float().contiguous()
     _kernels.check_cuda("K3", x=x, scale=scale, shift=shift)
+    if x.data_ptr() % 16:
+        raise ValueError("K3's window maxima: x is not 16-byte aligned (the "
+                         "kernel reads it in 16-byte pieces)")
     _kernels.launch("k5_conv3d_window_scale", "K3_quant_windows",
                     x.data_ptr(), _kernels.ptr(scale), _kernels.ptr(shift),
                     rowmax.data_ptr(), s.data_ptr(), inv.data_ptr(), t, h, w,

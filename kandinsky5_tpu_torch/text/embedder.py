@@ -7,9 +7,10 @@ padded to the config's ``max_length`` with boolean masks. Prompt expansion
 runs the same Qwen tower autoregressively.
 
 Tokenizers are injected: :meth:`Kandinsky5TextEmbedder.from_pretrained`
-loads HF tokenizers with ``transformers.AutoTokenizer`` (imported there,
-not at module import), and any object with the same call signature,
-``apply_chat_template`` and ``decode`` serves as well.
+reads each checkpoint directory's HF tokenizer files with the port's own
+:class:`~kandinsky5_tpu_torch.text.tokenizer.Tokenizer` (no
+``transformers`` or ``tokenizers``), and any object with the same call
+signature, ``apply_chat_template`` and ``decode`` serves as well.
 """
 
 from __future__ import annotations
@@ -165,12 +166,11 @@ class Kandinsky5TextEmbedder(nn.Module):
         ``model.safetensors.index.json``, or every file there) and its
         tokenizer. Qwen is built in ``dtype``, CLIP in fp32, on ``device``
         (the CUDA card when None)."""
-        from transformers import AutoTokenizer
-
         from kandinsky5_tpu_torch.checkpoint import (
             clip_from_state_dict,
             qwen_from_state_dict,
         )
+        from kandinsky5_tpu_torch.text.tokenizer import Tokenizer
         from kandinsky5_tpu_torch.utils.io import load_sharded_safetensors
 
         device = default_device(device)
@@ -182,8 +182,8 @@ class Kandinsky5TextEmbedder(nn.Module):
                                     clip_config_from_json(cpath),
                                     device=device, dtype=torch.float32)
         return cls(conf, qwen, clip,
-                   qwen_tokenizer=AutoTokenizer.from_pretrained(qpath),
-                   clip_tokenizer=AutoTokenizer.from_pretrained(cpath),
+                   qwen_tokenizer=Tokenizer.from_pretrained(qpath),
+                   clip_tokenizer=Tokenizer.from_pretrained(cpath),
                    int8_expand=int8_expand)
 
     # -- tokenization -------------------------------------------------

@@ -255,10 +255,9 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
 def save_checkpoint(model: DiffusionTransformer3D, path: str) -> None:
     """Export the parameters as reference-named safetensors (the port's
     state dict is already in the reference's names and layouts)."""
-    from safetensors.torch import save_file
+    from kandinsky5_tpu_torch.utils.io import save_safetensors
 
-    save_file({k: v.detach().contiguous().cpu()
-               for k, v in model.state_dict().items()}, path)
+    save_safetensors(model.state_dict(), path)
 
 
 def _state_file(state: TrainState) -> str:

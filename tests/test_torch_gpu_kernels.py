@@ -58,6 +58,11 @@ from kandinsky5_tpu_torch.tools import bench_pallas_gemm
 from kandinsky5_tpu_torch.tools.bench_int8mm import gemm, gemm_plain, operands
 
 from . import _torch_tp_ranks
+from ._torch_windows import (
+    WINDOW_CASES,
+    short_window_scales,
+    window_inputs,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -733,6 +738,46 @@ def test_k3_quant_matches_plain(dev, monkeypatch, t, h, w, cin, cout,
     monkeypatch.setattr(conv_mod, "window_scales", one_scale)
     with pytest.raises(AssertionError):
         _assert_flips_only(out, conv3d_plain(x, wt, bias, **kw), xt, wt)
+
+
+@pytest.mark.parametrize("case", range(len(WINDOW_CASES)))
+def test_k3_window_maxima_match_plain(dev, case):
+    """K3's window maxima (``quant_window_scales``) in every instance the
+    decodes and the encode give them (``_torch_windows.WINDOW_CASES``: with and
+    without the prologue, time_padded with two prefix planes, 128, 256 and
+    512 channels, the encoder's shapes), bit-equal to the plain version and
+    launched once a call; control: the plain version with every window one
+    column short differs."""
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    g = torch.Generator(device=dev).manual_seed(case)
+    x, kw, xt, bw, _ = window_inputs(WINDOW_CASES[case], g, dev)
+    _kernels.reset_launches()
+    out = torch.stack(conv_mod.quant_window_scales(x, bw, **kw))
+    assert _kernels.LAUNCHES["K3_quant_windows"] == 1
+    ref = torch.stack(conv_mod.window_scales(xt, bw, kw["time_padded"]))
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, torch.stack(
+        short_window_scales(xt, bw, kw["time_padded"])))
+
+
+def test_k3_window_maxima_keep_the_nan_of_silu_at_minus_inf(dev):
+    """With the prologue, an input of -inf gives y = -inf and silu(y) = NaN
+    (-inf * 0) in the plain version: the kernel's windows over it are NaN
+    too, although the row's max so far lets the affine bound of every other
+    piece skip the prologue. The -inf sits in the last column, so that the
+    rows before it have raised their max well above silu's negative range."""
+    from kandinsky5_tpu_torch.ops import conv as conv_mod
+
+    case = next(c for c in WINDOW_CASES if c[6] and not c[7] and c[3] < 768)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, kw, _, bw, _ = window_inputs(case, g, dev)
+    x[0, 3, 20, -1, 0] = float("-inf")
+    xt = conv_mod.conv_prologue(x, kw["scale"], kw["shift"], True, 0)
+    out = torch.stack(conv_mod.quant_window_scales(x, bw, **kw))
+    ref = torch.stack(conv_mod.window_scales(xt, bw, kw["time_padded"]))
+    assert bool(ref.isnan().any()) and not bool(ref.isnan().all())
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
 
 
 def test_launch_counters_count_kernel_launches(dev):
