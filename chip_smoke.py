@@ -22,6 +22,7 @@
     python3 chip_smoke.py --train            # phase 7 alone, on freshly
                                              # built models
     python3 chip_smoke.py --dp               # phases 5a and 5b alone
+    python3 chip_smoke.py --sp               # phase 5c alone
     python3 chip_smoke.py --load             # phase 8 alone, on a freshly
                                              # built DiT and VAE
 
@@ -38,8 +39,10 @@ Phases, each of which must pass (any failure exits nonzero):
                chain's time, and its modulation pass alone within one bf16
                ulp; K1
                also at the tp = 2 and 4 ranks' shares of the 5 s shape's
-               heads and on a ragged, batched, masked case, each with its
-               achieved TFLOP/s and computed exp2 floor in the log; every
+               heads, on a ragged, batched, masked case and on a (1, 2, 4)
+               rank's 23,808 queries against the gathered 47,616 keys, each
+               with its achieved TFLOP/s and computed exp2 floor in the log;
+               every
                decoder conv class for K3, plain and time_padded; K3's
                GroupNorm-fold + SiLU prologue at 128, 256 and 512 channels
                and with carried prefix planes; K3's W8A8 mode plain and with
@@ -56,7 +59,9 @@ Phases, each of which must pass (any failure exits nonzero):
                chunks and a tiled decode's tile, each with its TFLOP/s,
                share of bound, K/V rate through L2 and SDPA's time; K6 at
                the 10 s shape under four masks: STA only, ~15 %, ~35 % and
-               ~90 % kept, beside flex_attention; K5 and K7 at K1's four main-path
+               ~90 % kept, and on the second sp rank's 732 rows of 7 heads'
+               lists over the whole K/V (control: the first rows' lists),
+               beside flex_attention; K5 and K7 at K1's four main-path
                shapes on one shared pack_int8 call, K7 bit-equal to K5,
                K5's error against K1 printed as the quantization error), the
                tools kernels T5 (its four modes at the 5 s shape) and T1 (int8
@@ -129,11 +134,13 @@ Phases, each of which must pass (any failure exits nonzero):
                before any rank starts): one DiT forward at full width and
                depth at the 5 s shape (47,616 tokens, seeded +-0.02
                weights, each rank drawing its share one parameter at a
-               time) on one device, then as tp = 2 and tp = 4, each rank
-               held against it (TP_BOUND, relative L2) with exact launch
-               counts (K8 32, K1 34, K2 0); two controls must fail the
-               bound (each rank keeps its FF partial sum; the out layers'
-               bias added on every rank). Then the tp = 2 pipeline answers
+               time) on one device, then as tp = 2, and as tp = 4 cut to
+               TP4_BLOCKS (8) visual blocks against one device's forward at
+               that depth, each rank held against it (TP_BOUND, relative
+               L2) with exact launch counts (K8 and K1 one a visual block,
+               K1 one a text block, K2 0); in the tp = 4 launch two
+               controls must fail the bound (each rank keeps its FF
+               partial sum; the out layers' bias added on every rank). Then the tp = 2 pipeline answers
                the 5 s path's image request with 16 steps and its video
                request with TP_VIDEO_STEPS (2; cut from 16 so that phase 7
                fits the smoke's time) on phase 4's text embeddings and
@@ -147,7 +154,7 @@ Phases, each of which must pass (any failure exits nonzero):
                rank fails the run;
   5a. dp serving — 2 ranks on the (2, 1, 1) mesh sharing the card:
                config_5s_sft.yaml at full width and depth (seeded weights
-               drawn on each rank) answers the 1 s video with DP_STEPS (4)
+               drawn on each rank) answers the 1 s video with DP_STEPS (2)
                steps at guidance 5.0 on phase 4's replayed text
                embeddings, the CFG pair split (rank 0 cond, rank 1
                uncond): both ranks' latents equal and within DP_BOUND of
@@ -168,6 +175,25 @@ Phases, each of which must pass (any failure exits nonzero):
                the single-device call, exact K8/K1 counts (K2 none);
                control: the dp peers' predictions gathered in the wrong
                order;
+  5c. the sequence axis — 8 ranks on the (1, 2, 4) mesh (tp 4 over the
+               heads, sp 2 over the visual tokens, K/V all-gathered over sp
+               into K1 and K6): one DiT forward at full width and depth at
+               the 5 s shape, every rank within TP_BOUND of phase 5's
+               single-device forward (K1 34, K8 32, K2 0 a rank); the 10 s
+               NABLA forward at 93,696 tokens cut to SP_BLOCKS (2 text, 4
+               visual) against one device's at that depth (K6 4 a rank; the
+               mask blocks kept or dropped unlike one device's printed) and
+               the 5 s forward at that depth with the controls, which must
+               fail TP_BOUND (ranks that skip the K/V all-gather, every rank
+               taking RoPE rows from 0, on NABLA every rank taking STA rows
+               from 0, on a mask of STA alone whose sound run is held too);
+               the pipeline answers phase 4's image request (16
+               steps) on the replayed text, rank 0's frames against the
+               single-process tiled decode of its latents (FRAME_LEVELS,
+               FRAME_SHARE), PSNR against phase 4's image recorded. Per
+               rank: s a forward, tp all-reduce s, sp gather s and bytes,
+               peak GiB (8 ranks time-sharing one card: not a multi-GPU
+               number);
   6. serving — on phase 4's DiT, VAE and towers (moved back to the card)
                under config_5s_sft.yaml (50 steps, guidance 5.0, its MagCache
                ratios): the 1 s video (25 frames, 10,752 tokens, batched CFG,
@@ -540,8 +566,10 @@ def _seeded(dev):
 def phase_k1(dev, g, normed, results):
     """K1 at visual self-attention's 5 s, 1 s and image sizes (47,616,
     10,752 and 1,536 tokens), text self-attention (256 tokens, 77 valid),
-    the 5 s shape at the tp = 2 and 4 ranks' shares of the heads, and a
-    ragged, batched case (Lq 1000, Lk 700, a valid length per batch). The
+    the 5 s shape at the tp = 2 and 4 ranks' shares of the heads, a
+    ragged, batched case (Lq 1000, Lk 700, a valid length per batch), and a
+    (1, 2, 4) rank's query shard (23,808 queries, 7 heads) against the
+    gathered 47,616 keys, as phase 5c runs it. The
     log gives, beside the tensor-core bound, the achieved rate and an exp2
     floor that is computed, not measured: one exp2 per (query, valid key)
     at an assumed 16 per clock per SM (the special-function units' rate on
@@ -559,7 +587,8 @@ def phase_k1(dev, g, normed, results):
                                 (1, 256, 256, 28, (77,)),
                                 (1, 47616, 47616, 14, None),
                                 (1, 47616, 47616, 7, None),
-                                (2, 1000, 700, 3, (466, 140))):
+                                (2, 1000, 700, 3, (466, 140)),
+                                (1, 23808, 47616, 7, None)):
         q, k = normed((b, lq, h, 64)), normed((b, lk, h, 64))
         v = torch.randn((b, lk, h, 64), generator=g, device=dev).bfloat16()
         mask = None
@@ -1121,9 +1150,11 @@ def phase_k6(dev, g, normed, results):
     """K6 at the 10 s shape (1, 93,696, 28, 64) under four masks of the
     (61, 4, 6) tile grid: STA only, STA plus seeded random blocks to ~15 %,
     ~35 % and ~90 % kept (the density the 10 s request keeps with random
-    weights). Beside it K1 at the same shape, dense (where sparsity stops
-    paying), and flex_attention as the library call; each case logs its
-    TFLOP/s and share of the tensor-core bound."""
+    weights); then the second sp rank of phase 5c's (1, 2, 4) mesh under
+    the 90 % mask (46,848 queries of 7 heads with its 732 rows of the lists,
+    over the whole K/V). Beside it K1 at the same shape, dense (where
+    sparsity stops paying), and flex_attention as the library call; each
+    case logs its TFLOP/s and share of the tensor-core bound."""
     import torch
 
     from kandinsky5_tpu_torch.ops.flash import flash_fixed
@@ -1183,7 +1214,42 @@ def phase_k6(dev, g, normed, results):
         log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
             f"% of the tensor-core bound){lib}")
         del inds, nb, flex
+    # the second sp rank of the (1, 2, 4) mesh under the 90 % mask: its 732
+    # rows of its 7 heads' lists over the whole K/V; the control lists the
+    # first 732 rows (a wrong row offset)
+    hs, half = h // 4, s1 // 2
+    rows = mask[:, :hs, half:].contiguous()
+    inds, nb = block_mask_to_kv_lists(rows)
+    inds0, nb0 = block_mask_to_kv_lists(mask[:, :hs, :half].contiguous())
+    qs = q[:, half * 64:, :hs].contiguous()
+    ks, vs = k[:, :, :hs].contiguous(), v[:, :, :hs].contiguous()
     del q, k, v, mask
+    density = float(rows.float().mean())
+    listed = int(nb.sum())
+    k1_ms = _time_ms(lambda: flash_fixed(qs, ks, vs), 3)
+    t = time.perf_counter()
+    make_flex, why = _flex_attention(qs, ks, vs, rows)
+    flex = None if make_flex is None else make_flex(inds, nb)
+    log(f"  flex_attention at the sp rank's shape: "
+        + (f"compiled in {time.perf_counter() - t:.1f} s" if flex else why))
+    _compare("K6_sparse_nabla",
+             f"(1,{qs.shape[1]}/{s},{hs},64) sp rank 1 rows {half}: "
+             f"{100 * density:.2f}% kept",
+             lambda: sparse_attention(qs, ks, vs, inds, nb),
+             lambda: sparse_attention_plain(qs, ks, vs, inds, nb), results,
+             work=(4.0 * 64 * 64 * 64 * listed,
+                   _nbytes(qs, ks, vs, qs, nb) + 4 * listed),
+             reps=3,
+             control_fn=lambda: sparse_attention_plain(qs, ks, vs, inds0,
+                                                       nb0),
+             control_label="the first rows' lists",
+             library_fn=flex,
+             info=dict(density=density, k1_dense_ms=k1_ms))
+    r = results["K6_sparse_nabla"][-1]
+    r["tflops"] = 4.0 * 64 ** 3 * listed / r["ms"] / 1e9
+    log(f"    {r['tflops']:.1f} TFLOP/s ({100 * r['bound_ms'] / r['ms']:.1f} "
+        f"% of the tensor-core bound); K1 dense at this shape {k1_ms:.3f} ms")
+    del qs, ks, vs, rows, inds, nb, inds0, nb0, flex
     torch.cuda.empty_cache()
 
 
@@ -2468,6 +2534,9 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
 # seed of the tp forward's weights and inputs
 TP_SEED = 5
 TP_WORLDS = (2, 4)
+# the tp = 4 forward's visual blocks (tp = 2 runs all 32): cut from 32 to
+# pay for phase 5c, as PERF.md section 7 orders the cuts
+TP4_BLOCKS = 8
 # the tp = 2 video request's steps (the image keeps the config's 16): the
 # smoke's time goes to phase 7 instead
 TP_VIDEO_STEPS = 2
@@ -2481,16 +2550,28 @@ TP_BOUND = 8e-3
 # the controls a sound tp forward must not resemble: each rank keeps its FF
 # partial sum; each rank adds the out layers' bias before the all-reduce
 TP_CONTROLS = ("no_ff_all_reduce", "bias_on_every_rank")
+# the tp widths whose launch runs the controls: tp 4's (8 visual blocks),
+# where they read 2-9x the bound; at tp 2 they cost two full-depth forwards
+# (60 s) that phase 5c's time needs (H100 80GB HBM3, 700 W)
+TP_CONTROL_WORLDS = (4,)
 
 
-def tp_inputs(cfg, device, seed: int = TP_SEED):
+def tp_inputs(cfg, device, seed: int = TP_SEED, frames: int = 31,
+              tiles: bool = False):
     """Seeded inputs of one DiT forward at the 5 s shape: a (1, 31, 64, 96,
-    33) latent (47,616 visual tokens after 1 x 2 x 2 patches), 256 text
-    tokens of which 200 are valid, a pooled embedding and t = 0.5."""
+    33) latent (47,616 visual tokens after 1 x 2 x 2 patches; with 61
+    frames the 10 s shape, 93,696), 256 text tokens of which 200 are
+    valid, a pooled embedding and t = 0.5. ``tiles``: the latent is one
+    value over each 16 x 16 patch (NABLA's 64-token block) plus 10 %
+    noise, so that the block-pooled attention map has structure, as a
+    video's has; else white noise."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(1, 31, 64, 96, cfg.visual_embed_dim, generator=g)
+    x = torch.randn(1, frames, 64, 96, cfg.visual_embed_dim, generator=g)
+    if tiles:
+        coarse = x[:, :, ::16, ::16]
+        x = 0.1 * x + coarse.repeat_interleave(16, 2).repeat_interleave(16, 3)
     text = torch.randn(1, 256, cfg.in_text_dim, generator=g)
     pooled = torch.randn(1, cfg.in_text_dim2, generator=g)
     mask = torch.arange(256)[None] < 200
@@ -2637,33 +2718,46 @@ def _tp_request_rank(mesh, seconds, out_dir):
     return out
 
 
-def tp_forwards(dev, cfg, seed: int = TP_SEED):
-    """One DiT forward at full width and depth at the 5 s shape on one
-    device, then as tp = 2 and tp = 4 ranks sharing the card over gloo, each
-    held against it with TP_BOUND and with the controls, which must fail
-    it; launch counts per rank exact. Weights and inputs seeded with
-    ``seed``. Returns the launches, the report and what failed."""
-    import dataclasses
-
+def single_forward(cfg, dev, args, seed: int, **kw):
+    """One bf16 DiT forward of ``fast_init_dit_params(cfg, seed)`` on one
+    device: (output on the CPU, host seconds, launches)."""
     import torch
 
     from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
     from kandinsky5_tpu_torch.ops import _kernels
-    from kandinsky5_tpu_torch.parallel import launch
 
-    n_text, n_vis = cfg.num_text_blocks, cfg.num_visual_blocks
     dit = fast_init_dit_params(cfg, device=dev, seed=seed)
-    args = tp_inputs(cfg, dev, seed)
     torch.cuda.synchronize()
     _kernels.reset_launches()
     t = time.perf_counter()
-    ref = dit_forward(dit, *args, scale_factor=(1.0, 2.0, 2.0))
+    out = dit_forward(dit, *args, **kw)
     torch.cuda.synchronize()
-    wall1 = time.perf_counter() - t
-    got1 = dict(_kernels.LAUNCHES)
-    ref = ref.float().cpu()
-    del dit, args
+    wall = time.perf_counter() - t
+    got = dict(_kernels.LAUNCHES)
+    out = out.float().cpu()
+    del dit
     torch.cuda.empty_cache()
+    return out, wall, got
+
+
+def tp_forwards(dev, cfg, seed: int = TP_SEED):
+    """One DiT forward at full width and depth at the 5 s shape on one
+    device, then as tp = 2 and tp = 4 ranks sharing the card over gloo
+    (tp = 4 cut to TP4_BLOCKS visual blocks and held against one device's
+    forward at that depth), each held against it with TP_BOUND and with the
+    controls, which must fail it; launch counts per rank exact. Weights and
+    inputs seeded with ``seed``. Returns the launches, the report, what
+    failed and the full-depth single-device output (phase 5c's
+    reference)."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.parallel import launch
+
+    n_text, n_vis = cfg.num_text_blocks, cfg.num_visual_blocks
+    ref, wall1, got1 = single_forward(cfg, dev, tp_inputs(cfg, dev, seed),
+                                      seed, scale_factor=(1.0, 2.0, 2.0))
     log(f"  tp 1 (seed {seed}): forward {wall1:.3f} s, output {tuple(ref.shape)}, launches "
         f"K1 {got1['K1_flash_fixed']} K2 {got1['K2_ff_mod']} K8 "
         f"{got1['K8_ff']}")
@@ -2676,14 +2770,24 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
         raise Failure(f"tp 1 forward: launches (got, want) {wrong}")
 
     launches, report, failed = {}, [], []
-    want = {"K8_ff": n_vis, "K1_flash_fixed": n_text + n_vis, "K2_ff_mod": 0}
+    full = ref
     for world in TP_WORLDS:
+        wcfg, ref = cfg, full
+        if world == 4:
+            wcfg = dataclasses.replace(cfg, num_visual_blocks=TP4_BLOCKS)
+            ref = single_forward(wcfg, dev, tp_inputs(wcfg, dev, seed), seed,
+                                 scale_factor=(1.0, 2.0, 2.0))[0]
+        n_vis = wcfg.num_visual_blocks
+        want = {"K8_ff": n_vis, "K1_flash_fixed": n_text + n_vis,
+                "K2_ff_mod": 0}
+        controls = TP_CONTROLS if world in TP_CONTROL_WORLDS else ()
         t = time.perf_counter()
         res = launch(_tp_forward_rank, world, "gloo", "cuda",
-                     args=(dataclasses.asdict(cfg), TP_CONTROLS, seed),
+                     args=(dataclasses.asdict(wcfg), controls, seed),
                      timeout=900)
         total = time.perf_counter() - t
         line = dict(request=f"tp{world} forward", seed=seed, launch_s=total,
+                    visual_blocks=n_vis,
                     wall_s=[r["sound"]["wall_s"] for r in res],
                     all_reduce_s=[r["sound"]["all_reduce_s"] for r in res],
                     build_s=[r["build_s"] for r in res],
@@ -2696,7 +2800,8 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
             line.setdefault("rel_l2", []).append(rel)
             wrong = {k: (s["launches"][k], n) for k, n in want.items()
                      if s["launches"][k] != n}
-            log(f"  tp {world} rank {rank}: forward {s['wall_s']:.3f} s, "
+            log(f"  tp {world} rank {rank} ({n_vis} visual blocks): "
+                f"forward {s['wall_s']:.3f} s, "
                 f"all-reduce {s['all_reduce_s']:.3f} s in "
                 f"{s['all_reduce_calls']} calls ({s['all_reduce_bytes'] / 2**30:.2f}"
                 f" GiB; gloo through the host, {world} ranks on one card), "
@@ -2710,7 +2815,7 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
                 bad.append(f"rank {rank}: rel_l2 {rel:.3e}, launches (got, "
                            f"want) {wrong}, {s['all_reduce_calls']} "
                            "all-reduces, or unlike rank 0")
-        for name in TP_CONTROLS:
+        for name in controls:
             c = res[0][name]
             rel = _rel(c["y"], ref)
             line[f"{name}_rel_l2"] = rel
@@ -2726,7 +2831,7 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
         if bad:
             failed.append(f"tp {world} forward (seed {seed}): "
                           f"{'; '.join(bad)}")
-    return launches, report, failed
+    return launches, report, failed, full
 
 
 def phase_tp(dev, conf5, seconds5: int, out_dir: str):
@@ -2738,7 +2843,7 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     over the ranks equal to that decode's."""
     from kandinsky5_tpu_torch.parallel import launch
 
-    launches, report, failed = tp_forwards(dev, conf5.model.dit_params)
+    launches, report, failed, ref = tp_forwards(dev, conf5.model.dit_params)
     if failed:
         raise Failure("; ".join(failed))
     n_text = conf5.model.dit_params.num_text_blocks
@@ -2781,7 +2886,7 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
         k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
     if bad:
         raise Failure("tp 2 requests: " + "; ".join(bad))
-    return launches, report
+    return launches, report, ref
 
 
 # ---------------------------------------------------------------------------
@@ -2789,7 +2894,8 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
 # ---------------------------------------------------------------------------
 
 # 5a: the dp request's Euler steps and guidance (config_5s_sft's CFG)
-DP_STEPS = 4
+# (cut from 4 to pay for phase 5c, as PERF.md section 7 orders the cuts)
+DP_STEPS = 2
 DP_GUIDANCE = 5.0
 # 5a: the dp run's latents against the single-device run of the same
 # weights, seed and steps with the CFG pair as two sequential calls, relative
@@ -2873,10 +2979,12 @@ def _single_decodes(pipe, decoded, controls=None) -> dict:
     return out
 
 
-def _decode_split_faults(res, single, key="launches") -> list:
+def _decode_split_faults(res, single, key="launches",
+                         every_rank: bool = True) -> list:
     """What is wrong with a split decode: rank 0's frames (``_frames_ok``),
-    a rank that decoded no tile, K3 and K4 summed over the ranks unlike the
-    single-process decode's ``single``."""
+    a rank that decoded no tile (unless not ``every_rank``: fewer tiles
+    than ranks), K3 and K4 summed over the ranks unlike the single-process
+    decode's ``single``."""
     bad = [f"{name}: frames {m}" for name, m in res[0]["frames"].items()
            if not _frames_ok(m)]
     summed = {k: sum(r[key][k] for r in res) for k in DECODE_KERNELS}
@@ -2885,7 +2993,7 @@ def _decode_split_faults(res, single, key="launches") -> list:
                    f"{ {k: single[k] for k in DECODE_KERNELS} }")
     idle = [rank for rank, r in enumerate(res)
             if sum(r[key][k] for k in DECODE_KERNELS[:2]) == 0]
-    if idle:
+    if idle and every_rank:
         bad.append(f"rank(s) {idle} decoded no tile")
     return bad
 
@@ -3247,6 +3355,432 @@ def phase_dptp(dev, conf5):
     return {"dp-tp-forward": _summed(r["launches"] for r in res)}, [line]
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the sequence axis, 8 ranks on the (1, 2, 4) mesh sharing the card
+# ---------------------------------------------------------------------------
+
+# the mesh JAX's get_T2V_pipeline(tp=8) plans for 28 heads: (dp, sp, tp)
+SP_PLAN = (1, 2, 4)
+# the 10 s NABLA forward's and the controls' depth: (text, visual) blocks
+SP_BLOCKS = (2, 4)
+# the controls a sound sp forward must not resemble (TP_BOUND): ranks that
+# attend only to their own shard's keys; every rank taking the first rows
+# of the RoPE tables; on NABLA every rank taking the first rows of STA
+SP_CONTROLS = ("no_kv_gather", "rope_from_0")
+SP_REFS = "sp_references.pt"
+# the cut model's visual self-attention: with the seeded +-0.02 weights a
+# score is ~0.003, attention is near uniform over 47,616 keys, and which of
+# them a rank sees, or where RoPE puts them, hardly moves the output. Its
+# QK-norm weights at SP_QK_NORM spread the logits (standard deviation near
+# 4: the NABLA mask keeps a part of each row), and its out layer scaled by
+# SP_ATTN_GAIN makes it carry the residual stream, so that a control's
+# fault reaches the output
+SP_QK_NORM = 2.0
+SP_ATTN_GAIN = 8.0
+# the STA control's top-CDF mass: none (1 - P > 1), so that the mask is
+# STA alone. At the 10 s configs' P of 0.9 the top-CDF blocks hold 90 % of
+# each row's pooled mass and the STA-only ones so little that STA rows from
+# 0 moved the output by 5.0e-3 against a sound 4.2e-3; at P 0.3 the sound
+# run itself read 2.9e-2, each mask block kept or dropped unlike one
+# device's (1,500 of 30 M, from q and k rounded apart) carrying a part of
+# the 70 % (H100 80GB HBM3, 700 W)
+SP_STA_ONLY_P = -1.0
+
+
+def _peaked(model):
+    """``model`` with its visual self-attention peaked and loud (SP_QK_NORM,
+    SP_ATTN_GAIN; on every rank alike: the norms are replicated and the
+    out layer's rows scale with its columns)."""
+    import torch
+
+    with torch.no_grad():
+        for blk in model.visual_transformer_blocks:
+            att = blk.self_attention
+            att.query_norm.weight.fill_(SP_QK_NORM)
+            att.key_norm.weight.fill_(SP_QK_NORM)
+            att.out_layer.weight.mul_(SP_ATTN_GAIN)
+            att.out_layer.bias.mul_(SP_ATTN_GAIN)
+    return model
+
+
+def _sp_patches():
+    """The controls' patches of ``models/dit.py`` (module, name, function)."""
+    from kandinsky5_tpu_torch.models import dit as dit_mod
+
+    rope_rows, sta_rows = dit_mod.rope_rows, dit_mod.sta_rows
+    return {
+        "no_kv_gather": (dit_mod, "gather_kv", lambda k, v, sp: (k, v)),
+        "rope_from_0": (dit_mod, "rope_rows",
+                        lambda rope, r0, r1: rope_rows(rope, 0, r1 - r0)),
+        "sta_from_0": (dit_mod, "sta_rows",
+                       lambda sta, r0, r1: sta_rows(sta, 0, r1 - r0)),
+    }
+
+
+def _sp_sparse(conf10, x, device, P=None):
+    """The 10 s config's NABLA parameters (STA mask, P) for the token grid
+    of latents ``x``; ``P`` in place of the config's."""
+    from kandinsky5_tpu_torch.sampling import (
+        DenoiseSpec,
+        _build_sparse,
+        token_grid,
+    )
+
+    att = conf10.model.attention
+    spec = DenoiseSpec(
+        dit_params=conf10.model.dit_params, num_steps=1, guidance_weight=1.0,
+        scheduler_scale=5.0, scale_factor=tuple(conf10.metrics.scale_factor),
+        attention_type="nabla", nabla_P=att.P if P is None else P,
+        nabla_wT=att.wT,
+        nabla_wH=att.wH, nabla_wW=att.wW)
+    return _build_sparse(spec, token_grid(spec.dit_params, x.shape), device)
+
+
+@contextlib.contextmanager
+def _masks_kept(into: list):
+    """Keep each NABLA mask built inside the block (on the CPU)."""
+    from unittest import mock
+
+    from kandinsky5_tpu_torch.ops import nabla as nabla_mod
+
+    real = nabla_mod.nabla_build_mask
+
+    def keeping(*a, **kw):
+        m = real(*a, **kw)
+        into.append(m.mask.cpu())
+        return m
+
+    with mock.patch.object(nabla_mod, "nabla_build_mask", keeping):
+        yield
+
+
+def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir):
+    """One rank of phase 5c (see :func:`phase_sp`)."""
+    import contextlib as ctx
+    import hashlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, DiTParams, load_config
+    from kandinsky5_tpu_torch.models.dit import dit_forward
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.ops.nabla import record_density
+    from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+    from kandinsky5_tpu_torch.utils.metrics import psnr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp, sp, dev = mesh.tp, mesh.sp, mesh.device
+    refs = torch.load(refs_path, mmap=True)
+    patches = _sp_patches()
+    out = {}
+
+    def run(model, args, patch=None, **kw):
+        with ctx.ExitStack() as stack:
+            if patch is not None:
+                stack.enter_context(mock.patch.object(*patches[patch]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tp.reset_stats()
+            sp.reset_stats()
+            _kernels.reset_launches()
+            t = time.perf_counter()
+            y = dit_forward(model, *args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        y = y.float().cpu()
+        return y, dict(
+            wall_s=wall, all_reduce_s=tp.seconds, all_reduce_calls=tp.calls,
+            all_reduce_bytes=tp.bytes, gather_s=sp.seconds,
+            gather_calls=sp.calls, gather_bytes=sp.bytes,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(_kernels.LAUNCHES))
+
+    def held(y, ref):
+        return dict(rel_l2=_rel(y, ref),
+                    max_abs=(y - ref.float()).abs().max().item(),
+                    digest=hashlib.sha1(y.numpy().tobytes()).hexdigest(),
+                    finite=bool(torch.isfinite(y).all()))
+
+    # 1. the full-depth forward at the 5 s shape
+    cfg = DiTParams(**cfg_kw)
+    t = time.perf_counter()
+    model = fast_init_dit_shard(cfg, mesh, seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    y, st = run(model, tp_inputs(cfg, dev, seed),
+                scale_factor=(1.0, 2.0, 2.0))
+    out["forward"] = dict(st, build_s=build_s, **held(y, refs["forward"]),
+                          params=sum(p.numel() for p in model.parameters()))
+    del model, y
+    torch.cuda.empty_cache()
+
+    # 2. the cut model: the 10 s NABLA forward, then the dense controls
+    cut = DiTParams(**cut_kw)
+    conf10 = load_config(conf10_path)
+    model = _peaked(fast_init_dit_shard(cut, mesh, seed=seed))
+    nargs = tp_inputs(cut, dev, seed, frames=61, tiles=True)
+    sparse = _sp_sparse(conf10, nargs[0], dev)
+    sf = tuple(conf10.metrics.scale_factor)
+    masks = []
+    with _masks_kept(masks), record_density() as kept:
+        y, st = run(model, nargs, scale_factor=sf, sparse=sparse)
+    _, nh, nr, _ = masks[0].shape
+    rows = slice(sp.rank * nr, (sp.rank + 1) * nr)
+    heads = slice(tp.rank * nh, (tp.rank + 1) * nh)
+    differ = sum(int((m != refs["masks"][i][:, heads, rows]).sum())
+                 for i, m in enumerate(masks))
+    out["nabla"] = dict(st, **held(y, refs["nabla"]), masks=len(masks),
+                        mask_blocks=sum(m.numel() for m in masks),
+                        mask_differ=differ, density=_density(kept))
+    del masks
+    sta = _sp_sparse(conf10, nargs[0], dev, SP_STA_ONLY_P)
+    y, st = run(model, nargs, scale_factor=sf, sparse=sta)
+    out["sta"] = dict(st, **held(y, refs["sta"]))
+    y, _ = run(model, nargs, "sta_from_0", scale_factor=sf, sparse=sta)
+    out["sta_from_0"] = _rel(y, refs["sta"])
+    dargs = tp_inputs(cut, dev, seed)
+    y, st = run(model, dargs, scale_factor=(1.0, 2.0, 2.0))
+    out["cut"] = dict(st, **held(y, refs["cut"]))
+    for name in SP_CONTROLS:
+        y, _ = run(model, dargs, name, scale_factor=(1.0, 2.0, 2.0))
+        out[name] = _rel(y, refs["cut"])
+    del model, y, nargs, dargs
+    torch.cuda.empty_cache()
+
+    # 3. the pipeline answers phase 4's image request
+    conf = load_config(os.path.join(CONFIG_DIR, CONF5))
+    dit = fast_init_dit_shard(conf.model.dit_params, mesh, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                          seed=1))
+    pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
+        os.path.join(out_dir, TEXT_FILE)), vae, tp=mesh)
+    kept_latents = _keep_latents(pipe, "sp")
+    name, prompt, tl, shape, _, expand = IMAGE_REQUEST
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = pipe(prompt, time_length=tl, width=shape[3], height=shape[2],
+                  seed=42, expand_prompts=expand,
+                  save_path=os.path.join(out_dir, "sp_image.png"))
+    wall = time.perf_counter() - t
+    tm = dict(pipe.timings)
+    line = dict(request="sp image", rank=mesh.rank, wall_s=wall,
+                s_per_step=tm["denoise_s"] / tm["steps"],
+                denoise_s=tm["denoise_s"], steps=tm["steps"],
+                all_reduce_s=tm["all_reduce_s"],
+                all_reduce_calls=tm["all_reduce_calls"],
+                gather_s=tm["sp_gather_s"], gather_calls=tm["sp_gather_calls"],
+                gather_bytes=tm["sp_gather_bytes"],
+                decoded_tiles=tm["decoded_tiles"],
+                latents_finite=tm["latents_finite"])
+    out["launches"] = dict(_kernels.LAUNCHES)
+    if mesh.rank == 0:
+        line.update(decode_s=tm["decode_s"], frames=list(frames.shape),
+                    frames_ok=bool(frames.shape == shape
+                                   and frames.dtype == np.uint8
+                                   and float(frames.std()) > 0.0))
+        single = os.path.join(out_dir, IMAGE_REQUEST[4])
+        if os.path.isfile(single):
+            from PIL import Image
+
+            want = np.asarray(Image.open(single).convert("RGB"))[None, None]
+            line["psnr_vs_single_db"] = psnr(frames, want)
+        out.update(_single_decodes(pipe, [(name, kept_latents["sp"],
+                                           frames)]))
+    elif frames is not None:
+        raise Failure(f"rank {mesh.rank} returned frames")
+    out["request"] = line
+    return out
+
+
+def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
+    """Phase 5c: 8 ranks on the (1, 2, 4) mesh sharing the card over gloo,
+    the kernels built before any rank starts. (1) One DiT forward at full
+    width and depth at the 5 s shape (TP_SEED's weights and inputs), every
+    rank within TP_BOUND of one device's (``ref``, phase 5's; computed
+    here when None), exact launches per rank (K1 34, K8 32, K2 0). (2) The
+    10 s NABLA forward (93,696 tokens, a latent constant over each NABLA
+    block plus noise, full width, SP_BLOCKS deep) within
+    TP_BOUND of one device's at that depth, K6 4 launches a rank, the mask
+    blocks whose keep or drop differs from one device's counted; the dense
+    5 s forward at that depth and the controls (SP_CONTROLS, and on NABLA
+    STA rows from 0, on the mask of STA alone, SP_STA_ONLY_P, whose sound
+    run is held to TP_BOUND too), each of which must fail TP_BOUND; the cut
+    model's attention is peaked and loud (SP_QK_NORM, SP_ATTN_GAIN) so that
+    the controls can show. (3) The pipeline
+    answers phase 4's image request (16 steps) on the replayed text:
+    rank 0's frames against the single-process tiled decode of its latents
+    (FRAME_LEVELS, FRAME_SHARE), the decode's launches summed over the
+    ranks equal to it, exact K1/K8 launches per rank, and PSNR against
+    phase 4's single-device image (random weights: recorded, not gated).
+    Times are of 8 ranks time-sharing one card, never a multi-GPU
+    figure."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR
+    from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
+    from kandinsky5_tpu_torch.parallel import launch
+
+    cfg = conf5.model.dit_params
+    n_text, n_vis = cfg.num_text_blocks, cfg.num_visual_blocks
+    cut = dataclasses.replace(conf10.model.dit_params,
+                              num_text_blocks=SP_BLOCKS[0],
+                              num_visual_blocks=SP_BLOCKS[1])
+    t = time.perf_counter()
+    if ref is None:
+        ref = single_forward(cfg, dev, tp_inputs(cfg, dev, TP_SEED),
+                             TP_SEED, scale_factor=(1.0, 2.0, 2.0))[0]
+    dit = _peaked(fast_init_dit_params(cut, device=dev, seed=TP_SEED))
+    masks = []
+    nargs = tp_inputs(cut, dev, TP_SEED, frames=61, tiles=True)
+    sf = tuple(conf10.metrics.scale_factor)
+    with _masks_kept(masks):
+        nabla = dit_forward(dit, *nargs, scale_factor=sf,
+                            sparse=_sp_sparse(conf10, nargs[0], dev))
+    sta = dit_forward(dit, *nargs, scale_factor=sf, sparse=_sp_sparse(
+        conf10, nargs[0], dev, SP_STA_ONLY_P))
+    dense = dit_forward(dit, *tp_inputs(cut, dev, TP_SEED),
+                        scale_factor=(1.0, 2.0, 2.0))
+    refs_path = os.path.join(out_dir, SP_REFS)
+    torch.save({"forward": ref, "nabla": nabla.float().cpu(),
+                "sta": sta.float().cpu(), "cut": dense.float().cpu(),
+                "masks": masks}, refs_path)
+    del dit, nabla, sta, dense, masks, nargs
+    torch.cuda.empty_cache()
+    log(f"  one device: the cut forwards and masks in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    world = math.prod(SP_PLAN)
+    res = launch(_sp_rank, world, "gloo", "cuda",
+                 args=(dataclasses.asdict(cfg), dataclasses.asdict(cut),
+                       os.path.join(CONFIG_DIR, CONF10), TP_SEED, refs_path,
+                       out_dir),
+                 timeout=1000, dp=SP_PLAN[0], sp=SP_PLAN[1])
+    total = time.perf_counter() - t
+    os.remove(refs_path)
+    bad, report, launches = [], [], {}
+    want = {"forward": {"K1_flash_fixed": n_text + n_vis, "K8_ff": n_vis,
+                        "K2_ff_mod": 0},
+            "nabla": {"K6_sparse_nabla": SP_BLOCKS[1],
+                      "K1_flash_fixed": SP_BLOCKS[0], "K8_ff": SP_BLOCKS[1],
+                      "K2_ff_mod": 0},
+            "sta": {"K6_sparse_nabla": SP_BLOCKS[1],
+                    "K1_flash_fixed": SP_BLOCKS[0], "K8_ff": SP_BLOCKS[1],
+                    "K2_ff_mod": 0},
+            "cut": {"K1_flash_fixed": sum(SP_BLOCKS), "K8_ff": SP_BLOCKS[1],
+                    "K2_ff_mod": 0}}
+    for run, what in (("forward", f"5 s forward, {n_vis} visual blocks"),
+                      ("nabla", f"10 s NABLA forward, {SP_BLOCKS[1]} "
+                       "visual blocks"),
+                      ("sta", f"10 s NABLA forward, STA alone, "
+                       f"{SP_BLOCKS[1]} visual blocks"),
+                      ("cut", f"5 s forward, {SP_BLOCKS[1]} visual "
+                       "blocks")):
+        line = dict(request=f"sp {run}", launch_s=total)
+        for rank, r in enumerate(res):
+            s = r[run]
+            wrong = {k: (s["launches"][k], n) for k, n in want[run].items()
+                     if s["launches"][k] != n}
+            extra = ""
+            if run == "forward":
+                extra = (f", build {s['build_s']:.1f} s, {s['params']} "
+                         "params")
+            if run == "nabla":
+                extra = (f", masks {s['masks']}: {s['mask_differ']} of "
+                         f"{s['mask_blocks']} blocks kept or dropped unlike "
+                         f"one device's, kept {s['density']:.4f}")
+            log(f"  {what} rank {rank}: {s['wall_s']:.3f} s, tp all-reduce "
+                f"{s['all_reduce_s']:.3f} s in {s['all_reduce_calls']} calls "
+                f"({s['all_reduce_bytes'] / 2**30:.2f} GiB), sp gather "
+                f"{s['gather_s']:.3f} s in {s['gather_calls']} calls "
+                f"({s['gather_bytes'] / 2**30:.2f} GiB), peak "
+                f"{s['peak_gib']:.2f} GiB{extra}; against one device: rel_l2 "
+                f"{s['rel_l2']:.3e} max_abs {s['max_abs']:.3e} (bound "
+                f"{TP_BOUND}); launches "
+                + " ".join(f"{k.split('_')[0]} {s['launches'][k]}"
+                           for k in want[run]))
+            for key in ("wall_s", "all_reduce_s", "gather_s",
+                        "gather_bytes", "peak_gib", "rel_l2"):
+                line.setdefault(key, []).append(s[key])
+            if run == "nabla":
+                line.setdefault("mask_differ", []).append(s["mask_differ"])
+            if (wrong or s["rel_l2"] > TP_BOUND or not s["finite"]
+                    or s["digest"] != res[0][run]["digest"]):
+                bad.append(f"{run} rank {rank}: rel_l2 {s['rel_l2']:.3e}, "
+                           f"launches (got, want) {wrong}, or unlike rank 0")
+        report.append(line)
+        launches[f"sp-{run}"] = {k: sum(r[run]["launches"][k] for r in res)
+                                 for k in res[0][run]["launches"]}
+    for name in SP_CONTROLS + ("sta_from_0",):
+        rel = res[0][name]
+        fails = rel > TP_BOUND
+        report[-1][f"{name}_rel_l2"] = rel
+        log(f"  control ({name}): rel_l2 {rel:.3e} "
+            f"{'fails the bound' if fails else 'PASSES'}")
+        if not fails:
+            bad.append(f"control {name} passes the bound")
+
+    steps = conf5.model.num_steps
+    pwant = {"K8_ff": n_vis * steps, "K1_flash_fixed": (n_text + n_vis) * steps,
+             "K2_ff_mod": 0}
+    for name, m in res[0]["frames"].items():
+        log(f"  {name}: rank 0's frames against the single-process tiled "
+            f"decode of its latents: {m['max_levels']} levels at most, on "
+            f"{m['share']:.2e} of the values")
+    bad += _decode_split_faults(res, res[0]["single_launches"],
+                                every_rank=False)
+    for rank, r in enumerate(res):
+        got = r["launches"]
+        wrong = {k: (got[k], n) for k, n in pwant.items() if got[k] != n}
+        if wrong:
+            bad.append(f"sp image rank {rank}: launches (got, want) {wrong}")
+        line = r["request"]
+        log(f"  sp image rank {rank}: {line['s_per_step']:.4f} s/step "
+            f"({line['steps']} steps), tp all-reduce {line['all_reduce_s']:.3f}"
+            f" s in {line['all_reduce_calls']} calls, sp gather "
+            f"{line['gather_s']:.3f} s in {line['gather_calls']} calls; "
+            f"decoded {line['decoded_tiles']} tiles"
+            + (f"; decode (tiled, split) {line['decode_s']:.3f} s, frames "
+               f"{line['frames']}, PSNR against phase 4's single-device "
+               f"image {line.get('psnr_vs_single_db', float('nan')):.2f} dB "
+               "(random weights: recorded, not gated)" if rank == 0 else ""))
+        if not line["latents_finite"] or (rank == 0 and not line["frames_ok"]):
+            bad.append(f"sp image rank {rank}: bad output")
+        report.append(line)
+    launches["sp-image"] = {k: sum(r["launches"][k] for r in res)
+                            for k in res[0]["launches"]}
+    log(f"  8 ranks: {total:.1f} s from launch to the last result")
+    if bad:
+        raise Failure("phase 5c: " + "; ".join(bad))
+    return launches, report
+
+
+def sp_alone(out_dir, dev, conf5, conf10) -> dict:
+    """Phase 5c alone (``--sp``): the image request's text embeddings come
+    from :class:`SeededEmbedder`, not from phase 4's towers, and one
+    device's full-depth forward is computed here."""
+    from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE
+
+    os.makedirs(out_dir, exist_ok=True)
+    rec = RecordingEmbedder(SeededEmbedder())
+    expanded = rec.expand_prompt(IMAGE_REQUEST[1])
+    for text in (expanded, DEFAULT_NEGATIVE):
+        rec.encode([text], "image")
+    rec.save(os.path.join(out_dir, TEXT_FILE))
+    t = time.perf_counter()
+    launches, report = phase_sp(dev, conf5, conf10, out_dir)
+    return dict(launches=launches, report=report,
+                seconds=time.perf_counter() - t)
+
+
 def dp_alone(out_dir, dev, conf5) -> dict:
     """Phases 5a and 5b alone (``--dp``): the request's text embeddings
     come from :class:`SeededEmbedder`, not from phase 4's towers."""
@@ -3279,10 +3813,10 @@ def tp_seed_study(dev, seeds) -> int:
     rows, failed = [], []
     for seed in seeds:
         t = time.perf_counter()
-        _, report, bad = tp_forwards(dev, cfg, seed)
+        _, report, bad, _ = tp_forwards(dev, cfg, seed)
         failed += bad
         for line in report:
-            rows.append({k: line[k] for k in (
+            rows.append({k: line.get(k) for k in (
                 "request", "seed", "rel_l2", "no_ff_all_reduce_rel_l2",
                 "bias_on_every_rank_rel_l2", "wall_s", "all_reduce_s")})
         log(f"  seed {seed}: {time.perf_counter() - t:.1f} s")
@@ -4589,6 +5123,12 @@ def main() -> int:
                     help="build, then run only phases 5a and 5b (dp serving "
                     "and dp x tp) with seeded stand-in text embeddings, and "
                     "print their readings (no smoke result)")
+    ap.add_argument("--sp", action="store_true",
+                    help="build, then run only phase 5c (8 ranks on the "
+                    "(1, 2, 4) mesh: the full forward, the 10 s NABLA "
+                    "forward, the controls and the image request) with "
+                    "seeded stand-in text embeddings, and print its readings "
+                    "(no smoke result)")
     ap.add_argument("--windows", action="store_true",
                     help="build, then run only phase 2's K3 window-maxima "
                     "cases (every instance, with the control) and print "
@@ -4721,6 +5261,14 @@ def main() -> int:
             log(gpu_line())
             log(json.dumps(dp_out))
             return 0
+        if args.sp:
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            conf10 = load_config(os.path.join(CONFIG_DIR, CONF10))
+            sp_out = sp_alone(args.out, dev, conf5, conf10)
+            log(f"  phase 5c {sp_out['seconds']:.1f} s")
+            log(gpu_line())
+            log(json.dumps(sp_out))
+            return 0
         if args.k4 or args.k6:
             results = {}
             g, normed = _seeded(dev)
@@ -4762,7 +5310,8 @@ def main() -> int:
         log("phase 5: tensor and data parallelism, 2 and 4 ranks sharing the "
             "card (gloo)")
         t = time.perf_counter()
-        tp_launches, tp_report = phase_tp(dev, conf5, seconds5, args.out)
+        tp_launches, tp_report, tp_ref = phase_tp(dev, conf5, seconds5,
+                                                  args.out)
         launches.update(tp_launches)
         report += tp_report
         log(f"  phase 5 (tp) {time.perf_counter() - t:.1f} s")
@@ -4770,7 +5319,9 @@ def main() -> int:
                 ("5a", "dp serving: 2 ranks on (2, 1, 1)",
                  lambda: phase_dp(args.out)),
                 ("5b", "dp x tp: 4 ranks on (2, 1, 2)",
-                 lambda: phase_dptp(dev, conf5))):
+                 lambda: phase_dptp(dev, conf5)),
+                ("5c", "the sequence axis: 8 ranks on (1, 2, 4)",
+                 lambda: phase_sp(dev, conf5, conf10, args.out, tp_ref))):
             log(f"phase {sub}: {what}")
             t = time.perf_counter()
             sub_launches, sub_report = run()

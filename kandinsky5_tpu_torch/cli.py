@@ -10,8 +10,10 @@ It runs on the CUDA card unless ``--device cpu`` is given. ``--int8_linear``
 prompt expansion) are flags here, where the JAX package reads environment
 variables. ``--tp N`` runs N ranks over ``torch.distributed`` (NCCL with a
 card per rank, else gloo), each building the pipeline from the same
-checkpoints on the (1, 1, N) mesh, as the JAX factory plans it; every
-rank decodes its share of the tiles, rank 0 blends them and writes.
+checkpoints on the mesh the JAX factory plans for N devices
+(``plan_dit_mesh(N, heads)``: 8 devices and 28 heads run (1, 2, 4), tp 4
+over the heads and sp 2 over the sequence); every rank decodes its share
+of the tiles, rank 0 blends them and writes.
 ``--trace_dir DIR`` traces the request with ``torch.profiler`` into
 ``DIR/trace.json`` (rank 0's), where the JAX package reads
 ``KANDINSKY5_TPU_TRACE_DIR``.
@@ -43,7 +45,8 @@ def parse_args(argv=None):
     p.add_argument("--offload", action="store_true")
     p.add_argument("--magcache", action="store_true")
     p.add_argument("--tp", type=int, default=None,
-                   help="tensor-parallel width: that many rank processes")
+                   help="device count: that many rank processes on the "
+                   "(dp, sp, tp) mesh plan_dit_mesh plans for them")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     p.add_argument("--int8_linear", action="store_true",
@@ -95,6 +98,18 @@ def generate(mesh, args):
     return None if frames is None else pipe.timings["saved"][0]
 
 
+def mesh_plan(args):
+    """(dp, sp, tp) of ``--tp N``: ``plan_dit_mesh(N, heads)`` for the
+    configuration's DiT, as the JAX package's ``get_T2V_pipeline(tp=N)``
+    plans it."""
+    from kandinsky5_tpu_torch.config import DiTParams, load_config
+    from kandinsky5_tpu_torch.parallel.sharding import plan_dit_mesh
+
+    cfg = (load_config(args.config).model.dit_params if args.config
+           else DiTParams())
+    return plan_dit_mesh(args.tp, cfg.num_heads)
+
+
 def main(argv=None):
     args = parse_args(argv)
     validate_args(args)
@@ -107,7 +122,9 @@ def main(argv=None):
         device = "cpu" if args.device == "cpu" else "cuda"
         backend = ("nccl" if device == "cuda"
                    and torch.cuda.device_count() >= args.tp else "gloo")
-        written = launch(generate, args.tp, backend, device, args=(args,))[0]
+        dp, sp, _ = mesh_plan(args)
+        written = launch(generate, args.tp, backend, device, args=(args,),
+                         dp=dp, sp=sp)[0]
     else:
         written = generate(None, args)
     print(f"generated in {time.time() - start:.1f}s -> {written}")

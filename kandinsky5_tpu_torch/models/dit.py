@@ -11,19 +11,37 @@ order in the prologue, every visual self-attention runs NABLA
 (``ops/nabla.py``, kernel K6) and the epilogue restores the order; text
 blocks and cross-attention stay dense.
 
-Tensor parallelism: a model built with ``tp=TensorParallel(...)`` (see
-``parallel/sharding.py`` ``shard_dit`` and ``fast_init_dit_shard``) is one
-rank's share, and :func:`dit_forward` computes what the JAX DiT computes
-under a ``(1, 1, tp)`` mesh. Each visual block's self- and cross-attention
-project the rank's num_heads / tp heads (Q/K/V column parallel, with their
-biases; the QK RMSNorm is per head and stays local), attend over them, and
-sum the row-parallel out layer over the group before adding its bias once;
-the FF is the Megatron FF with K8 (``models/nn.py`` ``feed_forward``). The
-residual stream, the modulations, the embeddings, RoPE, the text blocks and
-the out layer are replicated: every rank computes them whole. The JAX
-package shards the residual over the sequence between blocks
-(``constrain_seq``), a placement that changes no arithmetic; plain
-Megatron keeps it replicated, as here.
+The mesh: a model built with ``tp=TensorParallel(...)`` and ``sp=
+SequenceParallel(...)`` (see ``parallel/sharding.py`` ``shard_dit`` and
+``fast_init_dit_shard``) is one rank's share, and :func:`dit_forward`
+computes what the JAX DiT computes under a ``(dp, sp, tp)`` mesh.
+
+* tp: each visual block's self- and cross-attention project the rank's
+  num_heads / tp heads (Q/K/V column parallel, with their biases; the QK
+  RMSNorm is per head and stays local), attend over them, and sum the
+  row-parallel out layer over the group before adding its bias once; the
+  FF is the Megatron FF with K8 (``models/nn.py`` ``feed_forward``).
+* sp: the visual block stack runs on the rank's contiguous 1/sp of the
+  visual tokens and of their RoPE tables (in fractal order on the NABLA
+  path, with its rows of the STA mask): every per-token operation (AdaLN,
+  the projections, the QK RMSNorm, RoPE, the cross-attention's queries,
+  the FF) is local; each self-attention all-gathers its K and V (after
+  RoPE, the rank's tp heads) over sp and attends its local queries to the
+  whole sequence (K1 with Lq = S / sp, or NABLA with the rank's rows of
+  the mask and K6 over the whole K/V), as the JAX package's
+  ``_sharded_attention`` and ``_sparse_attention_sharded`` do inside
+  their shard_map bodies; the stack's output is all-gathered once at its
+  exit. A sequence that does not split into sp equal parts (of whole
+  64-token blocks on the NABLA path) runs the stack whole on every sp rank
+  (replicated over sp), where the JAX package would pad NABLA's rows: every
+  real shape splits (1,536, 47,616 and 93,696 tokens, by 2 and by 3).
+
+The prologue (embeddings, the text blocks, RoPE), MagCache's residual
+(``sampling._dit_call``) and the epilogue see the whole sequence on every
+rank; the modulations, the embeddings, the text blocks and the out layer
+are replicated. The JAX package also shards the residual over the
+sequence between blocks (``constrain_seq``), a placement that changes no
+arithmetic.
 """
 
 from __future__ import annotations
@@ -65,6 +83,7 @@ from kandinsky5_tpu_torch.models.nn import (
 from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS, attention
 from kandinsky5_tpu_torch.ops.fractal import fractal_flatten, fractal_unflatten
 from kandinsky5_tpu_torch.ops.nabla import nabla_attention
+from kandinsky5_tpu_torch.ops.sparse import BLOCK
 from kandinsky5_tpu_torch.utils import default_device
 
 
@@ -117,18 +136,25 @@ class DiffusionTransformer3D(nn.Module):
     """Parameter tree of the DiT; :func:`dit_forward` runs it. With ``tp``
     (a :class:`~kandinsky5_tpu_torch.parallel.TensorParallel`) the visual
     blocks hold that rank's share and the forward runs its collectives
-    over ``tp``. ``model.tp`` is the group when it spans more than one rank,
-    else None: a group of one runs the single-device path, K2 included."""
+    over ``tp``; with ``sp`` (a
+    :class:`~kandinsky5_tpu_torch.parallel.SequenceParallel`) the visual
+    block stack runs on the rank's 1/sp of the tokens. ``model.tp`` and
+    ``model.sp`` are the groups when they span more than one rank, else
+    None: a group of one runs the single-device path, K2 included."""
 
     def __init__(self, cfg: DiTParams, device=None, dtype=torch.bfloat16,
-                 tp=None):
+                 tp=None, sp=None):
         super().__init__()
         self.cfg = cfg
         n = 1 if tp is None else tp.size
         self.tp = tp if n > 1 else None
+        self.sp = sp if sp is not None and sp.size > 1 else None
         if cfg.num_heads % n or cfg.ff_dim % n:
-            raise ValueError(f"{cfg.num_heads} heads and ff_dim {cfg.ff_dim} "
-                             f"do not split over {n} ranks")
+            raise ValueError(
+                f"{cfg.num_heads} heads and ff_dim {cfg.ff_dim} do not split "
+                f"over a tp group of {n} ranks: run such a device count as "
+                "plan_dit_mesh's (dp, sp, tp), the heads over tp and the rest "
+                "on the sequence axis (sp)")
         kw = dict(device=device, dtype=dtype)
         self.time_embeddings = TimeEmbeddings(cfg.model_dim, cfg.time_dim, **kw)
         self.text_embeddings = TextEmbeddings(cfg.in_text_dim, cfg.model_dim,
@@ -162,24 +188,46 @@ def _mod_params(mod_vec, n: int):
     return [m[:, i][:, None, :] for i in range(n)]
 
 
+def gather_kv(k, v, sp):
+    """The whole sequence's K and V on every rank of ``sp``: each rank's
+    (B, S / sp, H, D) shard all-gathered along the sequence, in rank
+    order."""
+    return sp.all_gather(k, dim=1), sp.all_gather(v, dim=1)
+
+
 def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl,
-                    sparse: Optional[SparseParams] = None, tp=None):
+                    sparse: Optional[SparseParams] = None, tp=None, sp=None):
     """``num_heads`` is the heads this rank holds; with ``tp`` the out layer
-    is row parallel over it."""
+    is row parallel over it. With ``sp`` ``x`` and ``rope`` are the rank's
+    rows of the sequence (``sparse.sta`` its rows of the STA mask): K and V
+    are all-gathered over ``sp`` and the local queries attend to them."""
     b, l, _ = x.shape
     q, k, v = qkv_proj(p, x, num_heads)
     if rope is not None:
         cos, sin = rope
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    if sparse is not None:
-        out = nabla_attention(q, k, v, sparse.sta, thr=sparse.P)
-    else:
-        out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
+    out = attend(q, k, v, kv_mask, attn_impl, sparse, tp, sp)
     return row_parallel_linear(p.out_layer, out.reshape(b, l, -1), tp)
 
 
-def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl, tp=None):
+def attend(q, k, v, kv_mask, attn_impl, sparse: Optional[SparseParams] = None,
+           tp=None, sp=None):
+    """A self-attention's core on the rank's heads (and, with ``sp``, its
+    rows: K and V are all-gathered over ``sp`` first): NABLA under
+    ``sparse`` (whose ``sta`` holds the rank's rows), else ``attention``."""
+    if sp is not None:
+        k, v = gather_kv(k, v, sp)
+    if sparse is not None:
+        return nabla_attention(q, k, v, sparse.sta, thr=sparse.P,
+                               groups=(tp, sp))
+    return attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
+
+
+def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl, tp=None,
+                     q_len: Optional[int] = None):
+    """``q_len``: the query length the short-KV rule sees, the whole
+    sequence's under sp (JAX decides it on the global shapes)."""
     b, l, _ = x.shape
     bc, lc, _ = cond.shape
     q = linear(p.to_query, x).reshape(b, l, num_heads, -1)
@@ -187,7 +235,8 @@ def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl, tp=None):
     v = linear(p.to_value, cond).reshape(bc, lc, num_heads, -1)
     q = rms_norm(q, p.query_norm.weight).to(x.dtype)
     k = rms_norm(k, p.key_norm.weight).to(x.dtype)
-    out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl)
+    kw = {} if q_len is None else {"q_len": q_len}
+    out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl, **kw)
     return row_parallel_linear(p.out_layer, out.reshape(b, l, -1), tp)
 
 
@@ -213,20 +262,24 @@ def text_encoder_block(p, x, time_embed, rope, kv_mask, num_heads, attn_impl,
 
 def visual_decoder_block(p, visual, text, time_embed, rope, text_mask,
                          num_heads, attn_impl,
-                         sparse: Optional[SparseParams] = None, tp=None):
+                         sparse: Optional[SparseParams] = None, tp=None,
+                         sp=None):
     """Visual block; with ``tp`` the rank's share (``num_heads`` / tp heads
-    of attention, ff_dim / tp of the FF) and its collectives."""
+    of attention, ff_dim / tp of the FF) and its collectives; with ``sp``
+    on the rank's rows of the sequence (``visual``, ``rope`` and
+    ``sparse.sta`` cut to them), gathering K and V over ``sp``."""
     heads = num_heads if tp is None else num_heads // tp.size
+    q_len = None if sp is None else visual.shape[1] * sp.size
     mod = modulation(p.visual_modulation, time_embed)
     (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
      shift_ff, scale_ff, gate_ff) = _mod_params(mod, 9)
     out = apply_scale_shift_norm(visual, scale_sa, shift_sa)
     out = _self_attention(p.self_attention, out, rope, heads, None,
-                          attn_impl, sparse, tp)
+                          attn_impl, sparse, tp, sp)
     visual = apply_gate_sum(visual, out, gate_sa)
     out = apply_scale_shift_norm(visual, scale_ca, shift_ca)
     out = _cross_attention(p.cross_attention, out, text, heads, text_mask,
-                           attn_impl, tp)
+                           attn_impl, tp, q_len)
     visual = apply_gate_sum(visual, out, gate_ca)
     return modulated_feed_forward(p.feed_forward, visual, scale_ff, shift_ff,
                                   gate_ff, tp)
@@ -238,7 +291,12 @@ def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
                  to_fractal: bool = False):
     """Embeddings + text blocks + visual RoPE tables, the visual tokens and
     tables in fractal order when ``to_fractal``. Returns (visual (B, S, D),
-    text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin), grid)."""
+    text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin), grid).
+    int8-QK attention on a mesh raises (not ported yet)."""
+    if (model.tp is not None or model.sp is not None) \
+            and attn_impl in INT8_IMPLS:
+        raise ValueError("int8-QK attention on a mesh is not ported yet "
+                         "(ROADMAP.md, queue 1, item 7c)")
     cfg = model.cfg
     b, t, h, w, _ = x.shape
     grid = (t // cfg.patch_size[0], h // cfg.patch_size[1],
@@ -266,26 +324,62 @@ def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
     return visual, text, time_embed, (cos, sin), grid
 
 
+def sp_rows(sp, n_tokens: int, sparse: Optional[SparseParams] = None):
+    """This rank's rows (r0, r1) of an ``n_tokens`` visual stack under the
+    sp group ``sp``: its contiguous 1/sp. None where the stack runs whole:
+    no sp, or a sequence that does not split into sp equal parts (of whole
+    64-token blocks on the NABLA path, whose mask rows are blocks)."""
+    unit = 1 if sparse is None else BLOCK
+    if sp is None or n_tokens % (sp.size * unit):
+        return None
+    n = n_tokens // sp.size
+    return sp.rank * n, (sp.rank + 1) * n
+
+
+def rope_rows(rope, r0: int, r1: int):
+    """Rows r0:r1 of the (cos, sin) tables."""
+    cos, sin = rope
+    return cos[r0:r1], sin[r0:r1]
+
+
+def sta_rows(sta, r0: int, r1: int):
+    """The STA mask's rows of tokens r0:r1 (whole 64-token blocks)."""
+    return sta[r0 // BLOCK:r1 // BLOCK]
+
+
 def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, rope,
                       text_mask, attn_impl: str = "auto",
                       sparse: Optional[SparseParams] = None,
                       remat: bool = False):
     """The visual block stack as a Python loop. ``remat`` checkpoints each
     block (its activations are recomputed in the backward), as the JAX
-    package remats every scanned block."""
-    tp = model.tp
-    if tp is not None and (sparse is not None or attn_impl in INT8_IMPLS):
-        raise ValueError(
-            "NABLA and int8-QK attention under tensor parallelism are not "
-            "ported yet (ROADMAP.md, queue 1, item 7)")
+    package remats every scanned block. Under the model's sp group each
+    rank runs the stack on its rows (:func:`sp_rows`) and the output is
+    all-gathered over sp at the exit."""
+    tp, sp = model.tp, model.sp
+    rows = sp_rows(sp, visual.shape[1], sparse)
+    if rows is not None:
+        if torch.is_grad_enabled():
+            raise ValueError(
+                "training under sequence parallelism is not ported yet: the "
+                "sequence gathers have no backward (ROADMAP.md, queue 1, "
+                "item 7e)")
+        r0, r1 = rows
+        visual = visual[:, r0:r1]
+        rope = rope_rows(rope, r0, r1)
+        if sparse is not None:
+            sparse = sparse._replace(sta=sta_rows(sparse.sta, r0, r1))
     for blk in model.visual_transformer_blocks:
         args = (blk, visual, text, time_embed, rope, text_mask,
-                model.cfg.num_heads, attn_impl, sparse, tp)
+                model.cfg.num_heads, attn_impl, sparse, tp,
+                None if rows is None else sp)
         if remat:
             visual = checkpoint(visual_decoder_block, *args,
                                 use_reentrant=False)
         else:
             visual = visual_decoder_block(*args)
+    if rows is not None:
+        visual = sp.all_gather(visual, dim=1)
     return visual
 
 
@@ -408,6 +502,17 @@ def quantize_dit_params(model: DiffusionTransformer3D) -> DiffusionTransformer3D
         nb.feed_forward = ff
         blocks[i] = nb
     out.visual_transformer_blocks = blocks
+    return out
+
+
+def with_sp(model: DiffusionTransformer3D, sp) -> DiffusionTransformer3D:
+    """``model`` running its visual block stack over the sequence-parallel
+    group ``sp``: ``model`` itself for no group or one of one rank, else a
+    copy that shares every tensor with it."""
+    if sp is None or sp.size == 1:
+        return model
+    out = _shallow(model)
+    out.sp = sp
     return out
 
 

@@ -20,7 +20,10 @@ Tensor parallelism (the JAX package under a ``(1, 1, tp)`` mesh): an
 rank's columns of Q/K/V and of the FF in layer and its rows of the out
 layers; :func:`row_parallel_linear` and :func:`feed_forward` sum the
 partial products over the group (a
-:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`).
+:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`). Under sequence
+parallelism these functions see the rank's rows of the sequence: K8 runs
+on them (the JAX ``_sharded_fused_ff`` on its ``L / sp`` shard) and, at tp
+1, K2 where its gate admits their shape.
 """
 
 from __future__ import annotations
@@ -373,7 +376,10 @@ def modulated_feed_forward(p, x, scale, shift, gate, tp=None):
     (:class:`Int8Linear`) take the unfused chain, as the JAX routing does.
     Under tensor parallelism (``tp``) K2 steps aside, as in the JAX
     package: the norm and the gate run plain and the FF through
-    :func:`feed_forward` over ``tp``. scale/shift/gate: (B, 1, D)."""
+    :func:`feed_forward` over ``tp``. A rank at tp 1 (dp or sp alone) gates
+    K2 on its local shape, where the JAX package runs the chain on any
+    mesh of more than one device (ROADMAP.md section 3 logs the choice).
+    scale/shift/gate: (B, 1, D)."""
     b = x.shape[0]
     if (tp is None and isinstance(p.in_layer, nn.Linear)
             and isinstance(p.out_layer, nn.Linear)

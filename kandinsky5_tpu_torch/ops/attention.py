@@ -15,7 +15,9 @@ is (B, L, H, D). ``impl``:
     short-KV cross-attention dense for every impl but "dense". Text
     self-attention (q_len == k_len = 256) takes K5;
   * "flash_int8_pipe": the same routing with K7, K5's pipelined schedule.
-No environment flag is read.
+The short-KV rule sees the call's global query length (``q_len``), as the
+JAX package decides it before its shard_map: under sequence parallelism a
+rank's queries are a 1/sp shard of it. No environment flag is read.
 """
 
 from __future__ import annotations
@@ -51,11 +53,15 @@ def short_kv(q_len: int, k_len: int) -> bool:
 INT8_IMPLS = ("flash_int8", "flash_int8_pipe")
 
 
-def attention(q, k, v, kv_mask=None, impl: str = "auto"):
-    """Single-device dispatch between the flash kernels and dense."""
+def attention(q, k, v, kv_mask=None, impl: str = "auto",
+              q_len: Optional[int] = None):
+    """Dispatch between the flash kernels and dense on the local shapes;
+    ``q_len`` (default q's length) is the query length of the whole call,
+    which the short-KV rule reads."""
+    short = short_kv(q.shape[1] if q_len is None else q_len, k.shape[1])
     if impl == "auto":
-        impl = "dense" if short_kv(q.shape[1], k.shape[1]) else "flash"
-    elif impl in INT8_IMPLS and short_kv(q.shape[1], k.shape[1]):
+        impl = "dense" if short else "flash"
+    elif impl in INT8_IMPLS and short:
         impl = "dense"
     if impl == "dense":
         return dense_attention(q, k, v, kv_mask=kv_mask)

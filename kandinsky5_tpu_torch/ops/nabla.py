@@ -10,6 +10,14 @@ bisection, 8-row banks, the count cap, the shared mask) are not ported;
 lowered it on the TPU); the attention runs kernel K6 (``ops/sparse.py``).
 Tokens are in fractal order (``ops/fractal.py``): block i is tile i of
 the row-major (T, H/8, W/8) tile grid.
+
+On a mesh (the JAX package's ``_sparse_attention_sharded``) a rank holds
+its tp heads and, under sequence parallelism, its rows: q is its
+(B, S / sp, H / tp, D) shard and k, v the all-gathered (B, S, H / tp, D).
+Its rows of the mask come from its q against the whole k (the pooled map
+is a per-row softmax over every key block, so they equal the whole mask's
+rows), ORed with its rows of the STA mask; K6 then runs its rows' kv lists
+over the whole K/V.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -132,21 +140,35 @@ def record_density():
         _DENSITY_RECORDS.remove(kept)
 
 
-def nabla_build_mask(q, k, sta, thr: float = 0.9) -> NablaMask:
-    """The faithful adaptive mask of q, k and its kv lists."""
+def nabla_build_mask(q, k, sta, thr: float = 0.9,
+                     groups: Sequence = ()) -> NablaMask:
+    """The faithful adaptive mask of q, k and its kv lists. Inside
+    :func:`record_density` the kept fraction of the whole mask is recorded:
+    with ``groups`` (the rank groups over which the mask is cut: tp's
+    heads, sp's rows; None or one-rank entries skipped) the kept and total
+    block counts are summed over them first."""
     mask = nabla_block_mask(q, k, sta, thr=thr)
     kv_inds, kv_nb = block_mask_to_kv_lists(mask)
-    for kept in _DENSITY_RECORDS:
-        kept.append(kv_nb.sum() / mask.numel())
+    if _DENSITY_RECORDS:
+        counts = torch.stack([kv_nb.sum().double(),
+                              kv_nb.new_tensor(mask.numel()).double()])
+        for group in groups:
+            if group is not None and group.size > 1:
+                counts = group.all_reduce(counts)
+        for kept in _DENSITY_RECORDS:
+            kept.append(counts[0] / counts[1])
     return NablaMask(mask, kv_inds, kv_nb)
 
 
 def nabla_attention(q, k, v, sta, thr: float = 0.9, q_rows: int = 1,
                     max_density: Optional[float] = None,
-                    method: str = "sort"):
+                    method: str = "sort", groups: Sequence = ()):
     """Full NABLA path: the adaptive mask of this call's q, k, then K6
-    (its plain version for CPU tensors). q, k, v (B, S, H, D) in fractal
-    order; sta (S/64, S/64) bool. Raises on a non-faithful setting."""
+    (its plain version for CPU tensors). q (B, S, H, D) and k, v (B, Sk, H,
+    D) in fractal order, sta (S/64, Sk/64) bool: on a mesh a rank's query
+    rows against the whole K/V, with its rows of the STA mask. ``groups``
+    as :func:`nabla_build_mask` takes them. Raises on a non-faithful
+    setting."""
     _check_faithful(q_rows, max_density, method)
-    m = nabla_build_mask(q, k, sta, thr=thr)
+    m = nabla_build_mask(q, k, sta, thr=thr, groups=groups)
     return sparse_attention(q, k, v, m.kv_inds, m.kv_nb)

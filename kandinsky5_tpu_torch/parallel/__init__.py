@@ -1,11 +1,13 @@
-"""The port's mesh: the DiT's tensor-parallel plan (:mod:`.sharding`) and
-the rank processes with their tp and dp groups (:mod:`.ranks`)."""
+"""The port's mesh: the DiT's (dp, sp, tp) plan (:mod:`.sharding`) and
+the rank processes with their tp, sp and dp groups (:mod:`.ranks`)."""
 
 from kandinsky5_tpu_torch.parallel.ranks import (
     DataParallel,
     RankMesh,
+    SequenceParallel,
     TensorParallel,
     launch,
 )
 
-__all__ = ["DataParallel", "RankMesh", "TensorParallel", "launch"]
+__all__ = ["DataParallel", "RankMesh", "SequenceParallel", "TensorParallel",
+           "launch"]

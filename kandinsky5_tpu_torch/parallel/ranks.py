@@ -1,18 +1,19 @@
-"""Rank processes of a (dp, 1, tp) mesh: :class:`TensorParallel`,
-:class:`DataParallel`, the rank's place :class:`RankMesh`, and
-:func:`launch`.
+"""Rank processes of a (dp, sp, tp) mesh: :class:`TensorParallel`,
+:class:`SequenceParallel`, :class:`DataParallel`, the rank's place
+:class:`RankMesh`, and :func:`launch`.
 
 The JAX package runs one controller over a device mesh and keeps the mesh
 in a module global (``parallel/sharding.py`` ``_ACTIVE_MESH``). PyTorch runs
 one process per rank, as the reference does under torchrun; here each rank
-gets a :class:`RankMesh` holding its tensor-parallel and data-parallel
-groups, which the caller passes to the model, sampler or pipeline it
-builds. No module global holds it.
+gets a :class:`RankMesh` holding its tensor-parallel, sequence-parallel
+and data-parallel groups, which the caller passes to the model, sampler or
+pipeline it builds. No module global holds it.
 
 The layout is the device order of JAX's ``make_mesh``: the ranks reshaped
-to (dp, sp, tp) with sp = 1, so rank r has dp index r // tp and tp index
-r % tp (:func:`rank_grid`). The tp groups are contiguous ranks (with NCCL
-they stay inside a node); a dp group holds the ranks of one tp index.
+to (dp, sp, tp), so rank r has dp index r // (sp tp), sp index (r // tp) %
+sp and tp index r % tp (:func:`rank_grid`). The tp groups are contiguous
+ranks (with NCCL they stay inside a node); an sp group holds the ranks of
+one (dp, tp) index, at stride tp; a dp group those of one (sp, tp) index.
 
 The backend is the caller's explicit choice and nothing switches it:
 ``"nccl"`` for one GPU per rank, ``"gloo"`` for ranks that share one card
@@ -100,15 +101,15 @@ class RankGroup:
         self._count(t, x)
         return x
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` (all of one shape), concatenated along dim 0
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` (all of one shape), concatenated along ``dim``
         in group order, on every rank, on ``x``'s device."""
         self._sync(x)
         t = time.perf_counter()
         src = self._staged(x)
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        out = torch.cat(parts).to(x.device)
+        out = torch.cat(parts, dim).to(x.device)
         self._sync(out)
         self._count(t, src, self.size)
         return out
@@ -142,22 +143,33 @@ class TensorParallel(RankGroup):
     all-reduce its row-parallel products (``models/nn.py``)."""
 
 
+class SequenceParallel(RankGroup):
+    """A sequence-parallel group: the ranks of one (dp, tp) index, each
+    holding a contiguous 1/sp of the visual tokens through the DiT's visual
+    blocks; they all-gather each self-attention's K and V along the
+    sequence (``all_gather(x, dim=1)``) and the blocks' output once at the
+    stack's exit (``models/dit.py``)."""
+
+
 class DataParallel(RankGroup):
-    """A data-parallel group: the ranks of one tp index, each computing its
-    block of the batch; the sampler all-gathers their predictions, the
-    trainer all-reduces their gradients (ZeRO-1: each keeps a slice of the
-    moments)."""
+    """A data-parallel group: the ranks of one (sp, tp) index, each
+    computing its block of the batch; the sampler all-gathers their
+    predictions, the trainer all-reduces their gradients (ZeRO-1: each keeps
+    a slice of the moments)."""
 
 
 class RankMesh(NamedTuple):
-    """One rank's place on the (dp, 1, tp) mesh: its data-parallel group,
-    its tensor-parallel group and the group of every rank (``world``: the
-    tiled decode splits its tiles over it, the noise is rank 0's of it).
-    A group of one rank has no process group."""
+    """One rank's place on the (dp, sp, tp) mesh: its data-parallel group,
+    its tensor-parallel group, the group of every rank (``world``: the
+    tiled decode splits its tiles over it, the noise is rank 0's of it) and
+    its sequence-parallel group (``sp``; None is a group of one, so that a
+    (dp, 1, tp) place is ``RankMesh(dp, tp, world)``). A group of one rank
+    has no process group."""
 
     dp: DataParallel
     tp: TensorParallel
     world: RankGroup
+    sp: Optional[SequenceParallel] = None
 
     @property
     def rank(self) -> int:
@@ -173,8 +185,9 @@ class RankMesh(NamedTuple):
 
     @property
     def shape(self):
-        """(dp, sp, tp), as JAX's ``mesh.shape``; sp is 1."""
-        return self.dp.size, 1, self.tp.size
+        """(dp, sp, tp), as JAX's ``mesh.shape``."""
+        return (self.dp.size, 1 if self.sp is None else self.sp.size,
+                self.tp.size)
 
 
 def as_mesh(place) -> RankMesh:
@@ -192,12 +205,13 @@ def as_mesh(place) -> RankMesh:
     return RankMesh(one, place, world)
 
 
-def rank_grid(world: int, dp: int = 1) -> np.ndarray:
-    """The ranks of a ``world``-rank launch laid out as the (dp, 1, tp)
-    mesh: JAX's ``make_mesh(world, dp)`` device order, tp = world / dp."""
-    if dp < 1 or world % dp:
-        raise ValueError(f"dp={dp} must divide {world} ranks")
-    return np.arange(world).reshape(dp, 1, world // dp)
+def rank_grid(world: int, dp: int = 1, sp: int = 1) -> np.ndarray:
+    """The ranks of a ``world``-rank launch laid out as the (dp, sp, tp)
+    mesh: JAX's ``make_mesh(world, dp, sp=sp)`` device order, tp = world /
+    (dp sp)."""
+    if dp < 1 or sp < 1 or world % (dp * sp):
+        raise ValueError(f"dp={dp} x sp={sp} must divide {world} ranks")
+    return np.arange(world).reshape(dp, sp, world // (dp * sp))
 
 
 def rank_device(device: str, rank: int, world: int, backend: str):
@@ -216,28 +230,59 @@ def rank_device(device: str, rank: int, world: int, backend: str):
     return torch.device("cuda", rank % n)
 
 
-def _groups(world: int, dp: int, backend: str):
-    """Every tp group and every dp group of the (dp, 1, tp) mesh, as
-    (global ranks, process group), created on every rank in the same order
-    (``new_group`` is collective); a group of one has no process group, one
-    of every rank is the default group."""
-    grid = rank_grid(world, dp)[:, 0, :]
-    out = {"tp": [], "dp": []}
-    for kind, rows in (("tp", grid), ("dp", grid.T)):
-        for ranks in rows.tolist():
-            if len(ranks) == 1:
-                group = None
-            elif len(ranks) == world:
-                group = dist.group.WORLD
-            else:
-                group = dist.new_group(ranks, backend=backend)
-            out[kind].append((ranks, group))
-    return out
+def _group(ranks: List[int], backend: str):
+    """The process group of global ``ranks``, created on every rank
+    (``new_group`` is collective): None for one rank, the default group
+    for every rank in rank order."""
+    if len(ranks) == 1:
+        return None
+    if ranks == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    return dist.new_group(ranks, backend=backend)
 
 
-def _rank_main(fn, rank: int, world: int, dp: int, backend: str, device: str,
-               store_path: str, results, args) -> None:
+def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
+              device) -> Optional[RankMesh]:
+    """This process's :class:`RankMesh`, on ``device``, on the (dp, sp, tp)
+    mesh of the
+    global ``ranks`` laid out as :func:`rank_grid` lays out its indices
+    (``launch`` gives each rank the mesh of every rank; a caller may cut
+    a smaller mesh from some of them). Every rank of the default group
+    calls it, in the same order, since creating a group is collective; a
+    rank outside ``ranks`` gets None. A group's ranks run along its axis,
+    the other two indices fixed; the groups are created tp, then sp, then
+    dp, then the mesh's world."""
+    ranks = list(ranks)
+    grid = np.asarray(ranks)[rank_grid(len(ranks), dp, sp)]
+    me = dist.get_rank()
+    mine = {}
+    for kind, axis in (("tp", 2), ("sp", 1), ("dp", 0)):
+        for members in np.moveaxis(grid, axis, -1).reshape(
+                -1, grid.shape[axis]).tolist():
+            pg = _group(members, backend)
+            if me in members:
+                mine[kind] = (members, pg)
+    world = _group(ranks, backend)
+    if me not in ranks:
+        return None
+    dev = torch.device(device)
+
+    def group(cls, kind):
+        members, pg = mine[kind]
+        return cls(pg, members.index(me), len(members), backend, dev,
+                   ranks=members)
+
+    return RankMesh(group(DataParallel, "dp"), group(TensorParallel, "tp"),
+                    RankGroup(world, ranks.index(me), len(ranks), backend,
+                              dev, ranks=ranks),
+                    group(SequenceParallel, "sp"))
+
+
+def _rank_main(call_path: str, rank: int, world: int, dp: int, sp: int,
+               backend: str, device: str, store_path: str, results) -> None:
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         dev = rank_device(device, rank, world, backend)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -245,15 +290,7 @@ def _rank_main(fn, rank: int, world: int, dp: int, backend: str, device: str,
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world)
         try:
-            groups = _groups(world, dp, backend)
-            tp_ranks, tp_group = groups["tp"][rank // (world // dp)]
-            dp_ranks, dp_group = groups["dp"][rank % (world // dp)]
-            mesh = RankMesh(
-                DataParallel(dp_group, dp_ranks.index(rank), len(dp_ranks),
-                             backend, dev, ranks=dp_ranks),
-                TensorParallel(tp_group, tp_ranks.index(rank), len(tp_ranks),
-                               backend, dev, ranks=tp_ranks),
-                RankGroup(dist.group.WORLD, rank, world, backend, dev))
+            mesh = rank_mesh(range(world), dp, sp, backend, dev)
             out = fn(mesh, *args)
         finally:
             dist.destroy_process_group()
@@ -265,28 +302,34 @@ def _rank_main(fn, rank: int, world: int, dp: int, backend: str, device: str,
 
 def launch(fn: Callable[..., Any], world: int, backend: str, device: str,
            args: Sequence = (), timeout: Optional[float] = 3600.0,
-           dp: int = 1) -> List[Any]:
+           dp: int = 1, sp: int = 1) -> List[Any]:
     """Run ``fn(mesh, *args)`` in ``world`` rank processes, ``mesh`` each
-    rank's :class:`RankMesh` on the (dp, 1, world / dp) mesh, and return
-    their results in rank order.
+    rank's :class:`RankMesh` on the (dp, sp, world / (dp sp)) mesh, and
+    return their results in rank order.
 
     ``fn`` is a module-level function (the ranks are started with the
     ``spawn`` method and import it); what it returns is pickled, so it
     should hold CPU tensors or plain values. Each call rendezvouses through
     a ``FileStore`` in a fresh temporary directory, so concurrent launches
-    never share a port or a file. ``device`` is ``"cpu"`` or ``"cuda"``
+    never share a port or a file; ``fn`` and ``args`` reach the ranks
+    through a file there, so that they start together (through the
+    spawn pipe the parent would wait on each rank in turn to import what
+    unpickling them needs). ``device`` is ``"cpu"`` or ``"cuda"``
     (rank r on card r mod the card count). A rank that raises or dies, or a
     run past ``timeout`` seconds, ends every rank and raises here."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    rank_grid(world, dp)
+    rank_grid(world, dp, sp)
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="k5_ranks_") as tmp:
         results = ctx.Queue()
+        call_path = os.path.join(tmp, "call.pkl")
+        with open(call_path, "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world, dp, backend, device,
-                                   os.path.join(tmp, "store"), results,
-                                   tuple(args)))
+                             args=(call_path, r, world, dp, sp, backend,
+                                   device, os.path.join(tmp, "store"),
+                                   results))
                  for r in range(world)]
         for p in procs:
             p.start()

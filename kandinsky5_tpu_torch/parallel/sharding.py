@@ -1,14 +1,16 @@
-"""The tensor-parallel plan of the DiT: which parameters each rank holds.
+"""The DiT's (dp, sp, tp) plan: which parameters each rank holds.
 
-Counterpart of ``kandinsky5_tpu/parallel/sharding.py`` on its tp axis. The
-reference shards the DiT with a DTensor plan over 1, 2 or 4 GPUs
-(``parallelize.py``; torchrun world size): head-sharded Q/K/V (column
-parallel), row-parallel attention and FF out layers, column-parallel FF in
-layer, replicated modulation, embeddings, text blocks and out layer. The
-JAX package's mesh adds a data axis (dp) and a sequence axis (sp). The
-port runs dp beside tp (``parallel/ranks.py`` ``RankMesh``: the sampler
-splits the batch, the tiled decode its tiles, the trainer its moments); a
-plan that asks for sp raises (ROADMAP.md, queue 1, item 7b).
+Counterpart of ``kandinsky5_tpu/parallel/sharding.py``. The reference
+shards the DiT with a DTensor plan over 1, 2 or 4 GPUs (``parallelize.py``;
+torchrun world size): head-sharded Q/K/V (column parallel), row-parallel
+attention and FF out layers, column-parallel FF in layer, replicated
+modulation, embeddings, text blocks and out layer. The JAX package's mesh
+adds a data axis (dp) and a sequence axis (sp), and :func:`plan_dit_mesh`
+takes for tp the largest device count that divides the heads, the rest
+for sp. The port runs all three (``parallel/ranks.py`` ``RankMesh``): a
+rank holds the tp share of its tp index, the same on every sp and dp rank;
+sp cuts the visual tokens inside the DiT (``models/dit.py``), dp the batch
+in the sampler, the tiles in the decode and the moments in the trainer.
 
 Specs are in the port's names and torch layouts: a linear weight is (out,
 in), so column parallel splits dim 0 and row parallel dim 1.
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from kandinsky5_tpu_torch.config import DiTParams
-from kandinsky5_tpu_torch.parallel.ranks import TensorParallel
+from kandinsky5_tpu_torch.parallel.ranks import RankMesh, as_mesh
 
 
 def plan_dit_mesh(n_devices: int, num_heads: int = 28,
@@ -40,14 +42,8 @@ def plan_dit_mesh(n_devices: int, num_heads: int = 28,
 
 
 def tp_width(plan: Tuple[int, int, int]) -> int:
-    """The tp width of a (dp, sp, tp) plan; the port runs dp and tp, so a
-    plan with sp > 1 raises."""
-    dp, sp, tp = plan
-    if sp != 1:
-        raise ValueError(
-            f"plan (dp, sp, tp) = {plan}: sequence parallelism (sp) is not "
-            "ported yet (ROADMAP.md, queue 1, item 7b)")
-    return tp
+    """The tp width of a (dp, sp, tp) plan: its tp."""
+    return plan[2]
 
 
 # split dim of each parameter under tp: 0 = column parallel (output rows),
@@ -136,13 +132,15 @@ def shard_dit_state_dict(state_dict: Mapping, rank: int,
 
 
 @torch.no_grad()
-def _local_dit(cfg: DiTParams, tp: TensorParallel, dtype, named_tensors):
-    """The rank-local DiT of ``tp.rank`` on ``tp.device``, filled with its
-    slice of each (name, full tensor) of ``named_tensors``."""
+def _local_dit(cfg: DiTParams, mesh: RankMesh, dtype, named_tensors):
+    """The rank-local DiT of ``mesh`` on its device: its tp index's slice
+    of each (name, full tensor) of ``named_tensors``, running its
+    collectives over the mesh's tp and sp groups."""
     from kandinsky5_tpu_torch.models.dit import DiffusionTransformer3D
 
-    tp_width(plan_dit_mesh(tp.size, cfg.num_heads))
-    local = DiffusionTransformer3D(cfg, device=tp.device, dtype=dtype, tp=tp)
+    tp = mesh.tp
+    local = DiffusionTransformer3D(cfg, device=tp.device, dtype=dtype, tp=tp,
+                                   sp=mesh.sp)
     own = dict(local.named_parameters())
     specs = dit_param_specs()
     for name, full in named_tensors:
@@ -150,25 +148,31 @@ def _local_dit(cfg: DiTParams, tp: TensorParallel, dtype, named_tensors):
     return local
 
 
-def shard_dit(model, tp: TensorParallel):
-    """The rank-local DiT of ``tp.rank``: num_heads / tp heads and ff_dim /
-    tp in the visual blocks, whole text blocks, holding its slice of
-    ``model``'s weights and running its collectives over ``tp``. It is
-    built on ``model``'s device, which must be ``tp.device`` (it raises
-    otherwise: a card's model is not moved to the CPU, nor the reverse). A
-    group of one rank holds the whole model: ``model`` itself."""
-    from kandinsky5_tpu_torch.models.dit import is_quantized
+def shard_dit(model, place):
+    """The rank-local DiT of ``place`` (a
+    :class:`~kandinsky5_tpu_torch.parallel.RankMesh`, or a bare
+    ``TensorParallel`` as a (1, 1, tp) mesh): num_heads / tp heads and
+    ff_dim / tp in the visual blocks, whole text blocks, holding its tp
+    index's slice of ``model``'s weights and running its collectives over
+    the tp group and, with sp > 1, its visual blocks on its 1/sp of the
+    tokens (``models/dit.py``). It is built on ``model``'s device, which
+    must be the rank's (it raises otherwise: a card's model is not moved to
+    the CPU, nor the reverse). A tp group of one rank holds the whole
+    model: ``model`` itself, or with sp > 1 a copy sharing its tensors."""
+    from kandinsky5_tpu_torch.models.dit import is_quantized, with_sp
 
+    mesh = as_mesh(place)
+    tp = mesh.tp
     if is_quantized(model):
         raise ValueError("W8A8 under tensor parallelism is not ported yet "
-                         "(ROADMAP.md, queue 1, item 7)")
+                         "(ROADMAP.md, queue 1, item 7c)")
     device = next(model.parameters()).device
     if device != tp.device:
         raise ValueError(f"the DiT is on {device} and rank {tp.rank}'s "
                          f"group on {tp.device}")
     if tp.size == 1:
-        return model
-    return _local_dit(model.cfg, tp, model.dtype,
+        return with_sp(model, mesh.sp)
+    return _local_dit(model.cfg, mesh, model.dtype,
                       ((n, p.detach()) for n, p in model.named_parameters()))
 
 
@@ -188,11 +192,12 @@ def seeded_parameters(cfg: DiTParams, device, dtype=torch.bfloat16,
         yield name, full.uniform_(-scale, scale, generator=gen)
 
 
-def fast_init_dit_shard(cfg: DiTParams, tp: TensorParallel,
-                        dtype=torch.bfloat16, seed: int = 0,
-                        scale: float = 0.02):
-    """The rank-local DiT of ``fast_init_dit_params(cfg, seed=seed,
-    scale=scale)``, drawn one parameter at a time on ``tp.device``: the rank
-    never holds the whole model."""
-    return _local_dit(cfg, tp, dtype,
-                      seeded_parameters(cfg, tp.device, dtype, seed, scale))
+def fast_init_dit_shard(cfg: DiTParams, place, dtype=torch.bfloat16,
+                        seed: int = 0, scale: float = 0.02):
+    """The rank-local DiT (as :func:`shard_dit` cuts it for ``place``) of
+    ``fast_init_dit_params(cfg, seed=seed, scale=scale)``, drawn one
+    parameter at a time on the rank's device: the rank never holds the
+    whole model."""
+    mesh = as_mesh(place)
+    return _local_dit(cfg, mesh, dtype, seeded_parameters(
+        cfg, mesh.tp.device, dtype, seed, scale))

@@ -19,9 +19,10 @@ decoder's convs that the TPU kernel admits W8A8, as the JAX package's
 ``KANDINSKY5_TPU_INT8_CONV`` does. ``tp`` (the rank's place: a
 :class:`~kandinsky5_tpu_torch.parallel.RankMesh`, or a bare
 :class:`~kandinsky5_tpu_torch.parallel.TensorParallel` as a (1, 1, tp)
-mesh) makes this one rank of a pipeline on a (dp, 1, tp) mesh (the JAX
+mesh) makes this one rank of a pipeline on a (dp, sp, tp) mesh (the JAX
 package's ``Kandinsky5T2VPipeline(mesh=)``): the DiT is the rank's tp
-share (a full DiT is sharded here), each DiT call's batch is split over dp
+share running its visual blocks on its 1/sp of the tokens (a full DiT is
+sharded here), each DiT call's batch is split over dp
 (the CFG pair and extra prompts; replicated where dp does not divide it),
 every rank runs the same Euler loop on rank 0's noise, and every rank
 decodes its share of the tiles (tiled by default, as the JAX package
@@ -43,8 +44,9 @@ each, a rerun resuming where a killed one stopped. A call runs under
 ``torch.no_grad()`` whatever thread makes it (grad mode is per thread).
 ``timings`` holds ``text_s`` (expansion and encode), ``denoise_s`` and
 ``decode_s`` of the last request (and ``start_step`` with a
-``checkpoint_path``; on a mesh the tp group's all-reduce and the dp
-group's gather seconds, calls and bytes, whether dp split the batch
+``checkpoint_path``; on a mesh the tp group's all-reduce, the sp group's
+gather and the dp group's gather seconds, calls and bytes, whether dp split
+the batch
 (``dp_split``) and the tiles this rank decoded (``decoded_tiles``)).
 :func:`get_T2V_pipeline` builds the whole pipeline from reference-layout
 checkpoints and a YAML (or the default configuration), as the JAX
@@ -88,6 +90,12 @@ SCHEDULER_SCALE = 10.0
 ATTN_IMPLS = ("auto", "flash", "dense", "flash_int8", "flash_int8_pipe")
 
 
+def _multi(group):
+    """``group`` where it spans more than one rank, else None (as a model
+    holds its groups)."""
+    return group if group is not None and group.size > 1 else None
+
+
 class Kandinsky5T2VPipeline:
     def __init__(self, dit, conf: Config, text_embedder=None, vae=None,
                  attn_impl: str = "auto", int8_linear: bool = False,
@@ -103,11 +111,12 @@ class Kandinsky5T2VPipeline:
             from kandinsky5_tpu_torch.parallel.ranks import as_mesh
 
             mesh = as_mesh(tp)
-            if dit.tp is None:
+            if dit.tp is None and dit.sp is None:
                 from kandinsky5_tpu_torch.parallel.sharding import shard_dit
 
-                dit = shard_dit(dit, mesh.tp)
-            elif dit.tp is not mesh.tp:
+                dit = shard_dit(dit, mesh)
+            elif (dit.tp is not _multi(mesh.tp)
+                  or dit.sp is not _multi(mesh.sp)):
                 raise ValueError("the DiT is sharded for another group")
             if mesh.size == 1:
                 mesh = None
@@ -133,6 +142,7 @@ class Kandinsky5T2VPipeline:
         self.vae = vae
         self.mesh = mesh
         self.tp = dit.tp if dit is not None else None  # None for one rank
+        self.sp = dit.sp if dit is not None else None
         self.dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
         self.decode_mode = decode_mode or ("stream" if mesh is None
                                            else "tiled")
@@ -267,7 +277,7 @@ class Kandinsky5T2VPipeline:
         magcache = self.conf.magcache if self.magcache else None
         resume = {}
         with self._staged("dit"):
-            for group in (self.tp, self.dp):
+            for group in (self.tp, self.sp, self.dp):
                 if group is not None:
                     group.reset_stats()
             with timer.stage("denoise_s"):
@@ -290,6 +300,10 @@ class Kandinsky5T2VPipeline:
             self.timings.update(all_reduce_s=self.tp.seconds,
                                 all_reduce_calls=self.tp.calls,
                                 all_reduce_bytes=self.tp.bytes)
+        if self.sp is not None:
+            self.timings.update(sp_gather_s=self.sp.seconds,
+                                sp_gather_calls=self.sp.calls,
+                                sp_gather_bytes=self.sp.bytes)
         if self.dp is not None:
             self.timings.update(gather_s=self.dp.seconds,
                                 gather_calls=self.dp.calls,
@@ -374,8 +388,9 @@ def get_T2V_pipeline(
     schedule. ``tp`` is this rank's place: a
     :class:`~kandinsky5_tpu_torch.parallel.RankMesh` or a bare
     :class:`~kandinsky5_tpu_torch.parallel.TensorParallel` (each rank calls
-    this; the DiT is sharded over the tp group, every rank holds the VAE
-    and decodes its share of the tiles). ``int8_linear`` quantizes the
+    this; the DiT is sharded over the tp group and runs its visual blocks
+    over the sp group, every rank holds the VAE and decodes its share of
+    the tiles). ``int8_linear`` quantizes the
     visual blocks' projections to W8A8, ``int8_expand`` runs prompt
     expansion on int8 decode weights: both arguments, where the JAX package
     reads environment flags."""

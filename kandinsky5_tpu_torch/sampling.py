@@ -24,7 +24,10 @@ the CFG velocity on the whole batch and takes the same Euler step. Where
 dp does not divide a call's batch, every rank runs it whole (replicated),
 as the JAX package's shard_map bodies do. Under MagCache a rank takes its
 items' columns of the skip schedule and carries its items' rows of the
-residual. The noise is rank 0's on every rank of the mesh.
+residual. Sequence parallelism runs inside the DiT (``models/dit.py``
+gathers the visual blocks' output over sp), so a call's prediction is
+whole on every rank and the sampler is the same on a (dp, sp, tp) mesh.
+The noise is rank 0's on every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -355,19 +358,22 @@ def generate_latents(model, spec: DenoiseSpec, shape, cond: dict,
     when ``magcache`` carries ratios. The noise is standard normal fp32 from
     ``generator`` (or one seeded with ``seed``) on the model's device; torch
     and JAX generators differ, so parity tests pass ``noise`` explicitly.
-    On a mesh (the model's tp group, ``dp``) every rank integrates rank 0's
-    noise, broadcast over tp and then over dp, whatever seed the others
-    were given; the MagCache schedule is the same host array on every
-    rank."""
+    On a mesh (the model's tp and sp groups, ``dp``) every rank integrates
+    rank 0's noise, broadcast over tp, then over sp, then over dp, whatever
+    seed the others were given; the MagCache schedule is the same host
+    array on every rank."""
     device = next(model.parameters()).device
     if noise is None:
         noise = seeded_noise(model, shape, seed, generator)
     noise = noise.to(device=device, dtype=torch.float32).contiguous()
+    # each group's rank 0 holds, after the broadcasts before it, the noise
+    # of the rank with every earlier index 0: (d, s, 0), then (d, 0, t),
+    # then (0, s, t) all hold rank 0's
     if model.tp is not None:
         noise = model.tp.broadcast(noise, src=0)
+    if model.sp is not None:
+        noise = model.sp.broadcast(noise, src=0)
     if _dp(dp) is not None:
-        # the dp group of tp index j has rank j first, which now holds rank
-        # 0's noise
         noise = dp.broadcast(noise, src=0)
     return denoise(model, spec, noise, cond, uncond,
                    skip=skip_schedule(spec, magcache), on_step=on_step,

@@ -127,8 +127,19 @@ def trained_params(model: torch.nn.Module) -> List[torch.Tensor]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
+def _no_sp(model: DiffusionTransformer3D, mesh=None) -> None:
+    """Raise for a model, or a mesh, with sp > 1."""
+    if model.sp is not None or (mesh is not None and mesh.shape[1] > 1):
+        raise ValueError(
+            "training under sequence parallelism is not ported yet: the "
+            "sequence gathers have no backward (ROADMAP.md, queue 1, item "
+            "7e)")
+
+
 def init_train_state(model: DiffusionTransformer3D,
                      optimizer: AdamW) -> TrainState:
+    """A fresh state of ``model`` (which must not run over sp)."""
+    _no_sp(model)
     return TrainState(model, optimizer.init(trained_params(model)), 0)
 
 
@@ -229,7 +240,9 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
     from kandinsky5_tpu_torch.parallel.ranks import as_mesh
     from kandinsky5_tpu_torch.parallel.sharding import split_dim
 
-    dp = as_mesh(mesh).dp
+    mesh = as_mesh(mesh)
+    _no_sp(state.model, mesh)
+    dp = mesh.dp
     if dp.size == 1:
         return state
     if state.dp is not None:

@@ -109,9 +109,9 @@ def resumable_generate(
     the run early; the state file then holds what a rerun resumes from.
     ``report``, when given, receives ``start_step``: the step the run began
     at (0, or where a saved state left off)."""
-    if model.tp is not None:
-        raise ValueError("resumable generation under tensor parallelism is "
-                         "not ported yet (ROADMAP.md, queue 1, item 7d)")
+    if model.tp is not None or model.sp is not None:
+        raise ValueError("resumable generation on a mesh is not ported yet "
+                         "(ROADMAP.md, queue 1, item 7d)")
     skip = skip_schedule(spec, magcache)
     fp = _fingerprint(spec, shape, seed, cond, uncond, skip)
     ts = timestep_grid(spec.num_steps, spec.scheduler_scale)

@@ -271,3 +271,23 @@ def test_entry_points_raise_for_what_the_port_lacks(ckpt, monkeypatch,
         from kandinsky5_tpu_torch.cli import main
 
         main(["--width", "768", "--height", "768"])
+
+
+def test_cli_tp8_launches_the_jax_plan(monkeypatch):
+    """``--tp 8`` launches 8 ranks on the mesh JAX's ``get_T2V_pipeline(tp=8)``
+    plans for the default configuration's 28 heads: (dp, sp, tp) = (1, 2,
+    4). The launch is recorded, not run."""
+    from kandinsky5_tpu_torch import cli, parallel
+
+    calls = []
+
+    def fake_launch(fn, world, backend, device, args=(), dp=1, sp=1, **kw):
+        calls.append(dict(fn=fn, world=world, backend=backend,
+                          device=device, dp=dp, sp=sp))
+        return ["written.mp4"] + [None] * (world - 1)
+
+    monkeypatch.setattr(parallel, "launch", fake_launch)
+    assert cli.main(["--tp", "8", "--device", "cpu"]) == "written.mp4"
+    assert calls == [dict(fn=cli.generate, world=8, backend="gloo",
+                          device="cpu", dp=1, sp=2)]
+    assert cli.mesh_plan(cli.parse_args(["--tp", "8"])) == (1, 2, 4)

@@ -167,22 +167,50 @@ def test_plan_dit_mesh_matches_jax(n):
 
 
 def test_tp_dit_from_sp_or_dp_plan_raises():
-    """8 devices plan (1, 2, 4): a tp DiT built for them raises and names
-    ROADMAP's item 7b, as does any plan with sp; dp plans pass (the port
-    runs dp beside tp), as does tp alone; 6 devices over dp 2 plan (2, 3,
-    1)."""
-    for n, dp in ((8, 1), (3, 1), (6, 2)):
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 1, item 7b"):
-            tp_width(plan_dit_mesh(n, num_heads=28, dp=dp))
+    """The plans that put the rest of the devices on sp build rank DiTs:
+    8 devices (1, 2, 4), 3 devices (1, 3, 1), 6 over dp 2 (2, 3, 1); each
+    rank holds its tp index's heads and FF share and runs its visual blocks
+    over its sp group. A tp group that does not divide the heads still
+    raises, saying that sp is how such a device count runs."""
+    from kandinsky5_tpu_torch.models.dit import DiffusionTransformer3D
+    from kandinsky5_tpu_torch.parallel import SequenceParallel
+    from kandinsky5_tpu_torch.parallel.ranks import (
+        DataParallel,
+        RankGroup,
+        RankMesh,
+    )
+
+    cfg28 = DiTParams(model_dim=1792, ff_dim=512, num_text_blocks=1,
+                      num_visual_blocks=1, time_dim=32, in_text_dim=32,
+                      in_text_dim2=16)
+    assert cfg28.num_heads == 28
+    with torch.device("meta"):
+        full = DiffusionTransformer3D(cfg28, dtype=torch.bfloat16)
+    for n, dp, want in ((8, 1, (1, 2, 4)), (3, 1, (1, 3, 1)),
+                        (6, 2, (2, 3, 1))):
+        plan = plan_dit_mesh(n, num_heads=28, dp=dp)
+        assert plan == want and tp_width(plan) == want[2]
+        _, sp, tp = plan
+        for rank in range(n):
+            mesh = RankMesh(
+                DataParallel(None, rank // (sp * tp), dp, "gloo", "meta"),
+                TensorParallel(None, rank % tp, tp, "gloo", "meta"),
+                RankGroup(None, rank, n, "gloo", "meta"),
+                SequenceParallel(None, (rank // tp) % sp, sp, "gloo", "meta"))
+            local = shard_dit(full, mesh)
+            blk = local.visual_transformer_blocks[0]
+            assert blk.self_attention.to_query.weight.shape[0] == 1792 // tp
+            assert blk.feed_forward.in_layer.weight.shape[0] == 512 // tp
+            assert local.sp is mesh.sp and (local.tp is None) == (tp == 1)
     assert tp_width(plan_dit_mesh(4, num_heads=28)) == 4
     assert tp_width(plan_dit_mesh(4, num_heads=28, dp=2)) == 2
     assert tp_width(plan_dit_mesh(2, num_heads=28, dp=2)) == 1
-    # a tiny DiT of 8 heads over 3 ranks plans (1, 3, 1)
+    # a tiny DiT of 2 heads over a tp group of 3
     cfg = DiTParams(model_dim=128, ff_dim=256, num_text_blocks=1,
                     num_visual_blocks=1, axes_dims=(8, 4, 4), time_dim=32,
                     in_text_dim=32, in_text_dim2=16)
     model = fast_init_dit_params(cfg, device="cpu", dtype=torch.float32)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sequence axis"):
         shard_dit(model, TensorParallel(None, 0, 3, "gloo", "cpu"))
 
 
