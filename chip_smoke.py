@@ -23,6 +23,8 @@
                                              # built models
     python3 chip_smoke.py --dp               # phases 5a and 5b alone
     python3 chip_smoke.py --sp               # phase 5c alone
+    python3 chip_smoke.py --int8-mesh        # phase 2's K5/K7 rank cases
+                                             # and phase 5d alone
     python3 chip_smoke.py --load             # phase 8 alone, on a freshly
                                              # built DiT and VAE
 
@@ -62,8 +64,11 @@ Phases, each of which must pass (any failure exits nonzero):
                ~90 % kept, and on the second sp rank's 732 rows of 7 heads'
                lists over the whole K/V (control: the first rows' lists),
                beside flex_attention; K5 and K7 at K1's four main-path
-               shapes on one shared pack_int8 call, K7 bit-equal to K5,
-               K5's error against K1 printed as the quantization error), the
+               shapes and at a (1, 2, 4) rank's (the second sp rank's
+               23,808 queries of 7 heads against the 47,616 gathered keys;
+               control: Q and K packed from the rank's shard alone) on one
+               shared pack_int8 call, K7 bit-equal to K5, K5's error against
+               K1 printed as the quantization error, SDPA's time beside), the
                tools kernels T5 (its four modes at the 5 s shape) and T1 (int8
                exact, bf16, at 8192^3, the DiT's projection shapes and two
                ragged shapes, with a control: the last k step left out), K8
@@ -92,7 +97,9 @@ Phases, each of which must pass (any failure exits nonzero):
                cropped hidden states and its prefill logits within
                TEXT_BOUND, CLIP's pooled vector within CLIP_BOUND, with two
                controls that must fail them (the crop one position early,
-               CLIP pooled at the last position);
+               CLIP pooled at the last position); the Qwen tower's hidden
+               states, 8 greedy tokens and 4 on its int8 decode tree, with
+               each step's top-2 logit margin, saved for phase 5d;
   4. pipeline — ``Kandinsky5T2VPipeline`` with the full 2B DiT (uniform
                +-0.02 weights from a seed), the full VAE decoder and the
                text stage for real: the full-size Qwen2.5-VL-7B (bf16) and
@@ -135,16 +142,16 @@ Phases, each of which must pass (any failure exits nonzero):
                depth at the 5 s shape (47,616 tokens, seeded +-0.02
                weights, each rank drawing its share one parameter at a
                time) on one device, then as tp = 2, and as tp = 4 cut to
-               TP4_BLOCKS (8) visual blocks against one device's forward at
+               TP4_BLOCKS (4) visual blocks against one device's forward at
                that depth, each rank held against it (TP_BOUND, relative
                L2) with exact launch counts (K8 and K1 one a visual block,
                K1 one a text block, K2 0); in the tp = 4 launch two
                controls must fail the bound (each rank keeps its FF
                partial sum; the out layers' bias added on every rank). Then the tp = 2 pipeline answers
-               the 5 s path's image request with 16 steps and its video
-               request with TP_VIDEO_STEPS (2; cut from 16 so that phase 7
-               fits the smoke's time) on phase 4's text embeddings and
-               expansion (replayed from ``--out``), every rank decoding
+               the 5 s path's video request with TP_VIDEO_STEPS (2; cut
+               from 16 so that phase 7 fits the smoke's time; its image
+               request left for phase 5d's) on phase 4's text embeddings
+               (replayed from ``--out``), every rank decoding
                its share of the tiles and rank 0 blending and writing, its
                frames against the single-process tiled decode of the same
                latents (FRAME_LEVELS, FRAME_SHARE), K3 and K4 summed over
@@ -187,13 +194,39 @@ Phases, each of which must pass (any failure exits nonzero):
                fail TP_BOUND (ranks that skip the K/V all-gather, every rank
                taking RoPE rows from 0, on NABLA every rank taking STA rows
                from 0, on a mask of STA alone whose sound run is held too);
-               the pipeline answers phase 4's image request (16
-               steps) on the replayed text, rank 0's frames against the
+               the pipeline answers phase 4's image request
+               (SP_IMAGE_STEPS, 4 of its 16 steps: 5d's int8 image runs
+               all 16) on the replayed text, rank 0's frames against the
                single-process tiled decode of its latents (FRAME_LEVELS,
-               FRAME_SHARE), PSNR against phase 4's image recorded. Per
+               FRAME_SHARE). Per
                rank: s a forward, tp all-reduce s, sp gather s and bytes,
                peak GiB (8 ranks time-sharing one card: not a multi-GPU
                number);
+  5d. int8 on the mesh — in 5c's launch, on its 8 ranks: a row-parallel
+               (7,168 -> 1,792) and a column-parallel (1,792 -> 7,168) W8A8
+               linear at a rank's 23,808 rows bit-equal to one device's,
+               with three faults that must break the equality (a rank's own
+               activation scale, a weight scale from the rank's slice, the
+               bias added on every rank); the int8 forward (flash_int8 and
+               W8A8, each rank quantizing its own slices) at full width and
+               47,616 tokens cut to INT8_BLOCKS (2 text, 8 visual) within
+               one device's own int8 error (its int8 forward against its
+               bf16 one) of one device's int8 forward, K5 10 launches a
+               rank and K1, K8, K2 none; the pipeline with
+               ``int8_linear=True, attn_impl="flash_int8"`` answers phase
+               4's image request (16 steps), K5 34 x 16 a rank and K1, K2,
+               K8 none, its split decode's launches and rank 0's frames as
+               5c's, PSNR against one device's int8 image printed;
+               Qwen2.5-VL-7B at full width with 2 layers, bf16, each rank
+               drawing its 1/8 (``text/qwen.py`` ``init_qwen_shard_random``,
+               sharded over the 8 sp x tp ranks): hidden states and prefill
+               logits within TEXT_BOUND of phase 3's one-device run, the
+               greedy tokens (and the int8 decode tree's) equal to its up to
+               the first step whose top-2 margin is below the measured logit
+               error; control: o_proj's sum skipped must fail TEXT_BOUND.
+               Per rank and part: seconds, the all-reduces' seconds and
+               bytes by dtype (int32 beside bf16), sp gather seconds, peak
+               GiB;
   6. serving — on phase 4's DiT, VAE and towers (moved back to the card)
                under config_5s_sft.yaml (50 steps, guidance 5.0, its MagCache
                ratios): the 1 s video (25 frames, 10,752 tokens, batched CFG,
@@ -1286,15 +1319,27 @@ def sass_banned(lib: str, kernel: str) -> dict:
     return counts
 
 
-def phase_int8(dev, g, normed, results):
-    """K5 and K7 at K1's four main-path shapes, on one pack_int8 call
-    shared with their plain version (the sides differ only in exp2's last
-    bits and sum order), K7 held bit-equal to K5 and K5 against K1 (the quantization
-    error on this card); T5's four modes at the 5 s shape. The log gives,
-    beside the tensor-core bound, the achieved rate and K1's computed exp2
-    floor (one exp2 per query and valid key at 16 a clock per SM at the
-    highest SM clock), and phase 2 fails if an instance's SASS holds an
-    opcode of SASS_BANNED."""
+# K5 and K7's cases: (queries, keys, heads, masked); the last is a (1, 2, 4)
+# rank's, as phase 5d runs it: the second sp rank's 23,808 queries (rows
+# 23,808 on) of its 7 heads against the 47,616 gathered keys
+INT8_CASES = ((47616, 47616, 28, False), (10752, 10752, 28, False),
+              (1536, 1536, 28, False), (256, 256, 28, True),
+              (23808, 47616, 7, False))
+INT8_RANK_CASE = INT8_CASES[-1]
+
+
+def phase_int8(dev, g, normed, results, cases=INT8_CASES, t5=True):
+    """K5 and K7 at K1's four main-path shapes and at a (1, 2, 4) rank's
+    (INT8_RANK_CASE), on one pack_int8 call shared with their plain version
+    (the sides differ only in exp2's last bits and sum order), K7 held
+    bit-equal to K5 and K5 against K1 (the quantization error on this
+    card); T5's four modes at the 5 s shape (``t5``). The control packs
+    uniform weights, and at the rank's shape Q and K from the rank's own
+    shard only (no gather): each must fail the bound. The log gives,
+    beside the tensor-core bound, the achieved rate, SDPA's time and K1's
+    computed exp2 floor (one exp2 per query and valid key at 16 a clock per
+    SM at the highest SM clock), and phase 2 fails if an instance's SASS
+    holds an opcode of SASS_BANNED."""
     import torch
 
     from kandinsky5_tpu_torch.ops import _kernels
@@ -1317,16 +1362,29 @@ def phase_int8(dev, g, normed, results):
                       f"{SASS_BANNED} in the SASS, got {sass}")
     exp2_rate = 16 * torch.cuda.get_device_properties(dev).multi_processor_count \
         * _max_sm_clock_hz()
-    for lq, masked in ((47616, False), (10752, False), (1536, False),
-                       (256, True)):
-        q, k = normed((1, lq, 28, 64)), normed((1, lq, 28, 64))
-        v = torch.randn((1, lq, 28, 64), generator=g, device=dev).bfloat16()
-        mask = (torch.arange(lq, device=dev) < 77)[None] if masked else None
-        n_keys = 77 if masked else lq
+    for lq, lk, h, masked in cases:
+        rank = lq != lk
+        q, k = normed((1, lk, h, 64)), normed((1, lk, h, 64))
+        v = torch.randn((1, lk, h, 64), generator=g, device=dev).bfloat16()
+        if rank:  # the second sp rank's queries against the gathered keys
+            q = q[:, lk - lq:].contiguous()
+        mask = (torch.arange(lk, device=dev) < 77)[None] if masked else None
+        n_keys = 77 if masked else lk
         q8, k8, coeff, shift = pack_int8(q, k)
-        pairs = 2.0 * lq * n_keys * 28 * 64
+        if rank:  # the control: Q and K packed from the rank's shard alone
+            own = [t[:, lk - lq:].contiguous() for t in (k, v)]
+            c8 = pack_int8(q, own[0])
+
+            def control():
+                return flash_int8_plain(c8[0], c8[1], own[1], c8[2], c8[3])
+        else:
+            def control():
+                return flash_int8_plain(q8 * 0, k8, v, coeff, shift, mask)
+        pairs = 2.0 * lq * n_keys * h * 64
         work = (pairs, _nbytes(q8, k8, v, coeff, mask, q), pairs)
-        shape = f"(1,{lq},28,64){' mask' if masked else ''}"
+        shape = (f"(1,{lq},{h},64)" if not rank else
+                 f"(1,{lq}/{lk},{h},64) sp rank 1") + (" mask" if masked
+                                                      else "")
         sdpa = _sdpa(q, k, v, None if mask is None else mask[:, None, None, :])
         outs = {}
         for name, pipe in (("K5_flash_int8", False), ("K7_flash_int8_pipe", True)):
@@ -1337,16 +1395,18 @@ def phase_int8(dev, g, normed, results):
             _compare(name, shape, kernel,
                      lambda: flash_int8_plain(q8, k8, v, coeff, shift, mask),
                      results, work, reps=3 if lq > 10000 else 20,
-                     control_fn=lambda: flash_int8_plain(q8 * 0, k8, v, coeff,
-                                                         shift, mask),
+                     control_fn=control,
+                     control_label=("Q and K packed from the rank's shard, "
+                                    "no gather") if rank else None,
                      yardstick_fn=sdpa)
             r = results[name][-1]
             r["tflops"] = 2 * pairs / r["ms"] / 1e9
-            floor = lq * n_keys * 28 / exp2_rate * 1e3
+            floor = lq * n_keys * h / exp2_rate * 1e3
             log(f"    {r['tflops']:.1f} TOP/s-equivalent "
                 f"({100 * r['bound_ms'] / r['ms']:.1f} % of the tensor-core "
-                f"bound); exp2 floor {floor:.3f} ms at the highest SM clock "
-                f"({100 * floor / r['ms']:.1f} %); "
+                f"bound {r['bound_ms']:.3f} ms); exp2 floor {floor:.3f} ms at "
+                f"the highest SM clock ({100 * floor / r['ms']:.1f} %); "
+                f"SDPA {r['yardstick_ms']:.3f} ms, "
                 f"{r['ms'] / r['yardstick_ms']:.2f}x the SDPA yardstick")
             if lq == 47616 and not pipe:
                 log("    under a steady run of K5: " + _clock_under(kernel))
@@ -1364,6 +1424,9 @@ def phase_int8(dev, g, normed, results):
         results["K5_flash_int8"][-1]["rel_l2_vs_k1"] = e_rel
         del q, k, v, q8, k8, coeff, outs
 
+    if not t5:
+        torch.cuda.empty_cache()
+        return
     q, k = normed((1, 47616, 28, 64)), normed((1, 47616, 28, 64))
     v = torch.randn((1, 47616, 28, 64), generator=g, device=dev).bfloat16()
     q8, k8, coeff, shift = pack_int8(q, k)
@@ -1833,7 +1896,7 @@ TEXT_BOUND = 2e-2
 CLIP_BOUND = 1e-4
 
 
-def phase_text(dev, conf):
+def phase_text(dev, conf, qwen_ref_path=None):
     """The text towers on the card against the same weights in fp32 on the
     CPU (plain PyTorch on both sides: no kernel is on this path): Qwen2.5-VL
     at full width (hidden 3584, 28 / 4 heads of 128, FF 18,944, vocab
@@ -1842,7 +1905,9 @@ def phase_text(dev, conf):
     tokenizers. Qwen's cropped hidden states over the valid positions and
     its prefill logits must agree within TEXT_BOUND, CLIP's pooled vector
     within CLIP_BOUND (relative L2); two controls must fail their bound:
-    the crop one position early, and CLIP pooled at the last position."""
+    the crop one position early, and CLIP pooled at the last position.
+    With ``qwen_ref_path`` the tower's one-device run that phase 5d holds
+    the sharded tower against is saved there (:func:`qwen_reference`)."""
     import torch
 
     from kandinsky5_tpu_torch.text.clip import clip_text_forward
@@ -1889,6 +1954,8 @@ def phase_text(dev, conf):
             bad.append(f"{kind}: the towers disagree with the CPU")
         if c_h < TEXT_BOUND or c_p < CLIP_BOUND:
             bad.append(f"{kind}: a control passed the bound")
+    if qwen_ref_path is not None:
+        qwen_reference(emb, qwen_ref_path)
     del emb, qwen_cpu, clip_cpu
     torch.cuda.empty_cache()
     if bad:
@@ -2534,9 +2601,10 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
 # seed of the tp forward's weights and inputs
 TP_SEED = 5
 TP_WORLDS = (2, 4)
-# the tp = 4 forward's visual blocks (tp = 2 runs all 32): cut from 32 to
-# pay for phase 5c, as PERF.md section 7 orders the cuts
-TP4_BLOCKS = 8
+# the tp = 4 forward's visual blocks (tp = 2 runs all 32): cut from 32 to 8
+# to pay for phase 5c and from 8 to 4 for phase 5d, as PERF.md section 7
+# orders the cuts (its bias control read 1.6e-2 at 8 blocks)
+TP4_BLOCKS = 4
 # the tp = 2 video request's steps (the image keeps the config's 16): the
 # smoke's time goes to phase 7 instead
 TP_VIDEO_STEPS = 2
@@ -2653,9 +2721,9 @@ def _tp_forward_rank(mesh, cfg_kw, controls, seed):
 
 
 def _tp_request_rank(mesh, seconds, out_dir):
-    """One rank of the tp = 2 pipeline answering the 5 s path's image and
-    video requests (prompts, seed, weights and VAE as phase 4's, and phase
-    4's text embeddings and expansion, replayed from ``out_dir``); each
+    """One rank of the tp = 2 pipeline answering the 5 s path's video
+    request (prompt, seed, weights and VAE as phase 4's, and phase 4's
+    text embeddings, replayed from ``out_dir``); each
     rank decodes its share of the tiles, rank 0 blends and writes, then
     holds its frames against the single-process tiled decode of the same
     latents (``_single_decodes``)."""
@@ -2678,9 +2746,9 @@ def _tp_request_rank(mesh, seconds, out_dir):
     pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
         os.path.join(out_dir, TEXT_FILE)), vae, tp=mesh)
     kept = _keep_latents(pipe, "tp2")
-    _, prompt, _, shape, _, _ = IMAGE_REQUEST
-    requests = [("tp2 image", prompt, 0, shape, "tp2_image.png", True, None),
-                _video("tp2", seconds, VIDEO_PROMPT) + (False,
+    # the image request left phase 5 for phase 5d's (5c's covers a mesh
+    # pipeline's image)
+    requests = [_video("tp2", seconds, VIDEO_PROMPT) + (False,
                                                         TP_VIDEO_STEPS)]
     report, frames, decoded = [], None, []
     _kernels.reset_launches()
@@ -2836,8 +2904,8 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
 
 def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     """(a) :func:`tp_forwards` at TP_SEED. (b) The tp = 2 pipeline answers
-    the 5 s path's image (the config's steps) and video (TP_VIDEO_STEPS
-    steps) requests, its decodes split over both ranks as the JAX factory
+    the 5 s path's video request (TP_VIDEO_STEPS steps), its decode split
+    over both ranks as the JAX factory
     splits them over every device of the pipeline: rank 0's frames against
     the single-process tiled decode of the same latents, K3 and K4 summed
     over the ranks equal to that decode's."""
@@ -2848,12 +2916,11 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
         raise Failure("; ".join(failed))
     n_text = conf5.model.dit_params.num_text_blocks
     n_vis = conf5.model.dit_params.num_visual_blocks
-    log(f"  tp 2 pipeline ({os.path.basename(CONF5)}): the image request "
-        f"({conf5.model.num_steps} steps) and the video request "
+    log(f"  tp 2 pipeline ({os.path.basename(CONF5)}): the video request "
         f"({TP_VIDEO_STEPS} steps), the tiles decoded over both ranks")
     res = launch(_tp_request_rank, 2, "gloo", "cuda",
                  args=(seconds5, out_dir), timeout=900)
-    steps = conf5.model.num_steps + TP_VIDEO_STEPS
+    steps = TP_VIDEO_STEPS
     want = {"K8_ff": n_vis * steps,
             "K1_flash_fixed": (n_text + n_vis) * steps, "K2_ff_mod": 0}
     bad = _decode_split_faults(res, res[0]["single_launches"])
@@ -3363,6 +3430,9 @@ def phase_dptp(dev, conf5):
 SP_PLAN = (1, 2, 4)
 # the 10 s NABLA forward's and the controls' depth: (text, visual) blocks
 SP_BLOCKS = (2, 4)
+# the image request's steps (cut from the config's 16 to pay for phase 5d,
+# whose int8 image request runs all 16 on the same mesh)
+SP_IMAGE_STEPS = 4
 # the controls a sound sp forward must not resemble (TP_BOUND): ranks that
 # attend only to their own shard's keys; every rank taking the first rows
 # of the RoPE tables; on NABLA every rank taking the first rows of STA
@@ -3454,8 +3524,8 @@ def _masks_kept(into: list):
         yield
 
 
-def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir):
-    """One rank of phase 5c (see :func:`phase_sp`)."""
+def _sp_part(mesh, cfg_kw, cut_kw, conf10_path, seed, refs, out_dir):
+    """One rank's phase 5c (see :func:`phase_sp`)."""
     import contextlib as ctx
     import hashlib
     from unittest import mock
@@ -3470,12 +3540,10 @@ def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir):
     from kandinsky5_tpu_torch.ops.nabla import record_density
     from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
     from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
-    from kandinsky5_tpu_torch.utils.metrics import psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tp, sp, dev = mesh.tp, mesh.sp, mesh.device
-    refs = torch.load(refs_path, mmap=True)
     patches = _sp_patches()
     out = {}
 
@@ -3565,7 +3633,7 @@ def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir):
     torch.cuda.synchronize()
     t = time.perf_counter()
     frames = pipe(prompt, time_length=tl, width=shape[3], height=shape[2],
-                  seed=42, expand_prompts=expand,
+                  seed=42, num_steps=SP_IMAGE_STEPS, expand_prompts=expand,
                   save_path=os.path.join(out_dir, "sp_image.png"))
     wall = time.perf_counter() - t
     tm = dict(pipe.timings)
@@ -3584,12 +3652,6 @@ def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir):
                     frames_ok=bool(frames.shape == shape
                                    and frames.dtype == np.uint8
                                    and float(frames.std()) > 0.0))
-        single = os.path.join(out_dir, IMAGE_REQUEST[4])
-        if os.path.isfile(single):
-            from PIL import Image
-
-            want = np.asarray(Image.open(single).convert("RGB"))[None, None]
-            line["psnr_vs_single_db"] = psnr(frames, want)
         out.update(_single_decodes(pipe, [(name, kept_latents["sp"],
                                            frames)]))
     elif frames is not None:
@@ -3598,8 +3660,282 @@ def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir):
     return out
 
 
-def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
-    """Phase 5c: 8 ranks on the (1, 2, 4) mesh sharing the card over gloo,
+def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir,
+             parts=("5c", "5d")):
+    """One rank of the (1, 2, 4) launch: phase 5c's part, then 5d's
+    (:func:`_int8_mesh_part`), those of ``parts``."""
+    import torch
+
+    refs = torch.load(refs_path, mmap=True)
+    out = {}
+    if "5c" in parts:
+        out.update(_sp_part(mesh, cfg_kw, cut_kw, conf10_path, seed, refs,
+                            out_dir))
+    if "5d" in parts:
+        torch.cuda.empty_cache()
+        out["5d"] = _int8_mesh_part(mesh, refs, out_dir)
+    return out
+
+
+# phase 5d: the int8 options on the (1, 2, 4) mesh, in 5c's launch.
+# The int8 forward's (text, visual) blocks: each of its 24 row-parallel
+# products all-reduces 23,808 x 1,792 int32 (171 MB, twice bf16's bytes)
+# over gloo, so it is cut from (2, 32)
+INT8_BLOCKS = (2, 8)
+# the W8A8 linears' rows (a rank's tokens) and widths (model, FF)
+I8_ROWS, I8_D, I8_FF = 23808, 1792, 7168
+I8_SEED = 9
+# the sharded Qwen's layers (of 28) and seed: phase 3's tower
+QWEN_LAYERS, QWEN_SEED = 2, 21
+QWEN_GREEDY, QWEN_INT8_TOKENS = 8, 4
+QWEN_REF = "qwen_reference.pt"
+I8_IMAGE = "int8_image.png"
+
+
+def qwen_greedy(model, ids, n: int):
+    """``n`` greedy tokens of ``model`` on the prompt ``ids`` (no EOS ends
+    them) and the fp32 logits each was picked from (the first: the
+    prefill's), on the CPU."""
+    from unittest import mock
+
+    from kandinsky5_tpu_torch.text import qwen as qwen_mod
+
+    seen = []
+    real = qwen_mod._pick_token
+
+    def pick(logits, *a, **kw):
+        seen.append(logits.float().cpu())
+        return real(logits, *a, **kw)
+
+    with mock.patch.object(qwen_mod, "_pick_token", pick):
+        tokens = qwen_mod.qwen_generate(model, ids, max_new_tokens=n,
+                                        eos_token_ids=())
+    return [int(t) for t in tokens], seen
+
+
+def _margins(seen) -> list:
+    """Each step's top-2 logit margin."""
+    out = []
+    for logits in seen:
+        top = logits.reshape(-1).topk(2).values
+        out.append(float(top[0] - top[1]))
+    return out
+
+
+def qwen_reference(emb, path: str) -> dict:
+    """The one-device run phase 5d holds the sharded Qwen against (phase 3's
+    2-layer tower in bf16 on the card, ``emb.qwen``), saved to ``path``:
+    the video template's prompt ids, its hidden states, QWEN_GREEDY greedy
+    tokens with the logits' top-2 margin at each (the first logits are the
+    prefill's), and the same for QWEN_INT8_TOKENS tokens of the int8 decode
+    tree."""
+    import torch
+
+    from kandinsky5_tpu_torch.text.qwen import (
+        quantize_qwen_decode_params,
+        qwen_hidden_states,
+    )
+
+    prompt = "a smoke-test video of a red fox running through snow"
+    ids, mask, crop = emb._qwen_tokenize([prompt], "video")
+    ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+    n = int(mask.sum())
+    hidden = qwen_hidden_states(emb.qwen, ids, mask).float().cpu()
+    greedy, seen = qwen_greedy(emb.qwen, ids[:, :n], QWEN_GREEDY)
+    int8, seen8 = qwen_greedy(quantize_qwen_decode_params(emb.qwen),
+                              ids[:, :n], QWEN_INT8_TOKENS)
+    ref = dict(ids=ids, mask=mask, crop=crop, n=n, hidden=hidden,
+               logits=seen[0], greedy=greedy, margins=_margins(seen),
+               logits8=seen8[0], int8=int8, margins8=_margins(seen8))
+    torch.save(ref, path)
+    log(f"  Qwen reference for phase 5d: {QWEN_GREEDY} greedy tokens, top-2 "
+        f"margins {[round(m, 4) for m in ref['margins']]}; int8 tree "
+        f"{[round(m, 4) for m in ref['margins8']]}")
+    return ref
+
+
+def _tokens_agree(got, want, margins, err) -> dict:
+    """Greedy tokens ``got`` against one device's ``want``, up to the first
+    step whose top-2 logit margin (one device's) is below ``err``, the
+    logit error measured at the prefill: there either token may win."""
+    first = next((i for i, m in enumerate(margins) if m < err), len(want))
+    return dict(equal_to=first, ok=list(got[:first]) == list(want[:first]),
+                all_equal=list(got) == list(want))
+
+
+def _int8_mesh_part(mesh, refs, out_dir):
+    """One rank's phase 5d (see :func:`phase_sp`): the W8A8 linears, the int8
+    forward, the int8 image request and the sharded Qwen, each part's
+    seconds, all-reduces (bytes by dtype), gathers and peak memory."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, DiTParams, load_config
+    from kandinsky5_tpu_torch.models import nn as port_nn
+    from kandinsky5_tpu_torch.models.dit import dit_forward
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+    from kandinsky5_tpu_torch.text.qwen import (
+        QwenTextConfig,
+        init_qwen_shard_random,
+        quantize_qwen_decode_params,
+        qwen_hidden_states,
+    )
+    from kandinsky5_tpu_torch.utils.metrics import psnr
+    from tests import _torch_int8_mesh_ranks as i8
+    from tests import _torch_qwen_tp_ranks as qtp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp, sp, dev = mesh.tp, mesh.sp, mesh.device
+    groups = (tp, sp, mesh.shard)
+    out = {}
+
+    def start():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for grp in groups:
+            grp.reset_stats()
+        _kernels.reset_launches()
+        return time.perf_counter()
+
+    def stats(t0, group=tp):
+        torch.cuda.synchronize()
+        return dict(seconds=time.perf_counter() - t0,
+                    all_reduce_s=group.seconds, all_reduce_calls=group.calls,
+                    all_reduce_bytes=dict(group.dtype_bytes),
+                    gather_s=sp.seconds, gather_bytes=sp.bytes,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    launches=dict(_kernels.LAUNCHES))
+
+    # 1. W8A8 linears at a rank's shapes against one device's _linear_i8
+    t = start()
+    g = torch.Generator(device=dev).manual_seed(I8_SEED)
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    with torch.no_grad():
+        x, w, b = draw(I8_ROWS, I8_FF), draw(I8_D, I8_FF, scale=0.02), \
+            draw(I8_D, scale=0.1)
+        one = port_nn.linear(port_nn.quantize_linear(
+            i8._linear(w, b, torch.bfloat16)), x)
+        row = {str(f): bool(torch.equal(i8.row_parallel_i8(w, b, x, tp, f),
+                                        one)) for f in (None,) + i8.FAULTS}
+        x, w, b = draw(I8_ROWS, I8_D), draw(I8_FF, I8_D, scale=0.02), \
+            draw(I8_FF, scale=0.1)
+        one = port_nn.linear(port_nn.quantize_linear(
+            i8._linear(w, b, torch.bfloat16)), x)
+        n = I8_FF // tp.size
+        col = bool(torch.equal(i8.column_parallel_i8(w, b, x, tp),
+                               one[:, tp.rank * n:(tp.rank + 1) * n]))
+    del x, w, b, one
+    out["linears"] = dict(stats(t), row=row, col=col)
+    torch.cuda.empty_cache()
+
+    # 2. the int8 forward (flash_int8 + W8A8), full width, INT8_BLOCKS deep
+    cut = DiTParams(**refs["int8_cfg"])
+    t = time.perf_counter()
+    model = fast_init_dit_shard(cut, mesh, seed=TP_SEED, int8_linear=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    args = tp_inputs(cut, dev, TP_SEED)
+    t = start()
+    y = dit_forward(model, *args, scale_factor=(1.0, 2.0, 2.0),
+                    attn_impl="flash_int8")
+    st = stats(t)
+    y = y.float().cpu()
+    ref = refs["int8"].float()
+    out["forward"] = dict(
+        st, build_s=build_s, rel_l2=_rel(y, ref), bound=refs["int8_bound"],
+        max_abs=(y - ref).abs().max().item(),
+        digest=hashlib.sha1(y.numpy().tobytes()).hexdigest(),
+        finite=bool(torch.isfinite(y).all()))
+    del model, y, args
+    torch.cuda.empty_cache()
+
+    # 3. the int8 image request through the pipeline's int8 options
+    conf = load_config(os.path.join(CONFIG_DIR, CONF5))
+    dit = fast_init_dit_shard(conf.model.dit_params, mesh, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                          seed=1))
+    pipe = Kandinsky5T2VPipeline(dit, conf, ReplayEmbedder(
+        os.path.join(out_dir, TEXT_FILE)), vae, tp=mesh,
+        attn_impl="flash_int8", int8_linear=True)
+    del dit
+    kept = _keep_latents(pipe, "int8")
+    name, prompt, tl, shape, _, expand = IMAGE_REQUEST
+    t = start()
+    frames = pipe(prompt, time_length=tl, width=shape[3], height=shape[2],
+                  seed=42, expand_prompts=expand)
+    st = stats(t)
+    tm = dict(pipe.timings)
+    line = dict(st, s_per_step=tm["denoise_s"] / tm["steps"],
+                steps=tm["steps"], decoded_tiles=tm["decoded_tiles"],
+                latents_finite=tm["latents_finite"], quantized=pipe.int8_linear)
+    if mesh.rank == 0:
+        line.update(frames_ok=bool(frames.shape == shape
+                                   and frames.dtype == np.uint8
+                                   and float(frames.std()) > 0.0))
+        single = os.path.join(out_dir, I8_IMAGE)
+        if os.path.isfile(single):
+            from PIL import Image
+
+            want = np.asarray(Image.open(single).convert("RGB"))[None, None]
+            line["psnr_vs_single_db"] = psnr(frames, want)
+        out.update(_single_decodes(pipe, [("int8 image", kept["int8"],
+                                           frames)]))
+    elif frames is not None:
+        raise Failure(f"rank {mesh.rank} returned frames")
+    out["image"] = line
+    del pipe, vae, kept
+    torch.cuda.empty_cache()
+
+    # 4. the sharded Qwen: 2 layers at full width, 1/8 a rank
+    qref = torch.load(os.path.join(out_dir, QWEN_REF))
+    qcfg = dataclasses.replace(QwenTextConfig(),
+                               num_hidden_layers=QWEN_LAYERS)
+    t = start()
+    local = init_qwen_shard_random(qcfg, mesh.shard, dtype=torch.bfloat16,
+                                   seed=QWEN_SEED)
+    ids, mask, crop, n = (qref[k] for k in ("ids", "mask", "crop", "n"))
+    valid = mask[:, crop:].bool()
+
+    def hidden_rel(model):
+        h = qwen_hidden_states(model, ids, mask).float().cpu()
+        return _rel(h[:, crop:][valid], qref["hidden"][:, crop:][valid])
+
+    e_h = hidden_rel(local)
+    greedy, seen = qwen_greedy(local, ids[:, :n], QWEN_GREEDY)
+    err = (seen[0] - qref["logits"]).abs().max().item()
+    local8 = quantize_qwen_decode_params(local)
+    int8, seen8 = qwen_greedy(local8, ids[:, :n], QWEN_INT8_TOKENS)
+    err8 = (seen8[0] - qref["logits8"]).abs().max().item()
+    with qtp.without_o_proj_sum(local):
+        c_h = hidden_rel(local)
+    out["qwen"] = dict(
+        stats(t, mesh.shard), hidden_rel_l2=e_h,
+        logits_rel_l2=_rel(seen[0], qref["logits"]), logits_max_abs=err,
+        greedy=_tokens_agree(greedy, qref["greedy"], qref["margins"], err),
+        int8_logits_rel_l2=_rel(seen8[0], qref["logits8"]),
+        int8=_tokens_agree(int8, qref["int8"], qref["margins8"], err8),
+        control_no_o_proj_sum_rel_l2=c_h,
+        weight_bytes=sum(v.numel() * v.element_size()
+                         for v in local.state_dict().values()))
+    del local, local8
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp(dev, conf5, conf10, out_dir: str, ref=None,
+             parts=("5c", "5d")):
+    """Phases 5c and 5d (those of ``parts``) in one launch. Phase 5c: 8
+    ranks on the (1, 2, 4) mesh sharing the card over gloo,
     the kernels built before any rank starts. (1) One DiT forward at full
     width and depth at the 5 s shape (TP_SEED's weights and inputs), every
     rank within TP_BOUND of one device's (``ref``, phase 5's; computed
@@ -3613,11 +3949,11 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
     run is held to TP_BOUND too), each of which must fail TP_BOUND; the cut
     model's attention is peaked and loud (SP_QK_NORM, SP_ATTN_GAIN) so that
     the controls can show. (3) The pipeline
-    answers phase 4's image request (16 steps) on the replayed text:
-    rank 0's frames against the single-process tiled decode of its latents
-    (FRAME_LEVELS, FRAME_SHARE), the decode's launches summed over the
-    ranks equal to it, exact K1/K8 launches per rank, and PSNR against
-    phase 4's single-device image (random weights: recorded, not gated).
+    answers phase 4's image request (SP_IMAGE_STEPS steps) on the replayed
+    text: rank 0's frames against the single-process tiled decode of its
+    latents (FRAME_LEVELS, FRAME_SHARE), the decode's launches summed over
+    the ranks equal to it, exact K1/K8 launches per rank.
+    Phase 5d (:func:`phase_int8_mesh` checks it) on the same ranks.
     Times are of 8 ranks time-sharing one card, never a multi-GPU
     figure."""
     import dataclasses
@@ -3634,27 +3970,33 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
                               num_text_blocks=SP_BLOCKS[0],
                               num_visual_blocks=SP_BLOCKS[1])
     t = time.perf_counter()
-    if ref is None:
-        ref = single_forward(cfg, dev, tp_inputs(cfg, dev, TP_SEED),
-                             TP_SEED, scale_factor=(1.0, 2.0, 2.0))[0]
-    dit = _peaked(fast_init_dit_params(cut, device=dev, seed=TP_SEED))
-    masks = []
-    nargs = tp_inputs(cut, dev, TP_SEED, frames=61, tiles=True)
-    sf = tuple(conf10.metrics.scale_factor)
-    with _masks_kept(masks):
-        nabla = dit_forward(dit, *nargs, scale_factor=sf,
-                            sparse=_sp_sparse(conf10, nargs[0], dev))
-    sta = dit_forward(dit, *nargs, scale_factor=sf, sparse=_sp_sparse(
-        conf10, nargs[0], dev, SP_STA_ONLY_P))
-    dense = dit_forward(dit, *tp_inputs(cut, dev, TP_SEED),
-                        scale_factor=(1.0, 2.0, 2.0))
+    refs = {}
+    if "5c" in parts:
+        if ref is None:
+            ref = single_forward(cfg, dev, tp_inputs(cfg, dev, TP_SEED),
+                                 TP_SEED, scale_factor=(1.0, 2.0, 2.0))[0]
+        dit = _peaked(fast_init_dit_params(cut, device=dev, seed=TP_SEED))
+        masks = []
+        nargs = tp_inputs(cut, dev, TP_SEED, frames=61, tiles=True)
+        sf = tuple(conf10.metrics.scale_factor)
+        with _masks_kept(masks):
+            nabla = dit_forward(dit, *nargs, scale_factor=sf,
+                                sparse=_sp_sparse(conf10, nargs[0], dev))
+        sta = dit_forward(dit, *nargs, scale_factor=sf, sparse=_sp_sparse(
+            conf10, nargs[0], dev, SP_STA_ONLY_P))
+        dense = dit_forward(dit, *tp_inputs(cut, dev, TP_SEED),
+                            scale_factor=(1.0, 2.0, 2.0))
+        refs.update({"forward": ref, "nabla": nabla.float().cpu(),
+                     "sta": sta.float().cpu(), "cut": dense.float().cpu(),
+                     "masks": masks})
+        del dit, nabla, sta, dense, masks, nargs
+    if "5d" in parts:
+        refs.update(int8_mesh_references(dev, conf5, out_dir))
     refs_path = os.path.join(out_dir, SP_REFS)
-    torch.save({"forward": ref, "nabla": nabla.float().cpu(),
-                "sta": sta.float().cpu(), "cut": dense.float().cpu(),
-                "masks": masks}, refs_path)
-    del dit, nabla, sta, dense, masks, nargs
+    torch.save(refs, refs_path)
+    del refs
     torch.cuda.empty_cache()
-    log(f"  one device: the cut forwards and masks in "
+    log(f"  one device: the references (cut forwards, masks, 5d) in "
         f"{time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -3662,11 +4004,22 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
     res = launch(_sp_rank, world, "gloo", "cuda",
                  args=(dataclasses.asdict(cfg), dataclasses.asdict(cut),
                        os.path.join(CONFIG_DIR, CONF10), TP_SEED, refs_path,
-                       out_dir),
+                       out_dir, parts),
                  timeout=1000, dp=SP_PLAN[0], sp=SP_PLAN[1])
     total = time.perf_counter() - t
     os.remove(refs_path)
+    log(f"  8 ranks: {total:.1f} s from launch to the last result")
     bad, report, launches = [], [], {}
+    if "5d" in parts:
+        d_launches, d_report, d_bad = phase_int8_mesh(
+            [r["5d"] for r in res], total, n_text + n_vis)
+        launches.update(d_launches)
+        report += d_report
+        bad += d_bad
+    if "5c" not in parts:
+        if bad:
+            raise Failure("phase 5d: " + "; ".join(bad))
+        return launches, report
     want = {"forward": {"K1_flash_fixed": n_text + n_vis, "K8_ff": n_vis,
                         "K2_ff_mod": 0},
             "nabla": {"K6_sparse_nabla": SP_BLOCKS[1],
@@ -3728,7 +4081,7 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
         if not fails:
             bad.append(f"control {name} passes the bound")
 
-    steps = conf5.model.num_steps
+    steps = SP_IMAGE_STEPS
     pwant = {"K8_ff": n_vis * steps, "K1_flash_fixed": (n_text + n_vis) * steps,
              "K2_ff_mod": 0}
     for name, m in res[0]["frames"].items():
@@ -3749,18 +4102,200 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None):
             f"{line['gather_s']:.3f} s in {line['gather_calls']} calls; "
             f"decoded {line['decoded_tiles']} tiles"
             + (f"; decode (tiled, split) {line['decode_s']:.3f} s, frames "
-               f"{line['frames']}, PSNR against phase 4's single-device "
-               f"image {line.get('psnr_vs_single_db', float('nan')):.2f} dB "
-               "(random weights: recorded, not gated)" if rank == 0 else ""))
+               f"{line['frames']}" if rank == 0 else ""))
         if not line["latents_finite"] or (rank == 0 and not line["frames_ok"]):
             bad.append(f"sp image rank {rank}: bad output")
         report.append(line)
     launches["sp-image"] = {k: sum(r["launches"][k] for r in res)
                             for k in res[0]["launches"]}
-    log(f"  8 ranks: {total:.1f} s from launch to the last result")
     if bad:
-        raise Failure("phase 5c: " + "; ".join(bad))
+        raise Failure("phases 5c-5d: " + "; ".join(bad))
     return launches, report
+
+
+def int8_mesh_references(dev, conf5, out_dir) -> dict:
+    """Phase 5d's one-device side, made in the parent before the ranks
+    start: the int8 forward (flash_int8 + W8A8, the whole model quantized)
+    at INT8_BLOCKS on TP_SEED's weights and inputs and its bound, its own
+    rel_l2 against the bf16 forward of the same model (the mesh's per-shard
+    quantization differs from one device's at int8 resolution, not more);
+    and the int8 image request on one device (I8_IMAGE, for the PSNR
+    printed beside the ranks')."""
+    import dataclasses
+
+    import torch
+
+    from kandinsky5_tpu_torch.models.dit import (
+        dit_forward,
+        fast_init_dit_params,
+        quantize_dit_params,
+    )
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.pipeline import Kandinsky5T2VPipeline
+
+    cut = dataclasses.replace(conf5.model.dit_params,
+                              num_text_blocks=INT8_BLOCKS[0],
+                              num_visual_blocks=INT8_BLOCKS[1])
+    dit = fast_init_dit_params(cut, device=dev, seed=TP_SEED)
+    args = tp_inputs(cut, dev, TP_SEED)
+    plain = dit_forward(dit, *args, scale_factor=(1.0, 2.0, 2.0)).float()
+    _kernels.reset_launches()
+    int8 = dit_forward(quantize_dit_params(dit), *args,
+                       scale_factor=(1.0, 2.0, 2.0),
+                       attn_impl="flash_int8").float()
+    launches = dict(_kernels.LAUNCHES)
+    bound = _rel(int8.cpu(), plain.cpu())
+    log(f"  5d one device: the int8 forward ({INT8_BLOCKS[0]} text, "
+        f"{INT8_BLOCKS[1]} visual blocks) against its bf16 forward: rel_l2 "
+        f"{bound:.3e}, the ranks' bound; K5 {launches['K5_flash_int8']}")
+    del dit, args, plain
+    dit = fast_init_dit_params(conf5.model.dit_params, device=dev, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=dev, dtype=torch.bfloat16,
+                                          seed=1))
+    pipe = Kandinsky5T2VPipeline(dit, conf5, ReplayEmbedder(
+        os.path.join(out_dir, TEXT_FILE)), vae, attn_impl="flash_int8",
+        int8_linear=True, decode_mode="tiled")
+    _, prompt, tl, shape, _, expand = IMAGE_REQUEST
+    pipe(prompt, time_length=tl, width=shape[3], height=shape[2], seed=42,
+         expand_prompts=expand, save_path=os.path.join(out_dir, I8_IMAGE))
+    del pipe, dit, vae
+    torch.cuda.empty_cache()
+    return {"int8": int8.cpu(), "int8_bound": bound,
+            "int8_cfg": dataclasses.asdict(cut)}
+
+
+def phase_int8_mesh(res, total: float, blocks: int):
+    """Phase 5d's readings from the 8 ranks' results ``res``: (1) a
+    row-parallel (7,168 -> 1,792) and a column-parallel (1,792 -> 7,168)
+    W8A8 linear at a rank's 23,808 rows bit-equal to one device's
+    ``_linear_i8``, each fault (a rank's own activation scale, a weight
+    scale from the rank's slice, the bias on every rank) unequal; (2) the
+    int8 forward (flash_int8 + W8A8, the rank-local quantization) at full
+    width and 47,616 tokens, INT8_BLOCKS deep, within the one device's own
+    int8 error of its int8 forward, K5 2 + 8 launches a rank, K1, K8, K2
+    none; (3) the int8 image request through the pipeline (16 steps),
+    exact K5 ``blocks`` (34) x 16 launches a rank with K1, K2, K8 none, the
+    decode's launches summed over the ranks equal to the single-process decode's,
+    rank 0's frames against it; PSNR against one device's int8 image
+    printed (random weights: not gated); (4) Qwen2.5-VL-7B at full width
+    with QWEN_LAYERS layers, bf16, each rank holding its 1/8: the hidden
+    states and prefill logits within TEXT_BOUND of phase 3's one-device
+    card run, QWEN_GREEDY greedy tokens (QWEN_INT8_TOKENS on the int8
+    decode tree) equal to one device's up to the first step whose top-2
+    margin is below the measured logit error; control: o_proj's sum
+    skipped must fail TEXT_BOUND. Returns (launches, report, faults)."""
+    bad, report, launches = [], [], {}
+    n_text, n_vis = INT8_BLOCKS
+    for rank, r in enumerate(res):
+        lin = r["linears"]
+        log(f"  5d linears rank {rank}: row parallel bit-equal "
+            f"{lin['row']['None']}, faults "
+            + ", ".join(f"{f} {'unequal' if not lin['row'][f] else 'EQUAL'}"
+                        for f in ("rank_sx", "slice_w_scale",
+                                  "bias_on_every_rank"))
+            + f"; column parallel bit-equal {lin['col']}; "
+            f"{lin['seconds']:.2f} s, all-reduce {lin['all_reduce_bytes']}")
+        if not (lin["row"]["None"] and lin["col"]) or any(
+                lin["row"][f] for f in lin["row"] if f != "None"):
+            bad.append(f"5d linears rank {rank}: {lin['row']} {lin['col']}")
+    bound = None
+    want = {"K5_flash_int8": n_text + n_vis, "K1_flash_fixed": 0,
+            "K8_ff": 0, "K2_ff_mod": 0}
+    for rank, r in enumerate(res):
+        f = r["forward"]
+        bound = f.get("bound", bound)
+        wrong = {k: (f["launches"][k], n) for k, n in want.items()
+                 if f["launches"][k] != n}
+        log(f"  5d int8 forward rank {rank} ({n_vis} visual blocks): "
+            f"{f['seconds']:.3f} s (build {f['build_s']:.1f} s), tp "
+            f"all-reduce {f['all_reduce_s']:.3f} s in "
+            f"{f['all_reduce_calls']} calls {f['all_reduce_bytes']}, sp "
+            f"gather {f['gather_s']:.3f} s ({f['gather_bytes'] / 2**30:.2f}"
+            f" GiB), peak {f['peak_gib']:.2f} GiB; against one device's int8 "
+            f"forward: rel_l2 {f['rel_l2']:.3e} max_abs {f['max_abs']:.3e} "
+            f"(bound {f['bound']:.3e}); launches "
+            + " ".join(f"{k.split('_')[0]} {f['launches'][k]}" for k in want))
+        if (wrong or f["rel_l2"] > f["bound"] or not f["finite"]
+                or f["digest"] != res[0]["forward"]["digest"]):
+            bad.append(f"5d forward rank {rank}: rel_l2 {f['rel_l2']:.3e}, "
+                       f"launches (got, want) {wrong}, or unlike rank 0")
+    report.append(dict(request="int8 forward", launch_s=total,
+                       rel_l2=[r["forward"]["rel_l2"] for r in res],
+                       bound=bound,
+                       seconds=[r["forward"]["seconds"] for r in res],
+                       all_reduce_bytes=res[0]["forward"]["all_reduce_bytes"]))
+    launches["int8-forward"] = {k: sum(r["forward"]["launches"][k]
+                                       for r in res)
+                                for k in res[0]["forward"]["launches"]}
+
+    steps = res[0]["image"]["steps"]
+    want = {"K5_flash_int8": blocks * steps, "K1_flash_fixed": 0,
+            "K8_ff": 0, "K2_ff_mod": 0}
+    for name, m in res[0]["frames"].items():
+        log(f"  {name}: rank 0's frames against the single-process tiled "
+            f"decode of its latents: {m['max_levels']} levels at most, on "
+            f"{m['share']:.2e} of the values")
+    image = [r["image"] for r in res]
+    bad += _decode_split_faults([dict(i, frames=res[0]["frames"])
+                                 for i in image], res[0]["single_launches"],
+                                every_rank=False)
+    for rank, line in enumerate(image):
+        got = line["launches"]
+        wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if wrong:
+            bad.append(f"5d int8 image rank {rank}: launches (got, want) "
+                       f"{wrong}")
+        if not (line["latents_finite"] and line["quantized"]) or (
+                rank == 0 and not line["frames_ok"]):
+            bad.append(f"5d int8 image rank {rank}: bad output")
+        log(f"  5d int8 image rank {rank}: {line['s_per_step']:.4f} s/step "
+            f"({line['steps']} steps), {line['seconds']:.1f} s, tp "
+            f"all-reduce {line['all_reduce_s']:.3f} s in "
+            f"{line['all_reduce_calls']} calls {line['all_reduce_bytes']}, "
+            f"sp gather {line['gather_s']:.3f} s, peak {line['peak_gib']:.2f}"
+            f" GiB, decoded {line['decoded_tiles']} tiles; launches K5 "
+            f"{got['K5_flash_int8']} K1 {got['K1_flash_fixed']}"
+            + (f"; PSNR against one device's int8 image "
+               f"{line.get('psnr_vs_single_db', float('nan')):.2f} dB "
+               "(random weights: recorded, not gated)" if rank == 0 else ""))
+    report.append(dict(request="int8 image", launch_s=total,
+                       s_per_step=[i["s_per_step"] for i in image],
+                       psnr_vs_single_db=image[0].get("psnr_vs_single_db")))
+    launches["int8-image"] = {k: sum(i["launches"][k] for i in image)
+                              for k in image[0]["launches"]}
+
+    for rank, r in enumerate(res):
+        q = r["qwen"]
+        log(f"  5d sharded Qwen rank {rank}: {q['weight_bytes'] / 2**30:.3f} "
+            f"GiB of weights, {q['seconds']:.2f} s, collectives over the 8 "
+            f"ranks (sums and gathers) {q['all_reduce_s']:.3f} s in "
+            f"{q['all_reduce_calls']} calls {q['all_reduce_bytes']}, peak "
+            f"{q['peak_gib']:.2f} GiB; hidden "
+            f"rel_l2 {q['hidden_rel_l2']:.3e}, prefill logits "
+            f"{q['logits_rel_l2']:.3e} (max_abs {q['logits_max_abs']:.3e}; "
+            f"tol {TEXT_BOUND:g}), int8 tree's logits "
+            f"{q['int8_logits_rel_l2']:.3e}; greedy tokens equal to one "
+            f"device's through step {q['greedy']['equal_to']} of "
+            f"{QWEN_GREEDY} (all equal: {q['greedy']['all_equal']}), int8 "
+            f"through {q['int8']['equal_to']} of {QWEN_INT8_TOKENS} (all "
+            f"equal: {q['int8']['all_equal']}); control (o_proj's sum "
+            f"skipped): hidden rel_l2 "
+            f"{q['control_no_o_proj_sum_rel_l2']:.3e} (must fail)")
+        if (max(q["hidden_rel_l2"], q["logits_rel_l2"],
+                q["int8_logits_rel_l2"]) >= TEXT_BOUND
+                or not (q["greedy"]["ok"] and q["int8"]["ok"])
+                or q["control_no_o_proj_sum_rel_l2"] < TEXT_BOUND):
+            bad.append(f"5d sharded Qwen rank {rank}: {q}")
+    report.append(dict(request="sharded qwen",
+                       hidden_rel_l2=[r["qwen"]["hidden_rel_l2"] for r in res],
+                       weight_bytes=res[0]["qwen"]["weight_bytes"],
+                       greedy_equal_to=res[0]["qwen"]["greedy"]["equal_to"]))
+    seconds = {part: max(r[part]["seconds"] for r in res)
+               for part in ("linears", "forward", "image", "qwen")}
+    log(f"  5d seconds per part (the slowest rank): {seconds}")
+    report[-1]["part_seconds"] = seconds
+    return launches, report, bad
 
 
 def sp_alone(out_dir, dev, conf5, conf10) -> dict:
@@ -3777,6 +4312,28 @@ def sp_alone(out_dir, dev, conf5, conf10) -> dict:
     rec.save(os.path.join(out_dir, TEXT_FILE))
     t = time.perf_counter()
     launches, report = phase_sp(dev, conf5, conf10, out_dir)
+    return dict(launches=launches, report=report,
+                seconds=time.perf_counter() - t)
+
+
+def int8_mesh_alone(out_dir, dev, conf5, conf10) -> dict:
+    """Phase 5d alone (``--int8-mesh``): the image request's text embeddings
+    come from :class:`SeededEmbedder`, and phase 3's Qwen reference is made
+    here on a freshly built tower."""
+    from kandinsky5_tpu_torch.pipeline import DEFAULT_NEGATIVE
+
+    os.makedirs(out_dir, exist_ok=True)
+    rec = RecordingEmbedder(SeededEmbedder())
+    expanded = rec.expand_prompt(IMAGE_REQUEST[1])
+    for text in (expanded, DEFAULT_NEGATIVE):
+        rec.encode([text], "image")
+    rec.save(os.path.join(out_dir, TEXT_FILE))
+    t = time.perf_counter()
+    emb = seeded_text_embedder(dev, conf5.model.text_embedder,
+                               qwen_layers=QWEN_LAYERS, seed=QWEN_SEED)
+    qwen_reference(emb, os.path.join(out_dir, QWEN_REF))
+    del emb
+    launches, report = phase_sp(dev, conf5, conf10, out_dir, parts=("5d",))
     return dict(launches=launches, report=report,
                 seconds=time.perf_counter() - t)
 
@@ -5129,6 +5686,13 @@ def main() -> int:
                     "forward, the controls and the image request) with "
                     "seeded stand-in text embeddings, and print its readings "
                     "(no smoke result)")
+    ap.add_argument("--int8-mesh", action="store_true",
+                    help="build, then run only phase 2's K5 and K7 cases at "
+                    "a (1, 2, 4) rank's shape and phase 5d (8 ranks on the "
+                    "(1, 2, 4) mesh: the W8A8 linears, the int8 forward and "
+                    "image request, the sharded Qwen) with seeded stand-in "
+                    "text embeddings, and print their readings (no smoke "
+                    "result)")
     ap.add_argument("--windows", action="store_true",
                     help="build, then run only phase 2's K3 window-maxima "
                     "cases (every instance, with the control) and print "
@@ -5261,6 +5825,18 @@ def main() -> int:
             log(gpu_line())
             log(json.dumps(dp_out))
             return 0
+        if args.int8_mesh:
+            results = {}
+            phase_int8(dev, *_seeded(dev), results, cases=(INT8_RANK_CASE,),
+                       t5=False)
+            conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
+            conf10 = load_config(os.path.join(CONFIG_DIR, CONF10))
+            d_out = int8_mesh_alone(args.out, dev, conf5, conf10)
+            log(f"  phase 5d {d_out['seconds']:.1f} s")
+            log(gpu_line())
+            log(json.dumps(dict(d_out, kernels=results)))
+            return 0 if all(r["ok"] for rs in results.values()
+                            for r in rs) else 1
         if args.sp:
             conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
             conf10 = load_config(os.path.join(CONFIG_DIR, CONF10))
@@ -5292,7 +5868,8 @@ def main() -> int:
         t = time.perf_counter()
         phase_reference(dev, conf5)
         t_text = time.perf_counter()
-        text_ref = phase_text(dev, conf5)
+        os.makedirs(args.out, exist_ok=True)
+        text_ref = phase_text(dev, conf5, os.path.join(args.out, QWEN_REF))
         t_text = time.perf_counter() - t_text
         log(f"  phase 3 {time.perf_counter() - t:.1f} s (text towers "
             f"{t_text:.1f} s)")
@@ -5320,7 +5897,8 @@ def main() -> int:
                  lambda: phase_dp(args.out)),
                 ("5b", "dp x tp: 4 ranks on (2, 1, 2)",
                  lambda: phase_dptp(dev, conf5)),
-                ("5c", "the sequence axis: 8 ranks on (1, 2, 4)",
+                ("5c-5d", "the sequence axis and int8 on the mesh: 8 ranks "
+                 "on (1, 2, 4)",
                  lambda: phase_sp(dev, conf5, conf10, args.out, tp_ref))):
             log(f"phase {sub}: {what}")
             t = time.perf_counter()

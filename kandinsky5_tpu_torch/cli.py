@@ -6,9 +6,12 @@
         --prompt "A dog in red hat" --output_filename out.mp4
 
 It runs on the CUDA card unless ``--device cpu`` is given. ``--int8_linear``
-(W8A8 visual projections) and ``--int8_expand`` (int8 decode weights for
-prompt expansion) are flags here, where the JAX package reads environment
-variables. ``--tp N`` runs N ranks over ``torch.distributed`` (NCCL with a
+(W8A8 visual projections), ``--int8_expand`` (int8 decode weights for
+prompt expansion; under ``--tp`` each rank keeps the whole tower, as the
+JAX pipeline does) and ``--attn`` (the DiT's attention: ``flash_int8`` is
+the int8-QK K5, ``flash_int8_pipe`` K7) are flags here, where the JAX
+package reads environment variables; every one of them runs under
+``--tp``. ``--tp N`` runs N ranks over ``torch.distributed`` (NCCL with a
 card per rank, else gloo), each building the pipeline from the same
 checkpoints on the mesh the JAX factory plans for N devices
 (``plan_dit_mesh(N, heads)``: 8 devices and 28 heads run (1, 2, 4), tp 4
@@ -53,6 +56,11 @@ def parse_args(argv=None):
                    help="W8A8 projections in the DiT's visual blocks")
     p.add_argument("--int8_expand", action="store_true",
                    help="int8 decode weights for prompt expansion")
+    p.add_argument("--attn", type=str, default="auto",
+                   choices=["auto", "flash", "dense", "flash_int8",
+                            "flash_int8_pipe"],
+                   help="the DiT's attention (flash_int8: the int8-QK "
+                   "kernel)")
     p.add_argument("--trace_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the request "
                    "here")
@@ -78,7 +86,7 @@ def generate(mesh, args):
         conf_path=args.config, cache_dir=args.cache_dir,
         offload=args.offload, magcache=args.magcache, tp=mesh,
         int8_linear=args.int8_linear, int8_expand=args.int8_expand,
-        device=args.device)
+        attn_impl=args.attn, device=args.device)
     trace_dir = args.trace_dir if mesh is None or mesh.rank == 0 else None
     with profiled(trace_dir):
         frames = pipe(

@@ -36,6 +36,17 @@ computes what the JAX DiT computes under a ``(dp, sp, tp)`` mesh.
   (replicated over sp), where the JAX package would pad NABLA's rows: every
   real shape splits (1,536, 47,616 and 93,696 tokens, by 2 and by 3).
 
+* int8: W8A8 projections run under tp as ``models/nn.py`` says (a
+  row-parallel layer's activation scale and int32 product reduced over
+  the group: one device's result, bit for bit). The int8-QK kernels (K5,
+  K7) take the rank's heads and query rows against the gathered K and V,
+  so ``ops/flash.pack_int8`` quantizes as the JAX package's
+  ``_sharded_attention`` does in each shard: K's mean, per-key scales and
+  padded length over the whole gathered K, Q's per-(batch, head) scale
+  over the rank's queries, the shift over the rank's heads. The text
+  blocks run whole on every rank and so pack as one device does, where
+  the JAX mesh packs each shard (ROADMAP.md section 3 logs the choice).
+
 The prologue (embeddings, the text blocks, RoPE), MagCache's residual
 (``sampling._dit_call``) and the epilogue see the whole sequence on every
 rank; the modulations, the embeddings, the text blocks and the out layer
@@ -80,7 +91,7 @@ from kandinsky5_tpu_torch.models.nn import (
     unpatchify,
     visual_embeddings,
 )
-from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS, attention
+from kandinsky5_tpu_torch.ops.attention import attention
 from kandinsky5_tpu_torch.ops.fractal import fractal_flatten, fractal_unflatten
 from kandinsky5_tpu_torch.ops.nabla import nabla_attention
 from kandinsky5_tpu_torch.ops.sparse import BLOCK
@@ -291,12 +302,7 @@ def dit_prologue(model: DiffusionTransformer3D, x, text_embed,
                  to_fractal: bool = False):
     """Embeddings + text blocks + visual RoPE tables, the visual tokens and
     tables in fractal order when ``to_fractal``. Returns (visual (B, S, D),
-    text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin), grid).
-    int8-QK attention on a mesh raises (not ported yet)."""
-    if (model.tp is not None or model.sp is not None) \
-            and attn_impl in INT8_IMPLS:
-        raise ValueError("int8-QK attention on a mesh is not ported yet "
-                         "(ROADMAP.md, queue 1, item 7c)")
+    text (B, L, D), time_embed (B, time_dim) fp32, (cos, sin), grid)."""
     cfg = model.cfg
     b, t, h, w, _ = x.shape
     grid = (t // cfg.patch_size[0], h // cfg.patch_size[1],
@@ -486,19 +492,26 @@ def quantize_dit_params(model: DiffusionTransformer3D) -> DiffusionTransformer3D
     :class:`~kandinsky5_tpu_torch.models.nn.Int8Linear`. Text blocks, norms,
     modulations and embeddings stay as they are. Returns a new model that
     shares every unquantized tensor with ``model``; ``model`` is left
-    unchanged (the JAX function returns a new tree too)."""
+    unchanged (the JAX function returns a new tree too). A rank's share
+    (``model.tp`` set) quantizes shard-aware: its row-parallel layers (the
+    attention and FF out layers) take each out channel's max over the tp
+    group's slices (an all-reduce, so every rank of the group calls this
+    together), which gives the slices of the whole model's quantization;
+    quantizing a slice alone would give a scale of its own."""
+    tp = model.tp
     out = _shallow(model)
     blocks = _shallow(model.visual_transformer_blocks)
     for i, blk in enumerate(model.visual_transformer_blocks):
         nb = _shallow(blk)
         for attn in ("self_attention", "cross_attention"):
             a = _shallow(getattr(blk, attn))
-            for proj in ("to_query", "to_key", "to_value", "out_layer"):
+            for proj in ("to_query", "to_key", "to_value"):
                 setattr(a, proj, quantize_linear(getattr(a, proj)))
+            a.out_layer = quantize_linear(a.out_layer, tp)
             setattr(nb, attn, a)
         ff = _shallow(blk.feed_forward)
         ff.in_layer = quantize_linear(ff.in_layer)
-        ff.out_layer = quantize_linear(ff.out_layer)
+        ff.out_layer = quantize_linear(ff.out_layer, tp)
         nb.feed_forward = ff
         blocks[i] = nb
     out.visual_transformer_blocks = blocks

@@ -13,17 +13,26 @@ the JAX package's cast points:
 
 W8A8: :func:`quantize_linear` turns an ``nn.Linear`` into an
 :class:`Int8Linear` (int8 weight per out channel), which :func:`linear`
-runs with per-token int8 activations (``_linear_i8``).
+runs with per-token int8 activations (``_linear_i8``: quantize, the s32
+product, dequantize).
 
 Tensor parallelism (the JAX package under a ``(1, 1, tp)`` mesh): an
 :class:`Attention` or :class:`FeedForward` built with ``tp > 1`` holds one
 rank's columns of Q/K/V and of the FF in layer and its rows of the out
 layers; :func:`row_parallel_linear` and :func:`feed_forward` sum the
 partial products over the group (a
-:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`). Under sequence
-parallelism these functions see the rank's rows of the sequence: K8 runs
-on them (the JAX ``_sharded_fused_ff`` on its ``L / sp`` shard) and, at tp
-1, K2 where its gate admits their shape.
+:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`). Under W8A8 a
+column-parallel layer runs as on one device; a row-parallel one takes each
+token's max over the group's shares of its input (an all-reduce max, so
+the activation scale is the whole row's), all-reduces its int32 partial
+products (an fp32 sum of 1,792-wide partials could pass 2^24 and round)
+and dequantizes once, adding the bias once: the result equals one device's
+``_linear_i8`` bit for bit, as GSPMD's partition of the JAX package's does.
+:func:`quantize_linear` with ``tp`` takes a row-parallel layer's weight
+scale from the max over the group's slices, the whole layer's. Under
+sequence parallelism these functions see the rank's rows of the sequence:
+K8 runs on them (the JAX ``_sharded_fused_ff`` on its ``L / sp`` shard)
+and, at tp 1, K2 where its gate admits their shape.
 """
 
 from __future__ import annotations
@@ -135,13 +144,19 @@ class FeedForward(nn.Module):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def quantize_linear(layer: nn.Linear) -> Int8Linear:
+def quantize_linear(layer: nn.Linear, tp=None) -> Int8Linear:
     """``nn.Linear`` -> :class:`Int8Linear`, as the JAX ``quantize_linear``:
     a symmetric scale per out channel, max(max|w| over the in axis, 1e-6)
     * (1/127) (a multiply by the reciprocal, as there), w8 = clip(round(w /
-    scale), -127, 127). The bias is shared, not copied."""
+    scale), -127, 127). The bias is shared, not copied. With ``tp`` the
+    layer holds one rank's input columns (row parallel): the max over the
+    in axis is all-reduced over the group (exact), so the scale and the
+    codes are the whole layer's, sliced."""
     w = layer.weight.float()
-    s = w.abs().amax(dim=1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+    amax = w.abs().amax(dim=1, keepdim=True)
+    if tp is not None:
+        amax = tp.all_reduce(amax, op="max")
+    s = amax.clamp_min(1e-6) * (1.0 / 127.0)
     w8 = torch.round(w / s).clamp(-127, 127).to(torch.int8)
     return Int8Linear(w8, s[:, 0].contiguous(), layer.bias)
 
@@ -159,19 +174,40 @@ def _int8_product(x8, w8):
     return torch._int_mm(x8, w8.t())[:m]
 
 
-def _linear_i8(layer: Int8Linear, x):
-    """W8A8: per-token sx = max(max|x|, 1e-6) * (1/127), x8 = clip(round(x /
-    sx), -127, 127), s32 product, y = float(s32) * sx * w_scale (in that
-    order) + bias, in x.dtype."""
+def quantize_activations(x, tp=None):
+    """Per-token int8 codes of ``x``: sx = max(max|x|, 1e-6) * (1/127) over
+    the last axis, x8 = clip(round(x / sx), -127, 127) (fp32). With ``tp``
+    ``x`` holds one rank's columns of each row and the max is all-reduced
+    over the group (exact: sx is the whole row's). Returns (x8, sx)."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    if tp is not None:
+        amax = tp.all_reduce(amax, op="max")
+    sx = amax.clamp_min(1e-6) * (1.0 / 127.0)
+    return torch.round(xf / sx).clamp(-127, 127).to(torch.int8), sx
+
+
+def dequantize(s32, sx, layer: Int8Linear, dtype):
+    """y = float(s32) * sx * w_scale (in that order) + bias, in ``dtype``."""
+    y = s32.float() * sx * layer.w_scale
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    return y.to(dtype)
+
+
+def _linear_i8(layer: Int8Linear, x, tp=None):
+    """W8A8: :func:`quantize_activations`, the s32 product, then
+    :func:`dequantize`, in x.dtype. With ``tp`` the layer is row parallel:
+    ``x`` holds the rank's input columns, sx is the whole row's and the
+    int32 partial products are summed over the group before the
+    dequantization (exact, so the result is one device's bit for bit)."""
     with record_function("int8_linear"):
-        xf = x.float()
-        sx = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
-        x8 = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+        x8, sx = quantize_activations(x, tp)
         y = _int8_product(x8.reshape(-1, x.shape[-1]), layer.weight_i8)
-        y = y.reshape(*x.shape[:-1], -1).float() * sx * layer.w_scale
-        if layer.bias is not None:
-            y = y + layer.bias.float()
-        return y.to(x.dtype)
+        y = y.reshape(*x.shape[:-1], -1)
+        if tp is not None:
+            y = tp.all_reduce(y)
+        return dequantize(y, sx, layer, x.dtype)
 
 
 def linear(layer, x: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -341,23 +377,27 @@ def sharded_fused_ff(x, w1, w2, tp):
 def feed_forward(p, x, tp=None):
     """Linear -> exact GELU -> Linear, no biases. With ``tp`` the layer
     holds one rank's share and the result is summed over the group: K8 where
-    :func:`sharded_fused_ff` takes it, else the chain on the share."""
-    if tp is not None:
+    :func:`sharded_fused_ff` takes it, else the chain on the share (W8A8
+    layers always: the JAX package sends them to the chain, their params
+    having no ``weight``)."""
+    if tp is not None and not isinstance(p.in_layer, Int8Linear):
         y = sharded_fused_ff(x, p.in_layer.weight, p.out_layer.weight, tp)
         if y is not None:
             return y
     h = F.gelu(linear(p.in_layer, x), approximate="none")
-    y = linear(p.out_layer, h)
-    return y if tp is None else tp.all_reduce(y)
+    return row_parallel_linear(p.out_layer, h, tp)
 
 
-def row_parallel_linear(layer: nn.Linear, x, tp=None):
+def row_parallel_linear(layer, x, tp=None):
     """y = x W^T + b where the layer holds one rank's input columns of W:
     the partial product in the layer's dtype, its sum over ``tp``, then the
     bias, added once (on every rank before the sum it would count tp
-    times). Without ``tp``, :func:`linear`."""
+    times). A W8A8 layer runs ``_linear_i8`` over ``tp``. Without ``tp``,
+    :func:`linear`."""
     if tp is None:
         return linear(layer, x)
+    if isinstance(layer, Int8Linear):
+        return _linear_i8(layer, x, tp)
     ct = torch.promote_types(x.dtype, layer.weight.dtype)
     y = tp.all_reduce(F.linear(x.to(ct), layer.weight.to(ct)))
     if layer.bias is not None:

@@ -39,6 +39,7 @@ import torch.distributed as dist
 from kandinsky5_tpu_torch.utils import default_device
 
 BACKENDS = ("nccl", "gloo")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class RankGroup:
@@ -48,8 +49,8 @@ class RankGroup:
     ``device="cpu"`` is given; with no card and no device it raises) and
     the global ranks of the members in group order (``ranks``; 0 to size -
     1 when None). It counts its all-reduces and gathers (``calls``,
-    ``bytes``) and the host seconds they took (``seconds``); broadcasts are
-    not counted. Under gloo a CUDA tensor is synchronized before and after
+    ``bytes``, and the bytes by dtype, ``dtype_bytes``) and the host seconds
+    they took (``seconds``); broadcasts are not counted. Under gloo a CUDA tensor is synchronized before and after
     the timed call, so the time is the collective's and not that of the
     work queued before it, and a gather stages it through the host, as
     gloo's own all-reduce does."""
@@ -75,6 +76,7 @@ class RankGroup:
 
     def reset_stats(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.dtype_bytes = {}
 
     def _sync(self, x) -> None:
         if x.is_cuda and self.backend == "gloo":
@@ -83,7 +85,10 @@ class RankGroup:
     def _count(self, t0: float, x: torch.Tensor, parts: int = 1) -> None:
         self.seconds += time.perf_counter() - t0
         self.calls += 1
-        self.bytes += x.numel() * x.element_size() * parts
+        n = x.numel() * x.element_size() * parts
+        self.bytes += n
+        key = str(x.dtype).replace("torch.", "")
+        self.dtype_bytes[key] = self.dtype_bytes.get(key, 0) + n
 
     def _staged(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as the backend moves it: a CUDA tensor goes through the
@@ -91,12 +96,16 @@ class RankGroup:
         x = x.contiguous()
         return x.cpu() if x.is_cuda and self.backend == "gloo" else x
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the group in place (in its own dtype) and return
-        it."""
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` over the group in place, in its own dtype (int32
+        included, on gloo and NCCL), and return it: ``op`` "sum" or "max"
+        (exact in any dtype, so a max over the ranks' shares is the whole
+        tensor's)."""
+        if op not in _OPS:
+            raise ValueError(f"op must be one of {tuple(_OPS)}, got {op!r}")
         self._sync(x)
         t = time.perf_counter()
-        dist.all_reduce(x, group=self.group)
+        dist.all_reduce(x, op=_OPS[op], group=self.group)
         self._sync(x)
         self._count(t, x)
         return x
@@ -161,15 +170,19 @@ class DataParallel(RankGroup):
 class RankMesh(NamedTuple):
     """One rank's place on the (dp, sp, tp) mesh: its data-parallel group,
     its tensor-parallel group, the group of every rank (``world``: the
-    tiled decode splits its tiles over it, the noise is rank 0's of it) and
+    tiled decode splits its tiles over it, the noise is rank 0's of it),
     its sequence-parallel group (``sp``; None is a group of one, so that a
-    (dp, 1, tp) place is ``RankMesh(dp, tp, world)``). A group of one rank
-    has no process group."""
+    (dp, 1, tp) place is ``RankMesh(dp, tp, world)``) and the group of the
+    sp * tp ranks of its dp index (``shard``, in (sp, tp) order: the JAX
+    package's ``axes=("sp", "tp")``, over which the Qwen tower shards,
+    ``text/qwen.py`` ``shard_qwen``; :func:`rank_mesh` and :func:`as_mesh`
+    cut it). A group of one rank has no process group."""
 
     dp: DataParallel
     tp: TensorParallel
     world: RankGroup
     sp: Optional[SequenceParallel] = None
+    shard: Optional[RankGroup] = None
 
     @property
     def rank(self) -> int:
@@ -202,7 +215,7 @@ def as_mesh(place) -> RankMesh:
                        ranks=[place.ranks[place.rank]])
     world = RankGroup(place.group, place.rank, place.size, place.backend,
                       place.device, ranks=place.ranks)
-    return RankMesh(one, place, world)
+    return RankMesh(one, place, world, None, world)
 
 
 def rank_grid(world: int, dp: int = 1, sp: int = 1) -> np.ndarray:
@@ -251,7 +264,8 @@ def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
     calls it, in the same order, since creating a group is collective; a
     rank outside ``ranks`` gets None. A group's ranks run along its axis,
     the other two indices fixed; the groups are created tp, then sp, then
-    dp, then the mesh's world."""
+    dp, then the sp * tp groups of each dp index (``RankMesh.shard``), then
+    the mesh's world."""
     ranks = list(ranks)
     grid = np.asarray(ranks)[rank_grid(len(ranks), dp, sp)]
     me = dist.get_rank()
@@ -262,6 +276,10 @@ def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
             pg = _group(members, backend)
             if me in members:
                 mine[kind] = (members, pg)
+    for members in grid.reshape(dp, -1).tolist():
+        pg = _group(members, backend)
+        if me in members:
+            mine["shard"] = (members, pg)
     world = _group(ranks, backend)
     if me not in ranks:
         return None
@@ -275,7 +293,7 @@ def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
     return RankMesh(group(DataParallel, "dp"), group(TensorParallel, "tp"),
                     RankGroup(world, ranks.index(me), len(ranks), backend,
                               dev, ranks=ranks),
-                    group(SequenceParallel, "sp"))
+                    group(SequenceParallel, "sp"), group(RankGroup, "shard"))
 
 
 def _rank_main(call_path: str, rank: int, world: int, dp: int, sp: int,

@@ -13,7 +13,14 @@ sp cuts the visual tokens inside the DiT (``models/dit.py``), dp the batch
 in the sampler, the tiles in the decode and the moments in the trainer.
 
 Specs are in the port's names and torch layouts: a linear weight is (out,
-in), so column parallel splits dim 0 and row parallel dim 1.
+in), so column parallel splits dim 0 and row parallel dim 1. A W8A8 model
+(``models/dit.py`` ``quantize_dit_params``) shards as the JAX
+``_adapt_quantized_specs`` places it: ``weight_i8`` as the weight, the
+per-out-channel ``w_scale`` with its columns where the layer is column
+parallel and whole where it is row parallel. :func:`shard_dit` slices a
+model quantized whole; :func:`fast_init_dit_shard` with ``int8_linear``
+quantizes the rank's slices, taking a row-parallel scale from the max over
+the tp group (the same codes and scales, bit for bit).
 """
 
 from __future__ import annotations
@@ -46,15 +53,24 @@ def tp_width(plan: Tuple[int, int, int]) -> int:
     return plan[2]
 
 
+def _quantized(weight: Optional[int], **rest) -> dict:
+    """A linear's split dims with its W8A8 leaves (the JAX
+    ``_adapt_quantized_specs``): ``weight_i8`` as the weight; ``w_scale``
+    (out,) keeps the weight's split without its in axis: split with a
+    column-parallel layer's rows, whole for a row-parallel one."""
+    return dict(weight=weight, weight_i8=weight,
+                w_scale=0 if weight == 0 else None, **rest)
+
+
 # split dim of each parameter under tp: 0 = column parallel (output rows),
 # 1 = row parallel (input columns), None = replicated
 _ATTN = {
-    "to_query": {"weight": 0, "bias": 0},
-    "to_key": {"weight": 0, "bias": 0},
-    "to_value": {"weight": 0, "bias": 0},
+    "to_query": _quantized(0, bias=0),
+    "to_key": _quantized(0, bias=0),
+    "to_value": _quantized(0, bias=0),
     # row parallel: each rank's product is a partial sum, all-reduced
     # before the bias is added once
-    "out_layer": {"weight": 1, "bias": None},
+    "out_layer": _quantized(1, bias=None),
     "query_norm": {"weight": None},
     "key_norm": {"weight": None},
 }
@@ -83,8 +99,8 @@ def dit_param_specs() -> dict:
             "visual_modulation": {"out_layer": dict(lin)},
             "self_attention": {k: dict(v) for k, v in _ATTN.items()},
             "cross_attention": {k: dict(v) for k, v in _ATTN.items()},
-            "feed_forward": {"in_layer": {"weight": 0},
-                             "out_layer": {"weight": 1}},
+            "feed_forward": {"in_layer": _quantized(0),
+                             "out_layer": _quantized(1)},
         },
         "out_layer": {"modulation": {"out_layer": dict(lin)},
                       "out_layer": dict(lin)},
@@ -132,16 +148,23 @@ def shard_dit_state_dict(state_dict: Mapping, rank: int,
 
 
 @torch.no_grad()
-def _local_dit(cfg: DiTParams, mesh: RankMesh, dtype, named_tensors):
+def _local_dit(cfg: DiTParams, mesh: RankMesh, dtype, named_tensors,
+               quantized: bool = False):
     """The rank-local DiT of ``mesh`` on its device: its tp index's slice
-    of each (name, full tensor) of ``named_tensors``, running its
-    collectives over the mesh's tp and sp groups."""
-    from kandinsky5_tpu_torch.models.dit import DiffusionTransformer3D
+    of each (name, full tensor) of ``named_tensors`` (with ``quantized``,
+    those of a W8A8 model: its ``weight_i8`` and ``w_scale`` leaves),
+    running its collectives over the mesh's tp and sp groups."""
+    from kandinsky5_tpu_torch.models.dit import (
+        DiffusionTransformer3D,
+        quantize_dit_params,
+    )
 
     tp = mesh.tp
     local = DiffusionTransformer3D(cfg, device=tp.device, dtype=dtype, tp=tp,
                                    sp=mesh.sp)
-    own = dict(local.named_parameters())
+    if quantized:  # the W8A8 leaves' local shapes; every value is copied
+        local = quantize_dit_params(local)
+    own = {**dict(local.named_parameters()), **dict(local.named_buffers())}
     specs = dit_param_specs()
     for name, full in named_tensors:
         own[name].copy_(shard_tensor(name, full, tp.rank, tp.size, specs))
@@ -155,7 +178,10 @@ def shard_dit(model, place):
     ff_dim / tp in the visual blocks, whole text blocks, holding its tp
     index's slice of ``model``'s weights and running its collectives over
     the tp group and, with sp > 1, its visual blocks on its 1/sp of the
-    tokens (``models/dit.py``). It is built on ``model``'s device, which
+    tokens (``models/dit.py``). A W8A8 model (quantized whole, as the JAX
+    pipeline quantizes before it shards) gives the slices of its
+    ``weight_i8``, its column-parallel ``w_scale`` and a whole row-parallel
+    ``w_scale``. It is built on ``model``'s device, which
     must be the rank's (it raises otherwise: a card's model is not moved to
     the CPU, nor the reverse). A tp group of one rank holds the whole
     model: ``model`` itself, or with sp > 1 a copy sharing its tensors."""
@@ -163,17 +189,16 @@ def shard_dit(model, place):
 
     mesh = as_mesh(place)
     tp = mesh.tp
-    if is_quantized(model):
-        raise ValueError("W8A8 under tensor parallelism is not ported yet "
-                         "(ROADMAP.md, queue 1, item 7c)")
     device = next(model.parameters()).device
     if device != tp.device:
         raise ValueError(f"the DiT is on {device} and rank {tp.rank}'s "
                          f"group on {tp.device}")
     if tp.size == 1:
         return with_sp(model, mesh.sp)
+    tensors = [*model.named_parameters(), *model.named_buffers()]
     return _local_dit(model.cfg, mesh, model.dtype,
-                      ((n, p.detach()) for n, p in model.named_parameters()))
+                      ((n, t.detach()) for n, t in tensors),
+                      quantized=is_quantized(model))
 
 
 def seeded_parameters(cfg: DiTParams, device, dtype=torch.bfloat16,
@@ -193,11 +218,18 @@ def seeded_parameters(cfg: DiTParams, device, dtype=torch.bfloat16,
 
 
 def fast_init_dit_shard(cfg: DiTParams, place, dtype=torch.bfloat16,
-                        seed: int = 0, scale: float = 0.02):
+                        seed: int = 0, scale: float = 0.02,
+                        int8_linear: bool = False):
     """The rank-local DiT (as :func:`shard_dit` cuts it for ``place``) of
     ``fast_init_dit_params(cfg, seed=seed, scale=scale)``, drawn one
     parameter at a time on the rank's device: the rank never holds the
-    whole model."""
+    whole model. ``int8_linear`` quantizes the rank's visual projections
+    to W8A8 (``quantize_dit_params`` on the rank's share, which takes a
+    row-parallel layer's scale from the max over the tp group): bit-equal
+    to :func:`shard_dit` of the whole model quantized."""
+    from kandinsky5_tpu_torch.models.dit import quantize_dit_params
+
     mesh = as_mesh(place)
-    return _local_dit(cfg, mesh, dtype, seeded_parameters(
+    local = _local_dit(cfg, mesh, dtype, seeded_parameters(
         cfg, mesh.tp.device, dtype, seed, scale))
+    return quantize_dit_params(local) if int8_linear else local

@@ -12,6 +12,9 @@ projections to W8A8 (``quantize_dit_params``), as the JAX package's
 ``KANDINSKY5_TPU_INT8_LINEAR`` does. A config with ``attention.type:
 nabla`` (the 10 s configs) runs the visual self-attention through NABLA
 and K6 whatever the impl; its text blocks then follow the impl.
+On a mesh the int8 options run as on one device: K5/K7 on the rank's
+heads and query rows against the gathered keys, W8A8 with its row-parallel
+products reduced in int32 (``models/dit.py``).
 ``decode_mode`` picks the VAE decode: None is the JAX package's
 single-device default, "stream"; "tiled" is the reference's overlap-tiled
 decode (its parity gate and bench protocol). ``int8_conv=True`` runs the
@@ -65,7 +68,6 @@ from torch import nn
 from kandinsky5_tpu_torch.config import Config, get_default_conf, load_config
 from kandinsky5_tpu_torch.models.dit import quantize_dit_params
 from kandinsky5_tpu_torch.models.vae import DECODE_MODES
-from kandinsky5_tpu_torch.ops.attention import INT8_IMPLS
 from kandinsky5_tpu_torch.sampling import (
     DenoiseSpec,
     dp_splits,
@@ -120,9 +122,6 @@ class Kandinsky5T2VPipeline:
                 raise ValueError("the DiT is sharded for another group")
             if mesh.size == 1:
                 mesh = None
-        if mesh is not None and (int8_linear or attn_impl in INT8_IMPLS):
-            raise ValueError("int8-QK attention and W8A8 on a mesh are not "
-                             "ported yet (ROADMAP.md, queue 1, item 7c)")
         if mesh is not None and vae is None:
             raise ValueError("on a mesh every rank decodes its share of the "
                              "tiles: give every rank the VAE")
@@ -132,6 +131,8 @@ class Kandinsky5T2VPipeline:
         if decode_mode not in (None,) + DECODE_MODES:
             raise ValueError(f"decode_mode must be None or one of "
                              f"{DECODE_MODES}, got {decode_mode!r}")
+        # a rank's share quantizes shard-aware (its row-parallel scales from
+        # the max over the tp group): the slices of the whole model's W8A8
         self.dit = quantize_dit_params(dit) if int8_linear else dit
         self.int8_linear = int8_linear
         self.conf = conf
@@ -374,6 +375,7 @@ def get_T2V_pipeline(
     dtype=torch.bfloat16,
     int8_linear: bool = False,
     int8_expand: bool = False,
+    attn_impl: str = "auto",
     device=None,
 ) -> Kandinsky5T2VPipeline:
     """The whole pipeline from reference-layout checkpoints, as the JAX
@@ -392,7 +394,9 @@ def get_T2V_pipeline(
     over the sp group, every rank holds the VAE and decodes its share of
     the tiles). ``int8_linear`` quantizes the
     visual blocks' projections to W8A8, ``int8_expand`` runs prompt
-    expansion on int8 decode weights: both arguments, where the JAX package
+    expansion on int8 decode weights (the whole tower on every rank of a
+    mesh, as in the JAX pipeline), ``attn_impl`` is the DiT's attention
+    (``ATTN_IMPLS``; "flash_int8" is K5): arguments, where the JAX package
     reads environment flags."""
     if tp is not None and not hasattr(tp, "rank"):
         raise TypeError("tp takes a rank's place, a RankMesh or a "
@@ -434,6 +438,7 @@ def get_T2V_pipeline(
         conf.model.text_embedder, dtype=dtype, device=host,
         int8_expand=int8_expand)
     return Kandinsky5T2VPipeline(dit, conf, text_embedder, vae,
+                                 attn_impl=attn_impl,
                                  int8_linear=int8_linear, tp=tp,
                                  offload=offload, magcache=magcache,
                                  device=device)

@@ -20,14 +20,32 @@ its bias in fp32 before the cast, RoPE runs in fp32, the attention scores
 are fp32 with masked entries at -1e30 and the probabilities are cast to the
 value dtype before PV, and RMSNorm casts before it multiplies by the
 weight. No TPU kernel is on this path: all of it is plain PyTorch.
+
+The sharded tower (the JAX ``qwen_param_specs`` / ``shard_qwen_params``,
+over the sp * tp ranks of a mesh): :func:`shard_qwen` gives a rank its
+1/n of every large matrix (:func:`qwen_param_specs`) and the same
+functions then run it with the collectives that make them compute what
+the whole tower computes: the column-parallel q/k/v outputs all-gathered
+along their features before RoPE and attention (a shard may hold half a
+head; attention then runs whole on every rank), the row-parallel
+``o_proj`` and ``down_proj`` on the rank's columns of their input with the
+fp32 partial products summed over the group (their int8 scales applied
+after the sum, their biases once), the embedding looked up on the rank's
+hidden columns and gathered, ``lm_head``'s logits gathered.
+:func:`init_qwen_shard_random` draws a rank's share without the whole
+tower, and :func:`quantize_qwen_decode_params` on a share takes a
+row-parallel scale from the max over the group. The pipeline does not
+shard the tower (nor does the JAX pipeline): this is a function of the
+package, as there.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -206,20 +224,50 @@ def _lin(p, x):
     return _mm_f32(x, p.weight)
 
 
-def _lin_bias(p, x):
-    return (_lin(p, x) + p.bias).to(x.dtype)
+def _split(p) -> Optional[int]:
+    """The dim a sharded tower split ``p``'s weight on (:func:`shard_qwen`
+    sets it): 0 column parallel, 1 row parallel, None whole."""
+    return getattr(p, "split", None)
+
+
+def _out(p, x, group=None):
+    """:func:`_lin`, the rank's output columns all-gathered where ``p`` is
+    column parallel."""
+    y = _lin(p, x)
+    return y if _split(p) is None else group.all_gather(y, dim=-1)
+
+
+def _lin_bias(p, x, group=None):
+    y = (_lin(p, x) + p.bias).to(x.dtype)
+    return y if _split(p) is None else group.all_gather(y, dim=-1)
+
+
+def _row(p, x, group=None):
+    """:func:`_lin` of a row-parallel ``p`` (no bias): the rank's columns of
+    ``x`` (``x`` whole, or already the rank's) times its columns of the
+    weight, the fp32 partial products summed over ``group``, then an int8
+    layer's scale. A whole ``p``: :func:`_lin`."""
+    if _split(p) is None:
+        return _lin(p, x)
+    w = p.weight_q if isinstance(p, QuantLinear) else p.weight
+    n = w.shape[1]
+    if x.shape[-1] != n:
+        x = x[..., group.rank * n:(group.rank + 1) * n]
+    y = group.all_reduce(_mm_f32(x, w.to(x.dtype)))
+    return y * p.scale.float() if isinstance(p, QuantLinear) else y
 
 
 def _attn(p: QwenAttention, x, cos, sin, cfg: QwenTextConfig, mask,
-          cache=None, cache_pos: int = 0):
+          cache=None, cache_pos: int = 0, group=None):
     """GQA attention. ``mask`` (B, Lq, Lk) bool, True where allowed. With
     ``cache`` (2, B, max_len, hkv, d) the new keys and values are written at
-    ``cache_pos`` and the queries attend over the whole cache."""
+    ``cache_pos`` and the queries attend over the whole cache. ``group``:
+    the ranks of a sharded tower."""
     b, l, _ = x.shape
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = _lin_bias(p.q_proj, x).reshape(b, l, hq, d)
-    k = _lin_bias(p.k_proj, x).reshape(b, l, hkv, d)
-    v = _lin_bias(p.v_proj, x).reshape(b, l, hkv, d)
+    q = _lin_bias(p.q_proj, x, group).reshape(b, l, hq, d)
+    k = _lin_bias(p.k_proj, x, group).reshape(b, l, hkv, d)
+    v = _lin_bias(p.v_proj, x, group).reshape(b, l, hkv, d)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
@@ -238,26 +286,45 @@ def _attn(p: QwenAttention, x, cos, sin, cfg: QwenTextConfig, mask,
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     out = (probs.float() @ vg).to(x.dtype)  # (b, hkv, rep, l, d)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, l, hq * d)
-    return _lin(p.o_proj, out).to(x.dtype)
+    return _row(p.o_proj, out, group).to(x.dtype)
 
 
-def _mlp(p: QwenMLP, x):
-    g = _lin(p.gate_proj, x)
-    u = _lin(p.up_proj, x)
+def _mlp(p: QwenMLP, x, group=None):
+    """SwiGLU. Sharded, gate and up keep the rank's columns (down_proj
+    reads just those), unless down_proj is whole."""
+    if _split(p.down_proj) is None:
+        g, u = _out(p.gate_proj, x, group), _out(p.up_proj, x, group)
+    else:
+        g, u = _lin(p.gate_proj, x), _lin(p.up_proj, x)
     h = (F.silu(g) * u).to(x.dtype)
-    return _lin(p.down_proj, h).to(x.dtype)
+    return _row(p.down_proj, h, group).to(x.dtype)
 
 
 def _layer(p: QwenDecoderLayer, x, cos, sin, cfg, mask, cache=None,
-           cache_pos: int = 0):
+           cache_pos: int = 0, group=None):
     h = qwen_rms_norm(x, p.input_layernorm.weight, cfg.rms_norm_eps)
-    x = x + _attn(p.self_attn, h, cos, sin, cfg, mask, cache, cache_pos)
+    x = x + _attn(p.self_attn, h, cos, sin, cfg, mask, cache, cache_pos,
+                  group)
     h = qwen_rms_norm(x, p.post_attention_layernorm.weight, cfg.rms_norm_eps)
-    return x + _mlp(p.mlp, h)
+    return x + _mlp(p.mlp, h, group)
+
+
+def _group(model: QwenTextModel):
+    """The ranks a sharded tower (:func:`shard_qwen`) runs over, else None."""
+    return getattr(model, "shard", None)
 
 
 def _embed(model: QwenTextModel, ids):
-    return F.embedding(ids, model.embed_tokens.weight)
+    x = F.embedding(ids, model.embed_tokens.weight)
+    if _split(model.embed_tokens) is None:
+        return x
+    return _group(model).all_gather(x, dim=-1)
+
+
+def _logits(model: QwenTextModel, x):
+    """fp32 logits of the last hidden states ``x`` (gathered when
+    ``lm_head`` is sharded)."""
+    return _out(model.lm_head, x, _group(model))
 
 
 @torch.no_grad()
@@ -275,7 +342,7 @@ def qwen_hidden_states(model: QwenTextModel, input_ids, attention_mask):
     causal = torch.ones((l, l), dtype=torch.bool, device=dev).tril()
     mask = causal[None] & valid[:, None, :]
     for layer in model.layers:
-        x = _layer(layer, x, cos, sin, cfg, mask)
+        x = _layer(layer, x, cos, sin, cfg, mask, group=_group(model))
     return qwen_rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
 
 
@@ -292,16 +359,25 @@ def qwen_encode(model: QwenTextModel, input_ids, attention_mask,
 # int8 decode weights (prompt expansion only)
 # ---------------------------------------------------------------------------
 
-def _quantize(w):
+def _quantize(w, group=None):
+    """Per-out-channel int8 codes and scales of ``w`` (out, in); with
+    ``group`` ``w`` holds the rank's input columns and the max is taken
+    over the group's (exact: the whole weight's scale)."""
     a = w.float().abs().amax(dim=1, keepdim=True)
+    if group is not None:
+        a = group.all_reduce(a, op="max")
     scale = a.clamp_min(1e-8) / 127.0
     wq = torch.round(w.float() / scale).clamp(-127, 127).to(torch.int8)
     return wq, scale[:, 0]
 
 
-def _quant_linear(lin: nn.Linear) -> QuantLinear:
-    wq, scale = _quantize(lin.weight)
-    return QuantLinear(wq, scale, lin.bias)
+def _quant_linear(lin: nn.Linear, group=None) -> QuantLinear:
+    split = _split(lin)
+    wq, scale = _quantize(lin.weight, group if split == 1 else None)
+    out = QuantLinear(wq, scale, lin.bias)
+    if split is not None:
+        out.split = split
+    return out
 
 
 @torch.no_grad()
@@ -311,10 +387,14 @@ def quantize_qwen_decode_params(model: QwenTextModel) -> QwenTextModel:
     conditioning encoder keeps the dense weights. Norms, biases and the
     embedding table are shared with ``model``, which is left unchanged.
     The product casts the codes back to the activation dtype, so in plain
-    PyTorch the weight traffic of a token does not halve."""
+    PyTorch the weight traffic of a token does not halve. A rank's share
+    (:func:`shard_qwen`) quantizes its row-parallel layers with the max
+    over the group (every rank calls this together): the slices of the
+    whole tower's int8 tree."""
+    group = _group(model)
     out = copy.copy(model)
     out._modules = dict(model._modules)
-    out.lm_head = _quant_linear(model.lm_head)
+    out.lm_head = _quant_linear(model.lm_head, group)
     layers = []
     for layer in model.layers:
         nl = copy.copy(layer)
@@ -325,11 +405,123 @@ def quantize_qwen_decode_params(model: QwenTextModel) -> QwenTextModel:
             sub = copy.copy(getattr(layer, part))
             sub._modules = dict(getattr(layer, part)._modules)
             for n in names:
-                setattr(sub, n, _quant_linear(getattr(sub, n)))
+                setattr(sub, n, _quant_linear(getattr(sub, n), group))
             setattr(nl, part, sub)
         layers.append(nl)
     out.layers = nn.ModuleList(layers)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded tower
+# ---------------------------------------------------------------------------
+
+# row parallel: the input (contraction) axis splits, the partial products
+# are summed over the ranks
+_ROW_PARALLEL = ("o_proj", "down_proj")
+
+
+def qwen_param_specs(model: QwenTextModel, n: int) -> Dict[str, Optional[int]]:
+    """The split dim of every parameter and buffer of ``model`` (the whole
+    tower, dense or the int8 decode tree) over ``n`` ranks, by state-dict
+    name, in the port's layouts (a projection (out, in), the embedding
+    (vocab, hidden)): the JAX ``qwen_param_specs``. Column parallel on the
+    out axis (dim 0): q/k/v/gate/up and ``lm_head``, with their biases and
+    int8 ``scale``s; ``embed_tokens`` on its hidden axis (dim 1); row
+    parallel on the in axis (dim 1): ``o_proj`` and ``down_proj``, whose
+    biases and scales stay whole; the norms whole (None), and any leaf whose
+    split dim does not divide by ``n``."""
+    specs = {}
+    for name, t in itertools.chain(model.named_parameters(),
+                                   model.named_buffers()):
+        parts = name.split(".")
+        row = any(p in _ROW_PARALLEL for p in parts)
+        dim = None
+        if parts[-1] in ("weight", "weight_q") and "norm" not in name:
+            dim = 1 if row or parts[0] == "embed_tokens" else 0
+        elif parts[-1] in ("bias", "scale") and not row:
+            dim = 0
+        if dim is not None and t.shape[dim] % n:
+            dim = None
+        specs[name] = dim
+    return specs
+
+
+def _shard_tree(model: QwenTextModel, specs, group, take) -> QwenTextModel:
+    """A copy of ``model``'s module tree whose tensors are ``take(name,
+    tensor, dim)`` (called in ``named_parameters``' order, then the
+    buffers of each module), holding the group and each projection's
+    split dim."""
+
+    def visit(mod, prefix):
+        out = copy.copy(mod)
+        out._parameters = {
+            k: None if v is None else nn.Parameter(
+                take(prefix + k, v, specs[prefix + k]), requires_grad=False)
+            for k, v in mod._parameters.items()}
+        out._buffers = {k: None if v is None
+                        else take(prefix + k, v, specs[prefix + k])
+                        for k, v in mod._buffers.items()}
+        out._modules = {k: visit(v, f"{prefix}{k}.")
+                        for k, v in mod._modules.items()}
+        key = prefix + ("weight_q" if isinstance(mod, QuantLinear)
+                        else "weight")
+        if specs.get(key) is not None and "norm" not in key:
+            out.split = specs[key]
+        return out
+
+    local = visit(model, "")
+    local.shard = group
+    return local
+
+
+def _narrow(t, dim, group):
+    if dim is None:
+        return t
+    n = t.shape[dim] // group.size
+    return t.narrow(dim, group.rank * n, n).contiguous()
+
+
+@torch.no_grad()
+def shard_qwen(model: QwenTextModel, group) -> QwenTextModel:
+    """Rank ``group.rank``'s share of the whole tower ``model`` (dense, or
+    the int8 decode tree of :func:`quantize_qwen_decode_params`) over
+    ``group`` (a ``parallel.ranks.RankGroup``, such as a mesh's ``shard``
+    group of its sp * tp ranks; every rank of it calls this): a
+    :class:`QwenTextModel` holding the slices :func:`qwen_param_specs`
+    gives (whole leaves shared with ``model``), on which
+    :func:`qwen_hidden_states`, :func:`qwen_encode` and
+    :func:`qwen_generate` run the group's collectives and compute what
+    ``model`` computes (to the order of the fp32 sums)."""
+    specs = qwen_param_specs(model, group.size)
+    return _shard_tree(model, specs, group,
+                       lambda name, t, dim: _narrow(t, dim, group))
+
+
+@torch.no_grad()
+def init_qwen_shard_random(cfg: QwenTextConfig, group, dtype=torch.bfloat16,
+                           seed: int = 0, scale: float = 0.02
+                           ) -> QwenTextModel:
+    """Rank ``group.rank``'s share (as :func:`shard_qwen` cuts it) of
+    ``init_qwen_params_random(cfg, dtype=dtype, seed=seed, scale=scale)``
+    on the group's device, each tensor drawn whole in that function's order
+    from its seeded generator and cut at once: the rank never holds the
+    whole tower."""
+    device = group.device
+    with torch.device("meta"):
+        shapes = QwenTextModel(cfg, dtype=dtype)
+    specs = qwen_param_specs(shapes, group.size)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def take(name, t, dim):
+        full = torch.empty(t.shape, device=device, dtype=dtype)
+        if "norm" in name:
+            full.fill_(1.0)
+        else:
+            full.uniform_(-scale, scale, generator=gen)
+        return _narrow(full, dim, group)
+
+    return _shard_tree(shapes, specs, group, take)
 
 
 # ---------------------------------------------------------------------------
@@ -354,9 +546,9 @@ def _prefill(model: QwenTextModel, ids, max_len: int):
                           cfg.num_key_value_heads, cfg.head_dim),
                          dtype=x.dtype, device=dev)
     for layer, cache in zip(model.layers, caches):
-        x = _layer(layer, x, cos, sin, cfg, mask, cache, 0)
+        x = _layer(layer, x, cos, sin, cfg, mask, cache, 0, _group(model))
     x = qwen_rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
-    return caches, _lin(model.lm_head, x[:, -1])
+    return caches, _logits(model, x[:, -1])
 
 
 def _process_logits(logits, presence, *, temperature: float, top_p: float,
@@ -437,9 +629,10 @@ def qwen_generate(model: QwenTextModel, input_ids, max_new_tokens: int = 256,
         cos, sin = cos_all[:, pos:pos + 1], sin_all[:, pos:pos + 1]
         mask = (positions <= pos)[None, None]
         for layer, cache in zip(model.layers, caches):
-            x = _layer(layer, x, cos, sin, cfg, mask, cache, pos)
+            x = _layer(layer, x, cos, sin, cfg, mask, cache, pos,
+                       _group(model))
         x = qwen_rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
-        token = _pick_token(_lin(model.lm_head, x[:, -1]), presence, gen,
+        token = _pick_token(_logits(model, x[:, -1]), presence, gen,
                             **knobs)
         pos += 1
     return np.asarray(out, dtype=np.int32)

@@ -18,12 +18,16 @@ from kandinsky5_tpu_torch.models.dit import (
     SparseParams,
     attend,
     dit_forward,
+    fast_init_dit_params,
     sp_rows,
     sta_rows,
 )
 from kandinsky5_tpu_torch.ops.nabla import record_density
 from kandinsky5_tpu_torch.parallel.ranks import rank_mesh
-from kandinsky5_tpu_torch.parallel.sharding import shard_dit_state_dict
+from kandinsky5_tpu_torch.parallel.sharding import (
+    shard_dit,
+    shard_dit_state_dict,
+)
 from kandinsky5_tpu_torch.sampling import DenoiseSpec, denoise
 
 from . import _torch_tp_ranks
@@ -55,11 +59,28 @@ def _denoise(mesh, model, case, skip=None):
                    skip=skip, dp=mesh.dp).numpy()
 
 
-def _forward(model, case):
+def _forward(model, case, attn_impl="dense"):
     args = [_t(case["fwd"][k]) for k in ("x", "text", "pooled", "time",
                                          "mask")]
     return dit_forward(model, *args, scale_factor=(1.0, 2.0, 2.0),
-                       attn_impl="dense").numpy()
+                       attn_impl=attn_impl).numpy()
+
+
+@torch.no_grad()
+def int8_dit(cfg_kw):
+    """The 48-token case's DiT widened to heads of 64 (the int8-QK
+    kernels' width), seeded, fp32, on one device, its self-attention
+    peaked (QK-norm weights 2), so that the attention's quantization shows
+    in the output."""
+    model = fast_init_dit_params(
+        DiTParams(**dict(cfg_kw, axes_dims=(16, 24, 24))), device="cpu",
+        dtype=torch.float32, seed=2, scale=0.05)
+    for blk in [*model.text_transformer_blocks,
+                *model.visual_transformer_blocks]:
+        att = blk.self_attention
+        att.query_norm.weight.fill_(2.0)
+        att.key_norm.weight.fill_(2.0)
+    return model
 
 
 def without_kv_gather(k, v, sp):
@@ -138,6 +159,10 @@ def run_a(mesh, cases):
     sub = rank_mesh([0, 1, 2], 1, 3, "gloo", mesh.device)
     if sub is not None:
         out["nabla_sp3"] = attend_case(sub, cases["nabla_op"], sparse=True)
+    sub = rank_mesh([0, 1], 1, 2, "gloo", mesh.device)
+    if sub is not None:  # int8-QK attention (K5) on a (1, 2, 1) mesh
+        model = shard_dit(int8_dit(cases["dits"]["tiny"][0]), sub)
+        out["int8_121"] = _forward(model, cases["dense48"], "flash_int8")
 
     nabla = cases["nabla"]
     model = _dit(mesh, *cases["dits"]["nabla"])

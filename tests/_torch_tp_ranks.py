@@ -56,11 +56,12 @@ class StubEmbedder:
 
 
 def pipeline(tp=None, decode_mode=None, vae_cls=HunyuanVideoVAE,
-             guidance_weight=1.0):
-    """The tiny pipeline: a seeded DiT (sharded by the pipeline under
-    ``tp``, a rank's place) and the full VAE decoder. The caller admits
-    the 64 x 64 image (``RESOLUTIONS[512] = [(64, 64)]``)."""
-    cfg = DiTParams(**PIPE_DIT)
+             guidance_weight=1.0, dit_kw=None, **kw):
+    """The tiny pipeline: a seeded DiT (``PIPE_DIT``, updated by ``dit_kw``;
+    sharded by the pipeline under ``tp``, a rank's place) and the full VAE
+    decoder; ``kw`` go to the pipeline. The caller admits the 64 x 64 image
+    (``RESOLUTIONS[512] = [(64, 64)]``)."""
+    cfg = DiTParams(**dict(PIPE_DIT, **(dit_kw or {})))
     dit = fast_init_dit_params(cfg, device="cpu", dtype=torch.float32,
                                seed=0, scale=0.05)
     conf = Config(model=ModelConfig(dit_params=cfg, num_steps=2,
@@ -69,7 +70,7 @@ def pipeline(tp=None, decode_mode=None, vae_cls=HunyuanVideoVAE,
     vae = vae_cls(init_vae_params(device="cpu", dtype=torch.float32, seed=1),
                   dtype=torch.float32)
     return Kandinsky5T2VPipeline(dit, conf, StubEmbedder(), vae,
-                                 decode_mode=decode_mode, tp=tp)
+                                 decode_mode=decode_mode, tp=tp, **kw)
 
 
 def _t(a):
