@@ -25,6 +25,7 @@
     python3 chip_smoke.py --sp               # phase 5c alone
     python3 chip_smoke.py --int8-mesh        # phase 2's K5/K7 rank cases
                                              # and phase 5d alone
+    python3 chip_smoke.py --serve-mesh       # phase 5e alone
     python3 chip_smoke.py --load             # phase 8 alone, on a freshly
                                              # built DiT and VAE
 
@@ -141,15 +142,15 @@ Phases, each of which must pass (any failure exits nonzero):
                before any rank starts): one DiT forward at full width and
                depth at the 5 s shape (47,616 tokens, seeded +-0.02
                weights, each rank drawing its share one parameter at a
-               time) on one device, then as tp = 2, and as tp = 4 cut to
-               TP4_BLOCKS (4) visual blocks against one device's forward at
-               that depth, each rank held against it (TP_BOUND, relative
+               time) on one device, then as tp = 2 and tp = 4 cut to
+               TP_BLOCKS (8 and 4) visual blocks against one device's
+               forward at that depth, each rank held against it (TP_BOUND, relative
                L2) with exact launch counts (K8 and K1 one a visual block,
                K1 one a text block, K2 0); in the tp = 4 launch two
                controls must fail the bound (each rank keeps its FF
                partial sum; the out layers' bias added on every rank). Then the tp = 2 pipeline answers
-               the 5 s path's video request with TP_VIDEO_STEPS (2; cut
-               from 16 so that phase 7 fits the smoke's time; its image
+               the 5 s path's video request with TP_VIDEO_STEPS (1; cut
+               from 16 so that phases 7 and 5e fit the smoke's time; its image
                request left for phase 5d's) on phase 4's text embeddings
                (replayed from ``--out``), every rank decoding
                its share of the tiles and rank 0 blending and writing, its
@@ -175,7 +176,10 @@ Phases, each of which must pass (any failure exits nonzero):
                summed over the ranks equal to its; control: two tiles
                swapped before the blend. s/step, gather seconds and bytes,
                peak memory per rank;
-  5b. dp x tp — 4 ranks on the (2, 1, 2) mesh: a two-item DiT call at the
+  5b. dp x tp — 4 ranks on the (2, 1, 2) mesh, launched as two emulated
+               hosts (two node launches of 2 ranks meeting on a TCPStore at
+               127.0.0.1, the grid built by the hybrid layout, each tp row
+               printed with its host): a two-item DiT call at the
                1 s shape, full width, cut to DPTP_BLOCKS (2 text, 8 visual)
                blocks, each dp group one item over its 2 tp ranks, the
                predictions gathered over dp: every rank within TP_BOUND of
@@ -184,9 +188,11 @@ Phases, each of which must pass (any failure exits nonzero):
                order;
   5c. the sequence axis — 8 ranks on the (1, 2, 4) mesh (tp 4 over the
                heads, sp 2 over the visual tokens, K/V all-gathered over sp
-               into K1 and K6): one DiT forward at full width and depth at
-               the 5 s shape, every rank within TP_BOUND of phase 5's
-               single-device forward (K1 34, K8 32, K2 0 a rank); the 10 s
+               into K1 and K6): one DiT forward at full width at the 5 s
+               shape, SP_FORWARD_BLOCKS (16) visual blocks deep (cut from
+               32 to pay for phase 5e), every rank within TP_BOUND of one
+               device's forward at that depth (K1 18, K8 16, K2 0 a rank);
+               the 10 s
                NABLA forward at 93,696 tokens cut to SP_BLOCKS (2 text, 4
                visual) against one device's at that depth (K6 4 a rank; the
                mask blocks kept or dropped unlike one device's printed) and
@@ -195,8 +201,8 @@ Phases, each of which must pass (any failure exits nonzero):
                taking RoPE rows from 0, on NABLA every rank taking STA rows
                from 0, on a mask of STA alone whose sound run is held too);
                the pipeline answers phase 4's image request
-               (SP_IMAGE_STEPS, 4 of its 16 steps: 5d's int8 image runs
-               all 16) on the replayed text, rank 0's frames against the
+               (SP_IMAGE_STEPS, 2 of its 16 steps) on the replayed text,
+               rank 0's frames against the
                single-process tiled decode of its latents (FRAME_LEVELS,
                FRAME_SHARE). Per
                rank: s a forward, tp all-reduce s, sp gather s and bytes,
@@ -214,7 +220,8 @@ Phases, each of which must pass (any failure exits nonzero):
                bf16 one) of one device's int8 forward, K5 10 launches a
                rank and K1, K8, K2 none; the pipeline with
                ``int8_linear=True, attn_impl="flash_int8"`` answers phase
-               4's image request (16 steps), K5 34 x 16 a rank and K1, K2,
+               4's image request (I8_IMAGE_STEPS, 4 of its 16 steps), K5 34
+               a step a rank and K1, K2,
                K8 none, its split decode's launches and rank 0's frames as
                5c's, PSNR against one device's int8 image printed;
                Qwen2.5-VL-7B at full width with 2 layers, bf16, each rank
@@ -227,6 +234,24 @@ Phases, each of which must pass (any failure exits nonzero):
                Per rank and part: seconds, the all-reduces' seconds and
                bytes by dtype (int32 beside bf16), sp gather seconds, peak
                GiB;
+  5e. serving on the mesh — 2 ranks on the (1, 1, 2) mesh that
+               plan_dit_mesh(2, 28) plans, sharing the card: config_5s_distil
+               at full width and depth (each rank's DiT share seeded, the
+               full VAE, the seeded stand-in text embedder), world rank 0
+               serving HTTP at 127.0.0.1 and rank 1 following it
+               (``serve.follow``): two unseeded image requests batch as one
+               batch of two; the seeded request, stopped after 2 chunks when
+               made directly over a state of another seed (not taken; rank 0
+               alone saves, one file left), resumes in the server at step 8
+               and its PNG equals the same request made through the mesh
+               pipeline directly, whose frames are held against the
+               single-process tiled decode of its latents; a request at an
+               unsupported size ends in error on both ranks and a later one
+               is done; the stop ends the follower. Exact counts a rank (K1
+               34 and K8 32 a step, K2 none), K3 and K4 summed over the
+               ranks equal to the single-process decodes'; each job's
+               queued and generation seconds, each batch's s/step and
+               all-reduce share a rank (not a multi-GPU figure);
   6. serving — on phase 4's DiT, VAE and towers (moved back to the card)
                under config_5s_sft.yaml (50 steps, guidance 5.0, its MagCache
                ratios): the 1 s video (25 frames, 10,752 tokens, batched CFG,
@@ -317,11 +342,14 @@ The last two stdout lines are the kernels' JSON summary, then
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
 import os
 import re
+import shutil
+import socket
 import sys
 import time
 import zlib
@@ -426,16 +454,29 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int) -> float:
+    return _timed(fn, reps)[1]
+
+
+def _timed(fn, reps: int = 1):
+    """(the last call's result, ms a call over ``reps`` calls), CUDA
+    events around the calls."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
+
+
+# a plain version whose reference call takes at least this long is timed
+# on that call, not on a second one, which would cost phase 2 about 35 s
+# more (its fp32 plain versions take up to 11 s a call on an H100 80GB
+# HBM3 at 700 W); a quicker one is timed on a second, warm call
+PLAIN_ONCE_MS = 200.0
 
 
 def _errors(out, ref):
@@ -473,8 +514,7 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
 
     out = kernel_fn()
     torch.cuda.synchronize()
-    ref = plain_fn()
-    torch.cuda.synchronize()
+    ref, plain_ms = _timed(plain_fn)
     max_abs, rel = _errors(out, ref)
     atol, rtol = TOL[name]
     if check is not None:
@@ -502,7 +542,8 @@ def _compare(name, shape, kernel_fn, plain_fn, results, work, reps=5,
         ok = ok and control_fails
     del out, ref
     ms = _time_ms(kernel_fn, reps)
-    plain_ms = _time_ms(plain_fn, 1)
+    if plain_ms < PLAIN_ONCE_MS:
+        plain_ms = _time_ms(plain_fn, 1)
     lib_ms = yard_ms = None
     if library_fn is not None:
         library_fn()
@@ -2601,13 +2642,15 @@ def phase_decodes(dev, conf5, vae, latents, frames5, frames10):
 # seed of the tp forward's weights and inputs
 TP_SEED = 5
 TP_WORLDS = (2, 4)
-# the tp = 4 forward's visual blocks (tp = 2 runs all 32): cut from 32 to 8
-# to pay for phase 5c and from 8 to 4 for phase 5d, as PERF.md section 7
-# orders the cuts (its bias control read 1.6e-2 at 8 blocks)
-TP4_BLOCKS = 4
+# the tp forwards' visual blocks (of 32) by tp width, as PERF.md section 7
+# orders the cuts: tp 4 cut from 32 to 8 to pay for phase 5c and from 8 to
+# 4 for phase 5d (its bias control read 1.6e-2 at 8 blocks), tp 2 from 32
+# to 8 for phase 5e (at 32 its forward took 22.9-32.3 s a rank, H100 80GB
+# HBM3, 700 W)
+TP_BLOCKS = {2: 8, 4: 4}
 # the tp = 2 video request's steps (the image keeps the config's 16): the
-# smoke's time goes to phase 7 instead
-TP_VIDEO_STEPS = 2
+# smoke's time goes to phase 7 and, since the cut from 2, to phase 5e
+TP_VIDEO_STEPS = 1
 # a tp forward against the tp = 1 forward on the same card, relative L2: the
 # two sum the row-parallel products in another order and round each rank's
 # partial sum to bf16, which 34 bf16 blocks carry to the output. Over seeds
@@ -2811,12 +2854,11 @@ def single_forward(cfg, dev, args, seed: int, **kw):
 def tp_forwards(dev, cfg, seed: int = TP_SEED):
     """One DiT forward at full width and depth at the 5 s shape on one
     device, then as tp = 2 and tp = 4 ranks sharing the card over gloo
-    (tp = 4 cut to TP4_BLOCKS visual blocks and held against one device's
+    (each TP_BLOCKS visual blocks deep and held against one device's
     forward at that depth), each held against it with TP_BOUND and with the
     controls, which must fail it; launch counts per rank exact. Weights and
-    inputs seeded with ``seed``. Returns the launches, the report, what
-    failed and the full-depth single-device output (phase 5c's
-    reference)."""
+    inputs seeded with ``seed``. Returns the launches, the report and what
+    failed."""
     import dataclasses
 
     import torch
@@ -2840,11 +2882,10 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
     launches, report, failed = {}, [], []
     full = ref
     for world in TP_WORLDS:
-        wcfg, ref = cfg, full
-        if world == 4:
-            wcfg = dataclasses.replace(cfg, num_visual_blocks=TP4_BLOCKS)
-            ref = single_forward(wcfg, dev, tp_inputs(wcfg, dev, seed), seed,
-                                 scale_factor=(1.0, 2.0, 2.0))[0]
+        wcfg = dataclasses.replace(cfg, num_visual_blocks=TP_BLOCKS[world])
+        ref = full if wcfg == cfg else single_forward(
+            wcfg, dev, tp_inputs(wcfg, dev, seed), seed,
+            scale_factor=(1.0, 2.0, 2.0))[0]
         n_vis = wcfg.num_visual_blocks
         want = {"K8_ff": n_vis, "K1_flash_fixed": n_text + n_vis,
                 "K2_ff_mod": 0}
@@ -2899,7 +2940,7 @@ def tp_forwards(dev, cfg, seed: int = TP_SEED):
         if bad:
             failed.append(f"tp {world} forward (seed {seed}): "
                           f"{'; '.join(bad)}")
-    return launches, report, failed, full
+    return launches, report, failed
 
 
 def phase_tp(dev, conf5, seconds5: int, out_dir: str):
@@ -2911,7 +2952,7 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
     over the ranks equal to that decode's."""
     from kandinsky5_tpu_torch.parallel import launch
 
-    launches, report, failed, ref = tp_forwards(dev, conf5.model.dit_params)
+    launches, report, failed = tp_forwards(dev, conf5.model.dit_params)
     if failed:
         raise Failure("; ".join(failed))
     n_text = conf5.model.dit_params.num_text_blocks
@@ -2953,7 +2994,7 @@ def phase_tp(dev, conf5, seconds5: int, out_dir: str):
         k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
     if bad:
         raise Failure("tp 2 requests: " + "; ".join(bad))
-    return launches, report, ref
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -3255,6 +3296,13 @@ def phase_dp(out_dir: str):
     return launches, report
 
 
+def _free_port() -> int:
+    """A port of 127.0.0.1 free when asked (for a TCPStore)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def torch_equal(a, b) -> bool:
     import torch
 
@@ -3328,7 +3376,8 @@ def _dptp_rank(mesh, cfg_kw, seed):
     t = time.perf_counter()
     y = call()
     torch.cuda.synchronize()
-    out = dict(y=y.cpu(), wall_s=time.perf_counter() - t,
+    out = dict(y=y.cpu(), wall_s=time.perf_counter() - t, host=mesh.host,
+               tp_ranks=mesh.tp.ranks, local_ranks=mesh.local.ranks,
                launches=dict(_kernels.LAUNCHES),
                all_reduce_s=mesh.tp.seconds, all_reduce_calls=mesh.tp.calls,
                gather_s=mesh.dp.seconds, gather_calls=mesh.dp.calls,
@@ -3345,8 +3394,11 @@ def _dptp_rank(mesh, cfg_kw, seed):
 
 
 def phase_dptp(dev, conf5):
-    """5b: one launch of 4 ranks on the (2, 1, 2) mesh sharing the card: a
-    two-item DiT call at the 1 s shape (``dptp_inputs``), full width,
+    """5b: 4 ranks on the (2, 1, 2) mesh sharing the card, launched as two
+    emulated hosts (two node launches of 2 ranks each from this process,
+    meeting on a TCPStore at 127.0.0.1; the grid is JAX's hybrid layout,
+    each tp row one host's ranks, printed with its host): a two-item DiT
+    call at the 1 s shape (``dptp_inputs``), full width,
     DPTP_BLOCKS deep, each dp group computing one item with its two tp ranks
     and the predictions gathered over dp; every rank's output within
     TP_BOUND of the single-device calls of one item each (a dp group's
@@ -3382,9 +3434,23 @@ def phase_dptp(dev, conf5):
     del model
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    res = launch(_dptp_rank, 4, "gloo", "cuda",
-                 args=(dataclasses.asdict(cfg), DPTP_SEED), timeout=900, dp=2)
+    # two emulated hosts: a node launch of 2 ranks each, meeting on a
+    # TCPStore at 127.0.0.1, on the hybrid layout (dp over the hosts)
+    master = ("127.0.0.1", _free_port())
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        nodes = [pool.submit(launch, _dptp_rank, 4, "gloo", "cuda",
+                             args=(dataclasses.asdict(cfg), DPTP_SEED),
+                             timeout=900, dp=2, nodes=2, node_rank=h,
+                             master=master) for h in range(2)]
+        res = [r for node in nodes for r in node.result()]
     launch_s = time.perf_counter() - t
+    for rank in (0, 2):
+        r = res[rank]
+        log(f"  tp row {r['tp_ranks']} on host {r['host']} (its ranks "
+            f"{r['local_ranks']})")
+        if r["tp_ranks"] != r["local_ranks"] or r["host"] != rank // 2:
+            raise Failure(f"dp x tp: the tp row {r['tp_ranks']} is not host "
+                          f"{rank // 2}'s ranks {r['local_ranks']}")
     want = {"K8_ff": n_vis, "K1_flash_fixed": n_text + n_vis, "K2_ff_mod": 0}
     bad, line = [], dict(request="dp x tp forward", blocks=DPTP_BLOCKS,
                          launch_s=launch_s, single_launches={
@@ -3430,9 +3496,12 @@ def phase_dptp(dev, conf5):
 SP_PLAN = (1, 2, 4)
 # the 10 s NABLA forward's and the controls' depth: (text, visual) blocks
 SP_BLOCKS = (2, 4)
-# the image request's steps (cut from the config's 16 to pay for phase 5d,
-# whose int8 image request runs all 16 on the same mesh)
-SP_IMAGE_STEPS = 4
+# the 5 s forward's visual blocks (of 32; its 2 text blocks whole): cut to
+# 16 to pay for phase 5e, the first cut of PERF.md section 7's order
+SP_FORWARD_BLOCKS = 16
+# the image request's steps (cut from the config's 16 to 4 to pay for
+# phase 5d, and to 2 for phase 5e)
+SP_IMAGE_STEPS = 2
 # the controls a sound sp forward must not resemble (TP_BOUND): ranks that
 # attend only to their own shard's keys; every rank taking the first rows
 # of the RoPE tables; on NABLA every rank taking the first rows of STA
@@ -3690,6 +3759,10 @@ QWEN_LAYERS, QWEN_SEED = 2, 21
 QWEN_GREEDY, QWEN_INT8_TOKENS = 8, 4
 QWEN_REF = "qwen_reference.pt"
 I8_IMAGE = "int8_image.png"
+# the int8 image request's steps, on the mesh and on one device: cut from
+# the config's 16 to pay for phase 5e (at 16 the mesh request took 73.0-81.1
+# s, H100 80GB HBM3, 700 W)
+I8_IMAGE_STEPS = 4
 
 
 def qwen_greedy(model, ids, n: int):
@@ -3872,7 +3945,7 @@ def _int8_mesh_part(mesh, refs, out_dir):
     name, prompt, tl, shape, _, expand = IMAGE_REQUEST
     t = start()
     frames = pipe(prompt, time_length=tl, width=shape[3], height=shape[2],
-                  seed=42, expand_prompts=expand)
+                  seed=42, num_steps=I8_IMAGE_STEPS, expand_prompts=expand)
     st = stats(t)
     tm = dict(pipe.timings)
     line = dict(st, s_per_step=tm["denoise_s"] / tm["steps"],
@@ -3932,14 +4005,14 @@ def _int8_mesh_part(mesh, refs, out_dir):
     return out
 
 
-def phase_sp(dev, conf5, conf10, out_dir: str, ref=None,
-             parts=("5c", "5d")):
+def phase_sp(dev, conf5, conf10, out_dir: str, parts=("5c", "5d")):
     """Phases 5c and 5d (those of ``parts``) in one launch. Phase 5c: 8
     ranks on the (1, 2, 4) mesh sharing the card over gloo,
     the kernels built before any rank starts. (1) One DiT forward at full
-    width and depth at the 5 s shape (TP_SEED's weights and inputs), every
-    rank within TP_BOUND of one device's (``ref``, phase 5's; computed
-    here when None), exact launches per rank (K1 34, K8 32, K2 0). (2) The
+    width at the 5 s shape, SP_FORWARD_BLOCKS visual blocks deep (TP_SEED's
+    weights and inputs), every rank within TP_BOUND of one device's at that
+    depth, exact launches per rank (K1 2 + SP_FORWARD_BLOCKS, K8
+    SP_FORWARD_BLOCKS, K2 0). (2) The
     10 s NABLA forward (93,696 tokens, a latent constant over each NABLA
     block plus noise, full width, SP_BLOCKS deep) within
     TP_BOUND of one device's at that depth, K6 4 launches a rank, the mask
@@ -3964,17 +4037,18 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None,
     from kandinsky5_tpu_torch.models.dit import dit_forward, fast_init_dit_params
     from kandinsky5_tpu_torch.parallel import launch
 
-    cfg = conf5.model.dit_params
-    n_text, n_vis = cfg.num_text_blocks, cfg.num_visual_blocks
+    n_text = conf5.model.dit_params.num_text_blocks
+    n_vis = conf5.model.dit_params.num_visual_blocks
+    cfg = dataclasses.replace(conf5.model.dit_params,
+                              num_visual_blocks=SP_FORWARD_BLOCKS)
     cut = dataclasses.replace(conf10.model.dit_params,
                               num_text_blocks=SP_BLOCKS[0],
                               num_visual_blocks=SP_BLOCKS[1])
     t = time.perf_counter()
     refs = {}
     if "5c" in parts:
-        if ref is None:
-            ref = single_forward(cfg, dev, tp_inputs(cfg, dev, TP_SEED),
-                                 TP_SEED, scale_factor=(1.0, 2.0, 2.0))[0]
+        ref = single_forward(cfg, dev, tp_inputs(cfg, dev, TP_SEED),
+                             TP_SEED, scale_factor=(1.0, 2.0, 2.0))[0]
         dit = _peaked(fast_init_dit_params(cut, device=dev, seed=TP_SEED))
         masks = []
         nargs = tp_inputs(cut, dev, TP_SEED, frames=61, tiles=True)
@@ -4020,8 +4094,8 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None,
         if bad:
             raise Failure("phase 5d: " + "; ".join(bad))
         return launches, report
-    want = {"forward": {"K1_flash_fixed": n_text + n_vis, "K8_ff": n_vis,
-                        "K2_ff_mod": 0},
+    want = {"forward": {"K1_flash_fixed": n_text + SP_FORWARD_BLOCKS,
+                        "K8_ff": SP_FORWARD_BLOCKS, "K2_ff_mod": 0},
             "nabla": {"K6_sparse_nabla": SP_BLOCKS[1],
                       "K1_flash_fixed": SP_BLOCKS[0], "K8_ff": SP_BLOCKS[1],
                       "K2_ff_mod": 0},
@@ -4030,7 +4104,8 @@ def phase_sp(dev, conf5, conf10, out_dir: str, ref=None,
                     "K2_ff_mod": 0},
             "cut": {"K1_flash_fixed": sum(SP_BLOCKS), "K8_ff": SP_BLOCKS[1],
                     "K2_ff_mod": 0}}
-    for run, what in (("forward", f"5 s forward, {n_vis} visual blocks"),
+    for run, what in (("forward", f"5 s forward, {SP_FORWARD_BLOCKS} visual "
+                       "blocks"),
                       ("nabla", f"10 s NABLA forward, {SP_BLOCKS[1]} "
                        "visual blocks"),
                       ("sta", f"10 s NABLA forward, STA alone, "
@@ -4158,7 +4233,8 @@ def int8_mesh_references(dev, conf5, out_dir) -> dict:
         int8_linear=True, decode_mode="tiled")
     _, prompt, tl, shape, _, expand = IMAGE_REQUEST
     pipe(prompt, time_length=tl, width=shape[3], height=shape[2], seed=42,
-         expand_prompts=expand, save_path=os.path.join(out_dir, I8_IMAGE))
+         num_steps=I8_IMAGE_STEPS, expand_prompts=expand,
+         save_path=os.path.join(out_dir, I8_IMAGE))
     del pipe, dit, vae
     torch.cuda.empty_cache()
     return {"int8": int8.cpu(), "int8_bound": bound,
@@ -4174,9 +4250,10 @@ def phase_int8_mesh(res, total: float, blocks: int):
     int8 forward (flash_int8 + W8A8, the rank-local quantization) at full
     width and 47,616 tokens, INT8_BLOCKS deep, within the one device's own
     int8 error of its int8 forward, K5 2 + 8 launches a rank, K1, K8, K2
-    none; (3) the int8 image request through the pipeline (16 steps),
-    exact K5 ``blocks`` (34) x 16 launches a rank with K1, K2, K8 none, the
-    decode's launches summed over the ranks equal to the single-process decode's,
+    none; (3) the int8 image request through the pipeline (I8_IMAGE_STEPS),
+    exact K5 ``blocks`` (34) x I8_IMAGE_STEPS launches a rank with K1, K2,
+    K8 none, the decode's launches summed over the ranks equal to the
+    single-process decode's,
     rank 0's frames against it; PSNR against one device's int8 image
     printed (random weights: not gated); (4) Qwen2.5-VL-7B at full width
     with QWEN_LAYERS layers, bf16, each rank holding its 1/8: the hidden
@@ -4298,6 +4375,328 @@ def phase_int8_mesh(res, total: float, blocks: int):
     return launches, report, bad
 
 
+# ---------------------------------------------------------------------------
+# phase 5e: serving on the mesh, 2 ranks on (1, 1, 2) sharing the card
+# ---------------------------------------------------------------------------
+
+# the mesh server's image requests (the config's 16 steps each): two
+# unseeded ones within the batch window, a seeded one (resumed from the
+# state the ranks left), one at an unsupported size, a later unseeded one
+MESH_SERVE_PROMPTS = ("a mesh-served image", "another mesh-served image")
+MESH_SERVE_SEEDED = ("a seeded mesh-served image", 7)
+MESH_SERVE_LATER = "a later mesh-served image"
+# the unseeded pair's and the later request's steps: they show batching and
+# that the server goes on after an error, and are cut from the config's 16
+# so that the smoke keeps its time
+MESH_SERVE_PAIR_STEPS, MESH_SERVE_LATER_STEPS = 4, 4
+# the seeded request made directly stops after this many chunks of 4 steps;
+# the server resumes it at 4 x this step
+MESH_RESUME_CHUNKS = 2
+
+
+def _serve_mesh_rank(mesh, out_dir):
+    """One rank of phase 5e (see :func:`phase_serve_mesh`)."""
+    from unittest import mock
+
+    import torch
+
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+    from kandinsky5_tpu_torch.models.vae import HunyuanVideoVAE, init_vae_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel.sharding import fast_init_dit_shard
+    from kandinsky5_tpu_torch.pipeline import (
+        DEFAULT_NEGATIVE,
+        SCHEDULER_SCALE,
+        Kandinsky5T2VPipeline,
+    )
+    from kandinsky5_tpu_torch.serve import GenerationServer, Job, follow
+    from kandinsky5_tpu_torch.utils import resume
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    conf = load_config(os.path.join(CONFIG_DIR, CONF5))
+    t = time.perf_counter()
+    dit = fast_init_dit_shard(conf.model.dit_params, mesh, seed=0)
+    vae = HunyuanVideoVAE(init_vae_params(device=mesh.device,
+                                          dtype=torch.bfloat16, seed=1))
+    pipe = Kandinsky5T2VPipeline(dit, conf, SeededEmbedder(), vae, tp=mesh)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "build_s": time.perf_counter() - t}
+    decoded = []
+    real_decode = pipe.decode_latents
+
+    def keep(lat, mode=None):
+        decoded.append(lat)
+        return real_decode(lat, mode)
+
+    pipe.decode_latents = keep
+    barrier = lambda: mesh.world.all_reduce(torch.zeros(1))  # noqa: E731
+    image = dict(time_length=0, width=768, height=512)
+    prompt, seed = MESH_SERVE_SEEDED
+    states = os.path.join(out_dir, "serve_mesh", "states")
+    if mesh.rank == 0:
+        shutil.rmtree(os.path.join(out_dir, "serve_mesh"), ignore_errors=True)
+        os.makedirs(states)
+    barrier()
+
+    # the seeded request made directly with the server's state path: a
+    # state of another seed first (one chunk of one step; not taken), then
+    # the request stopped after MESH_RESUME_CHUNKS chunks of 4 steps; every
+    # save counted on each rank
+    path = os.path.join(states, Job("", prompt, seed=seed,
+                                    **image).request_key() + ".npz")
+    m = conf.model
+    spec = pipe._spec(m.num_steps, m.guidance_weight, SCHEDULER_SCALE)
+    cond = pipe._encode([pipe.expand_prompt(prompt)], "image")
+    uncond = pipe._encode([DEFAULT_NEGATIVE], "image")
+    saves, other, first = [], {}, {}
+    real_save = resume.save_state
+
+    def counted(*a, **kw):
+        saves.append(a[1])
+        return real_save(*a, **kw)
+
+    with mock.patch.object(resume, "save_state", counted):
+        for report, s, size, chunks in (
+                (other, seed + 1, 1, 1), (first, seed, 4, MESH_RESUME_CHUNKS)):
+            resume.resumable_generate(
+                dit, spec, (1, 1, 64, 96, 16), cond, uncond, seed=s,
+                checkpoint_path=path, chunk=size, mesh=mesh, report=report,
+                _stop_after_chunks=chunks)
+    barrier()
+    out["resume"] = dict(saves=saves, other_start=other["start_step"],
+                         start=first["start_step"],
+                         files=sorted(os.listdir(states)))
+
+    # the server session: rank 0 the front end, rank 1 follows; the counts
+    # cover it alone
+    del decoded[:]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    if mesh.rank != 0:
+        out["records"] = follow(pipe)
+    else:
+        srv = GenerationServer(pipe, out_dir=os.path.join(out_dir,
+                                                          "serve_mesh"),
+                               batch_window_s=1.0, checkpoint_dir=states)
+        port = srv.start(host="127.0.0.1", port=0).server_address[1]
+        try:
+            out["healthz"] = _http(port, "/healthz")
+            jobs = {f"unseeded {i}": _http(port, "/generate", dict(
+                image, prompt=p, num_steps=MESH_SERVE_PAIR_STEPS))["job_id"]
+                for i, p in enumerate(MESH_SERVE_PROMPTS)}
+            st = _wait_jobs(port, list(jobs.values()))
+            out["after_pair"] = _http(port, "/metrics")
+            for name, extra in (
+                    ("seeded", dict(prompt=prompt, seed=seed)),
+                    ("unsupported size", dict(prompt="too wide",
+                                              width=SERVE_BAD_WIDTH)),
+                    ("later", dict(prompt=MESH_SERVE_LATER,
+                                   num_steps=MESH_SERVE_LATER_STEPS))):
+                jobs[name] = _http(port, "/generate",
+                                   dict(image, **extra))["job_id"]
+                st.update(_wait_jobs(port, [jobs[name]]))
+            out["metrics"] = _http(port, "/metrics")
+            out["png"] = _http(port, f"/result/{jobs['seeded']}")
+        finally:
+            srv.stop()
+            srv.join()
+        out["status"] = {name: st[j] for name, j in jobs.items()}
+        out["timings"] = {name: srv.jobs[j].timings
+                          for name, j in jobs.items()}
+        out["files_after"] = sorted(os.listdir(states))
+    torch.cuda.synchronize()
+    out["session_s"] = time.perf_counter() - t
+    out["session_launches"] = dict(_kernels.LAUNCHES)
+    session = list(decoded)
+
+    # the seeded request through the mesh pipeline directly
+    _kernels.reset_launches()
+    frames = pipe(prompt, seed=seed, **image)
+    torch.cuda.synchronize()
+    out["direct_launches"] = dict(_kernels.LAUNCHES)
+    out["direct_timings"] = dict(pipe.timings)
+    if mesh.rank == 0:
+        import io
+
+        import numpy as np
+        from PIL import Image
+
+        out["png_equal"] = bool(np.array_equal(
+            np.asarray(Image.open(io.BytesIO(out.pop("png")))),
+            frames[0, 0]))
+        out.update(_single_decodes(pipe, [("mesh direct", decoded[-1],
+                                           frames)]))
+        one = Kandinsky5T2VPipeline(None, pipe.conf, None,
+                                    pipe.vae.replace(group=None),
+                                    decode_mode="tiled")
+        _kernels.reset_launches()
+        for lat in session:
+            one.decode_latents(lat)
+        out["single_session_launches"] = dict(_kernels.LAUNCHES)
+    elif frames is not None:
+        raise Failure(f"rank {mesh.rank} returned frames")
+    return out
+
+
+def phase_serve_mesh(out_dir: str):
+    """5e: one launch of 2 ranks on the (1, 1, 2) mesh that
+    ``plan_dit_mesh(2, 28)`` plans, sharing the card over gloo.
+    config_5s_distil.yaml at full width and depth (each rank's DiT share
+    drawn by ``fast_init_dit_shard``, the full VAE, the seeded stand-in text
+    embedder) serves image requests at the config's 16 steps (the pair at
+    MESH_SERVE_PAIR_STEPS, the later one at MESH_SERVE_LATER_STEPS): world
+    rank 0
+    runs ``GenerationServer`` at 127.0.0.1, rank 1 ``serve.follow``. Before
+    the server starts, the seeded request made directly with the server's
+    state path stops after MESH_RESUME_CHUNKS chunks over a state of
+    another seed, which it must not take (start step 0); rank 0 alone
+    saves, one state file is left. Served: two unseeded requests within the
+    window as one batch of two (``/metrics``); the seeded request alone,
+    resumed at step 8 (``start_step``), its PNG bit-equal to the same
+    request made through the mesh pipeline directly afterwards, whose
+    frames are held against the single-process tiled decode of its latents
+    (FRAME_LEVELS, FRAME_SHARE), the state file gone; a request at an
+    unsupported size in ``error`` on both ranks, and a later one ``done``;
+    ``/healthz`` counts 2 ranks; the stop ends the follower. Launch counts a
+    rank, exact: K1 34 and K8 32 a step run, K2 none, in the session and
+    in the direct call; K3 and K4 summed over the ranks equal to the
+    single-process tiled decodes of the same latents. Printed: each job's
+    ``queued_s`` and ``generation_s``, each batch's s/step and all-reduce
+    share a rank. Returns the launches by path and the report."""
+    from kandinsky5_tpu_torch.config import CONFIG_DIR, load_config
+    from kandinsky5_tpu_torch.parallel import launch
+    from kandinsky5_tpu_torch.parallel.sharding import plan_dit_mesh
+
+    cfg = load_config(os.path.join(CONFIG_DIR, CONF5)).model.dit_params
+    plan = plan_dit_mesh(2, cfg.num_heads)
+    if plan != (1, 1, 2):
+        raise Failure(f"plan_dit_mesh(2, {cfg.num_heads}) gives {plan}")
+    t = time.perf_counter()
+    res = launch(_serve_mesh_rank, 2, "gloo", "cuda", args=(out_dir,),
+                 timeout=900)
+    launch_s = time.perf_counter() - t
+    lead, follower = res
+    n_text, n_vis = cfg.num_text_blocks, cfg.num_visual_blocks
+    bad = []
+    st, tm = lead["status"], lead["timings"]
+    names = list(st)
+    # the steps each served batch ran (the seeded one from its resume step)
+    batches = [tm["unseeded 0"], tm["seeded"], tm["later"]]
+    ran = sum(b["steps"] - b.get("start_step", 0) for b in batches)
+    direct_steps = lead["direct_timings"]["steps"]
+    for rank, r in enumerate(res):
+        rec = r["records"] if rank else None
+        for what, got, steps in (("session", r["session_launches"], ran),
+                                 ("direct", r["direct_launches"],
+                                  direct_steps)):
+            want = {"K1_flash_fixed": (n_text + n_vis) * steps,
+                    "K8_ff": n_vis * steps, "K2_ff_mod": 0}
+            wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+            if wrong:
+                bad.append(f"rank {rank} {what}: launches (got, want) {wrong}")
+        rs = r["resume"]
+        want_saves = [1, 4, 8] if rank == 0 else []
+        if (rs["saves"] != want_saves or rs["other_start"] != 0
+                or rs["start"] != 0 or len(rs["files"]) != 1):
+            bad.append(f"rank {rank} direct resume runs: saves {rs['saves']} "
+                       f"(want {want_saves}), start steps "
+                       f"{rs['other_start']}, {rs['start']}, files "
+                       f"{rs['files']}")
+        per_batch = (batches if rank == 0
+                     else [x["timings"] for x in rec if x["ok"]])
+        for b in per_batch:
+            share = b["all_reduce_s"] / b["denoise_s"]
+            b["all_reduce_share"] = share
+        log(f"  rank {rank}: built in {r['build_s']:.1f} s; session "
+            f"{r['session_s']:.1f} s; batches' s/step "
+            + ", ".join(f"{b['denoise_s'] / (b['steps'] - b.get('start_step', 0)):.4f}"
+                        for b in per_batch)
+            + "; all-reduce share of the denoise "
+            + ", ".join(f"{b['all_reduce_share']:.3f}" for b in per_batch)
+            + " (gloo through the host, 2 ranks on one card, not a "
+            "multi-GPU figure)")
+    for n in names:
+        log(f"  served {n}: {st[n]['state']}, queued {st[n]['queued_s']:.3f} "
+            f"s, generation {st[n].get('generation_s', float('nan')):.3f} s"
+            + (f", start step {st[n]['start_step']}"
+               if "start_step" in st[n] else "")
+            + (f" ({st[n]['error']})" if st[n].get("error") else ""))
+    log(f"  healthz {lead['healthz']}; metrics after the pair "
+        f"{lead['after_pair']}, at the end {lead['metrics']}")
+    rec = follower["records"]
+    if [x["ok"] for x in rec] != [True, True, False, True] or \
+            "height, width" not in rec[2]["error"]:
+        bad.append(f"follower records {[(x['ok'], x.get('error')) for x in rec]}")
+    if (lead["after_pair"]["batches"], lead["after_pair"]["batched_jobs"]) \
+            != (1, 2):
+        bad.append(f"the pair did not batch: {lead['after_pair']}")
+    if (st["seeded"]["state"] != "done"
+            or st["seeded"].get("start_step") != 4 * MESH_RESUME_CHUNKS
+            or not lead["png_equal"] or lead["files_after"]):
+        bad.append(f"seeded: {st['seeded']}, PNG bit-equal to the direct "
+                   f"call {lead['png_equal']}, states left "
+                   f"{lead['files_after']}")
+    if st["unsupported size"]["state"] != "error" or \
+            "height, width" not in st["unsupported size"].get("error", "") \
+            or any(st[n]["state"] != "done" for n in names
+                   if n != "unsupported size"):
+        bad.append(f"job states {({n: st[n]['state'] for n in names})}")
+    m = lead["metrics"]
+    if (m["jobs_done"], m["jobs_failed"], m["batches"]) != (4, 1, 3) or \
+            lead["healthz"]["devices"] != 2:
+        bad.append(f"metrics {m}, healthz {lead['healthz']}")
+    for name, fm in lead["frames"].items():
+        log(f"  {name}: rank 0's frames against the single-process tiled "
+            f"decode of its latents: {fm['max_levels']} levels at most, on "
+            f"{fm['share']:.2e} of the values; served PNG bit-equal "
+            f"{lead['png_equal']}")
+    bad += _decode_split_faults(
+        [dict(frames=lead["frames"], launches=lead["direct_launches"]),
+         dict(launches=follower["direct_launches"])],
+        lead["single_launches"], every_rank=False)
+    summed = {k: sum(r["session_launches"][k] for r in res)
+              for k in DECODE_KERNELS}
+    single = {k: lead["single_session_launches"][k] for k in DECODE_KERNELS}
+    if summed != single:
+        bad.append(f"session decode launches over the ranks {summed}, "
+                   f"single {single}")
+    log(f"  launches a rank: session ({ran} steps) "
+        f"{[{k: r['session_launches'][k] for k in ('K1_flash_fixed', 'K8_ff', 'K2_ff_mod')} for r in res]}, "
+        f"direct ({direct_steps} steps) "
+        f"{[{k: r['direct_launches'][k] for k in ('K1_flash_fixed', 'K8_ff', 'K2_ff_mod')} for r in res]}; "
+        f"session decodes K3/K4 over the ranks {summed} (single {single})")
+    if bad:
+        raise Failure("serving on the mesh: " + "; ".join(bad))
+    report = [dict(request="mesh server", launch_s=launch_s,
+                   session_s=[r["session_s"] for r in res],
+                   build_s=[r["build_s"] for r in res],
+                   jobs={n: {k: st[n].get(k) for k in (
+                       "state", "queued_s", "generation_s", "start_step")}
+                       for n in names},
+                   s_per_step={n: tm[n]["denoise_s"] / (
+                       tm[n]["steps"] - tm[n].get("start_step", 0))
+                       for n in names if st[n]["state"] == "done"},
+                   all_reduce_share=[[b["all_reduce_share"]
+                                      for b in (batches if rank == 0 else
+                                                [x["timings"] for x in
+                                                 r["records"] if x["ok"]])]
+                                     for rank, r in enumerate(res)],
+                   metrics=m)]
+    return {"5e-serve-mesh": _summed(r["session_launches"] for r in res),
+            "5e-direct": _summed(r["direct_launches"] for r in res)}, report
+
+
+def serve_mesh_alone(out_dir) -> dict:
+    """Phase 5e alone (``--serve-mesh``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    t = time.perf_counter()
+    launches, report = phase_serve_mesh(out_dir)
+    return dict(launches=launches, report=report,
+                seconds=time.perf_counter() - t)
+
+
 def sp_alone(out_dir, dev, conf5, conf10) -> dict:
     """Phase 5c alone (``--sp``): the image request's text embeddings come
     from :class:`SeededEmbedder`, not from phase 4's towers, and one
@@ -4370,7 +4769,7 @@ def tp_seed_study(dev, seeds) -> int:
     rows, failed = [], []
     for seed in seeds:
         t = time.perf_counter()
-        _, report, bad, _ = tp_forwards(dev, cfg, seed)
+        _, report, bad = tp_forwards(dev, cfg, seed)
         failed += bad
         for line in report:
             rows.append({k: line.get(k) for k in (
@@ -5693,6 +6092,12 @@ def main() -> int:
                     "image request, the sharded Qwen) with seeded stand-in "
                     "text embeddings, and print their readings (no smoke "
                     "result)")
+    ap.add_argument("--serve-mesh", action="store_true",
+                    help="build, then run only phase 5e (the server on 2 "
+                    "ranks of the (1, 1, 2) mesh: batching, a seeded and "
+                    "resumed request against the direct mesh call, an "
+                    "error, the stop) and print its readings (no smoke "
+                    "result)")
     ap.add_argument("--windows", action="store_true",
                     help="build, then run only phase 2's K3 window-maxima "
                     "cases (every instance, with the control) and print "
@@ -5837,6 +6242,12 @@ def main() -> int:
             log(json.dumps(dict(d_out, kernels=results)))
             return 0 if all(r["ok"] for rs in results.values()
                             for r in rs) else 1
+        if args.serve_mesh:
+            e_out = serve_mesh_alone(args.out)
+            log(f"  phase 5e {e_out['seconds']:.1f} s")
+            log(gpu_line())
+            log(json.dumps(e_out))
+            return 0
         if args.sp:
             conf5 = load_config(os.path.join(CONFIG_DIR, CONF5))
             conf10 = load_config(os.path.join(CONFIG_DIR, CONF10))
@@ -5887,7 +6298,7 @@ def main() -> int:
         log("phase 5: tensor and data parallelism, 2 and 4 ranks sharing the "
             "card (gloo)")
         t = time.perf_counter()
-        tp_launches, tp_report, tp_ref = phase_tp(dev, conf5, seconds5,
+        tp_launches, tp_report = phase_tp(dev, conf5, seconds5,
                                                   args.out)
         launches.update(tp_launches)
         report += tp_report
@@ -5895,11 +6306,15 @@ def main() -> int:
         for sub, what, run in (
                 ("5a", "dp serving: 2 ranks on (2, 1, 1)",
                  lambda: phase_dp(args.out)),
-                ("5b", "dp x tp: 4 ranks on (2, 1, 2)",
+                ("5b", "dp x tp: 4 ranks on (2, 1, 2) over two emulated "
+                 "hosts",
                  lambda: phase_dptp(dev, conf5)),
                 ("5c-5d", "the sequence axis and int8 on the mesh: 8 ranks "
                  "on (1, 2, 4)",
-                 lambda: phase_sp(dev, conf5, conf10, args.out, tp_ref))):
+                 lambda: phase_sp(dev, conf5, conf10, args.out)),
+                ("5e", "serving on the mesh: 2 ranks on (1, 1, 2), rank 0 "
+                 "the front end",
+                 lambda: phase_serve_mesh(args.out))):
             log(f"phase {sub}: {what}")
             t = time.perf_counter()
             sub_launches, sub_report = run()

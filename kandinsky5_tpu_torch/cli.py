@@ -16,7 +16,13 @@ card per rank, else gloo), each building the pipeline from the same
 checkpoints on the mesh the JAX factory plans for N devices
 (``plan_dit_mesh(N, heads)``: 8 devices and 28 heads run (1, 2, 4), tp 4
 over the heads and sp 2 over the sequence); every rank decodes its share
-of the tiles, rank 0 blends them and writes.
+of the tiles, rank 0 blends them and writes. Over several hosts each host
+runs the command with ``--nnodes H --node-rank h --master-addr A
+--master-port P`` (arguments: nothing is read from the environment); ``--tp
+N`` is then the width of each tp row, which must divide a host's ranks
+(one a card; with ``--device cpu`` ``--nproc-per-node``, by default N),
+and the mesh is JAX's hybrid one: dp over the hosts, the host's other ranks
+in-host dp (``plan_hybrid_mesh``).
 ``--trace_dir DIR`` traces the request with ``torch.profiler`` into
 ``DIR/trace.json`` (rank 0's), where the JAX package reads
 ``KANDINSKY5_TPU_TRACE_DIR``.
@@ -64,7 +70,25 @@ def parse_args(argv=None):
     p.add_argument("--trace_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the request "
                    "here")
+    add_node_args(p)
     return p.parse_args(argv)
+
+
+def add_node_args(p) -> None:
+    """The arguments of a launch over several hosts (the CLI's and the
+    server's)."""
+    p.add_argument("--nnodes", type=int, default=1,
+                   help="hosts of the launch (each runs this command)")
+    p.add_argument("--node-rank", type=int, default=0,
+                   help="this host's index, 0 to nnodes - 1")
+    p.add_argument("--master-addr", type=str, default=None,
+                   help="address of host 0, where global rank 0 serves the "
+                   "ranks' TCPStore")
+    p.add_argument("--master-port", type=int, default=None,
+                   help="a free port on host 0 for the TCPStore")
+    p.add_argument("--nproc-per-node", type=int, default=None,
+                   help="with --device cpu, ranks on each host (default "
+                   "--tp); on the card a host runs one rank a card")
 
 
 def validate_args(args):
@@ -118,21 +142,55 @@ def mesh_plan(args):
     return plan_dit_mesh(args.tp, cfg.num_heads)
 
 
+def launch_plan(args):
+    """The ``parallel.launch`` arguments of ``--tp`` and the node arguments
+    (``world``, ``backend``, ``device``, ``dp``, ``sp``, ``nodes``,
+    ``node_rank``, ``master``), or None for one process. One host: ``--tp
+    N`` ranks on ``plan_dit_mesh(N, heads)``. Several: the hybrid mesh of
+    ``plan_hybrid_mesh(N, ranks per host, hosts)``. The backend is NCCL
+    with a card per rank of the host, else gloo."""
+    import torch
+
+    from kandinsky5_tpu_torch.parallel.sharding import plan_hybrid_mesh
+
+    device = "cpu" if args.device == "cpu" else "cuda"
+    nodes = args.nnodes
+    if nodes > 1:
+        if args.master_addr is None or args.master_port is None:
+            raise ValueError("a launch over several hosts needs "
+                             "--master-addr and --master-port")
+        tp = args.tp or 1
+        if device == "cuda":
+            if args.nproc_per_node is not None:
+                raise ValueError("--nproc-per-node is for --device cpu: on "
+                                 "the card a host runs one rank a card")
+            per = torch.cuda.device_count()
+        else:
+            per = args.nproc_per_node or tp
+        dp, sp, _ = plan_hybrid_mesh(tp, per, nodes)
+        master = (args.master_addr, args.master_port)
+    elif args.tp is not None and args.tp > 1:
+        per = args.tp
+        dp, sp, _ = mesh_plan(args)
+        master = None
+    else:
+        return None
+    backend = ("nccl" if device == "cuda"
+               and torch.cuda.device_count() >= per else "gloo")
+    return dict(world=per * nodes, backend=backend, device=device, dp=dp,
+                sp=sp, nodes=nodes, node_rank=args.node_rank, master=master)
+
+
 def main(argv=None):
     args = parse_args(argv)
     validate_args(args)
     start = time.time()
-    if args.tp is not None and args.tp > 1:
-        import torch
-
+    plan = launch_plan(args)
+    if plan is not None:
         from kandinsky5_tpu_torch.parallel import launch
 
-        device = "cpu" if args.device == "cpu" else "cuda"
-        backend = ("nccl" if device == "cuda"
-                   and torch.cuda.device_count() >= args.tp else "gloo")
-        dp, sp, _ = mesh_plan(args)
-        written = launch(generate, args.tp, backend, device, args=(args,),
-                         dp=dp, sp=sp)[0]
+        written = launch(generate, plan.pop("world"), plan.pop("backend"),
+                         plan.pop("device"), args=(args,), **plan)[0]
     else:
         written = generate(None, args)
     print(f"generated in {time.time() - start:.1f}s -> {written}")

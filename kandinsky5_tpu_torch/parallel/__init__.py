@@ -6,8 +6,9 @@ from kandinsky5_tpu_torch.parallel.ranks import (
     RankMesh,
     SequenceParallel,
     TensorParallel,
+    hybrid_rank_grid,
     launch,
 )
 
 __all__ = ["DataParallel", "RankMesh", "SequenceParallel", "TensorParallel",
-           "launch"]
+           "hybrid_rank_grid", "launch"]

@@ -15,6 +15,12 @@ sp and tp index r % tp (:func:`rank_grid`). The tp groups are contiguous
 ranks (with NCCL they stay inside a node); an sp group holds the ranks of
 one (dp, tp) index, at stride tp; a dp group those of one (sp, tp) index.
 
+Over several hosts (:func:`launch` with ``nodes``) the layout is that of
+JAX's ``make_hybrid_mesh`` (:func:`hybrid_rank_grid`): dp spans the hosts,
+each tp row lies inside one host, and each rank's mesh carries its host's
+group (``RankMesh.node``). The node's index and the master's address are
+arguments: nothing is read from the environment.
+
 The backend is the caller's explicit choice and nothing switches it:
 ``"nccl"`` for one GPU per rank, ``"gloo"`` for ranks that share one card
 (NCCL refuses two ranks on one GPU; gloo stages CUDA tensors through the
@@ -23,14 +29,16 @@ host) or run on the CPU.
 
 from __future__ import annotations
 
+import datetime
 import multiprocessing
 import os
 import pickle
 import queue
+import signal
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,8 +147,36 @@ class RankGroup:
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Group rank ``src``'s ``x`` on every rank (in place)."""
-        dist.broadcast(x, src=self.ranks[src], group=self.group)
+        if self.size > 1:
+            dist.broadcast(x, src=self.ranks[src], group=self.group)
         return x
+
+    @property
+    def wire(self) -> torch.device:
+        """Where small host values (a seed, a flag, a message) travel: the
+        rank's card under NCCL, which moves only CUDA tensors, else the
+        CPU."""
+        return self.device if self.backend == "nccl" else torch.device("cpu")
+
+    def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
+        """Group rank ``src``'s ``obj`` (any picklable value) on every rank;
+        the others' ``obj`` is ignored."""
+        if self.size == 1:
+            return obj
+        if self.rank == src:
+            data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                    dtype=torch.uint8).to(self.wire)
+            n = torch.tensor([data.numel()], dtype=torch.int64,
+                             device=self.wire)
+        else:
+            n = torch.zeros(1, dtype=torch.int64, device=self.wire)
+        self.broadcast(n, src)
+        if self.rank != src:
+            data = torch.empty(int(n.item()), dtype=torch.uint8,
+                               device=self.wire)
+        self.broadcast(data, src)
+        return obj if self.rank == src else pickle.loads(
+            data.cpu().numpy().tobytes())
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(rank={self.rank}, size={self.size}, "
@@ -172,17 +208,21 @@ class RankMesh(NamedTuple):
     its tensor-parallel group, the group of every rank (``world``: the
     tiled decode splits its tiles over it, the noise is rank 0's of it),
     its sequence-parallel group (``sp``; None is a group of one, so that a
-    (dp, 1, tp) place is ``RankMesh(dp, tp, world)``) and the group of the
+    (dp, 1, tp) place is ``RankMesh(dp, tp, world)``), the group of the
     sp * tp ranks of its dp index (``shard``, in (sp, tp) order: the JAX
     package's ``axes=("sp", "tp")``, over which the Qwen tower shards,
     ``text/qwen.py`` ``shard_qwen``; :func:`rank_mesh` and :func:`as_mesh`
-    cut it). A group of one rank has no process group."""
+    cut it), the group of the mesh's ranks on its host (``node``; None
+    when the whole mesh is on one host: the world) and the index of its
+    host (``host``). A group of one rank has no process group."""
 
     dp: DataParallel
     tp: TensorParallel
     world: RankGroup
     sp: Optional[SequenceParallel] = None
     shard: Optional[RankGroup] = None
+    node: Optional[RankGroup] = None
+    host: int = 0
 
     @property
     def rank(self) -> int:
@@ -201,6 +241,12 @@ class RankMesh(NamedTuple):
         """(dp, sp, tp), as JAX's ``mesh.shape``."""
         return (self.dp.size, 1 if self.sp is None else self.sp.size,
                 self.tp.size)
+
+    @property
+    def local(self) -> RankGroup:
+        """The mesh's ranks on this rank's host (the world on one host):
+        what the JAX package's ``jax.local_devices()`` are to a process."""
+        return self.world if self.node is None else self.node
 
 
 def as_mesh(place) -> RankMesh:
@@ -227,9 +273,34 @@ def rank_grid(world: int, dp: int = 1, sp: int = 1) -> np.ndarray:
     return np.arange(world).reshape(dp, sp, world // (dp * sp))
 
 
+def hybrid_rank_grid(tp: int, dp_ici: int, host_of: Sequence[int]
+                     ) -> np.ndarray:
+    """The ranks laid out as JAX's ``make_hybrid_mesh(tp, dp_ici)`` lays out
+    its devices, ``host_of[r]`` the host of global rank r: the ranks grouped
+    by host, the hosts in ascending order, each host's group (its ranks in
+    ascending order) reshaped to (dp_ici, tp), the groups stacked to (hosts
+    x dp_ici, tp). Every tp row lies inside one host, so only dp crosses
+    hosts. Raises where JAX asserts: uneven ranks per host, or dp_ici x tp
+    unlike the ranks per host."""
+    hosts = {}
+    for r, h in enumerate(host_of):
+        hosts.setdefault(int(h), []).append(r)
+    groups = [hosts[h] for h in sorted(hosts)]
+    per = len(groups[0])
+    if any(len(g) != per for g in groups):
+        raise ValueError("uneven ranks per host: "
+                         f"{[len(g) for g in groups]}")
+    if dp_ici < 1 or tp < 1 or per != dp_ici * tp:
+        raise ValueError(f"dp_ici*tp = {dp_ici * tp} != {per} ranks per "
+                         "host")
+    return np.array([np.reshape(g, (dp_ici, tp)) for g in groups]).reshape(
+        len(groups) * dp_ici, tp)
+
+
 def rank_device(device: str, rank: int, world: int, backend: str):
-    """The device of ``rank``: the CPU, or for ``"cuda"`` card ``rank %
-    device_count``. NCCL needs a card per rank; sharing one takes gloo."""
+    """The device of ``rank`` among the ``world`` ranks of its host: the
+    CPU, or for ``"cuda"`` card ``rank % device_count``. NCCL needs a card
+    per rank; sharing one takes gloo."""
     if device == "cpu":
         return torch.device("cpu")
     if device != "cuda":
@@ -255,7 +326,8 @@ def _group(ranks: List[int], backend: str):
 
 
 def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
-              device) -> Optional[RankMesh]:
+              device, hosts: Optional[Sequence[int]] = None
+              ) -> Optional[RankMesh]:
     """This process's :class:`RankMesh`, on ``device``, on the (dp, sp, tp)
     mesh of the
     global ``ranks`` laid out as :func:`rank_grid` lays out its indices
@@ -265,9 +337,19 @@ def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
     rank outside ``ranks`` gets None. A group's ranks run along its axis,
     the other two indices fixed; the groups are created tp, then sp, then
     dp, then the sp * tp groups of each dp index (``RankMesh.shard``), then
-    the mesh's world."""
+    the mesh's world, then (with ``hosts``) each host's ranks.
+
+    ``hosts`` gives the host of each of ``ranks`` (in their order); each
+    rank's mesh then carries its host's ranks in the order of ``ranks``
+    (``RankMesh.node``; None on one host). That the tp rows stay inside a
+    host is ``launch``'s check (``_ranks_per_node``)."""
     ranks = list(ranks)
     grid = np.asarray(ranks)[rank_grid(len(ranks), dp, sp)]
+    host_of = None
+    if hosts is not None:
+        if len(hosts) != len(ranks):
+            raise ValueError(f"{len(hosts)} hosts for {len(ranks)} ranks")
+        host_of = dict(zip(ranks, (int(h) for h in hosts)))
     me = dist.get_rank()
     mine = {}
     for kind, axis in (("tp", 2), ("sp", 1), ("dp", 0)):
@@ -281,6 +363,15 @@ def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
         if me in members:
             mine["shard"] = (members, pg)
     world = _group(ranks, backend)
+    node = None
+    if host_of is not None and len(set(host_of.values())) > 1:
+        for h in sorted(set(host_of.values())):
+            members = [r for r in ranks if host_of[r] == h]
+            pg = _group(members, backend)
+            if me in members:
+                node = RankGroup(pg, members.index(me), len(members),
+                                 backend, torch.device(device),
+                                 ranks=members)
     if me not in ranks:
         return None
     dev = torch.device(device)
@@ -293,22 +384,40 @@ def rank_mesh(ranks: Sequence[int], dp: int, sp: int, backend: str,
     return RankMesh(group(DataParallel, "dp"), group(TensorParallel, "tp"),
                     RankGroup(world, ranks.index(me), len(ranks), backend,
                               dev, ranks=ranks),
-                    group(SequenceParallel, "sp"), group(RankGroup, "shard"))
+                    group(SequenceParallel, "sp"), group(RankGroup, "shard"),
+                    node, 0 if host_of is None else host_of[me])
 
 
-def _rank_main(call_path: str, rank: int, world: int, dp: int, sp: int,
-               backend: str, device: str, store_path: str, results) -> None:
+def _rank_main(call_path: str, rank: int, local: int, per_node: int,
+               world: int, dp: int, sp: int, nodes: int, backend: str,
+               device: str, store: Tuple, timeout: Optional[float],
+               results) -> None:
     try:
         with open(call_path, "rb") as f:
             fn, args = pickle.load(f)
-        dev = rank_device(device, rank, world, backend)
+        dev = rank_device(device, local, per_node, backend)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        store = dist.FileStore(store_path, world)
-        dist.init_process_group(backend, store=store, rank=rank,
+        wait = datetime.timedelta(seconds=timeout or 1800.0)
+        if store[0] == "tcp":
+            # global rank 0 hosts the store; the others connect to it
+            kv = dist.TCPStore(store[1], store[2], world, is_master=rank == 0,
+                               timeout=wait)
+        else:
+            kv = dist.FileStore(store[1], world)
+        dist.init_process_group(backend, store=kv, rank=rank,
                                 world_size=world)
         try:
-            mesh = rank_mesh(range(world), dp, sp, backend, dev)
+            if nodes > 1:
+                # the node's ranks are contiguous, so JAX's hybrid order is
+                # the ranks' own; it is built as make_hybrid_mesh builds it
+                hosts = [r // per_node for r in range(world)]
+                grid = hybrid_rank_grid(world // dp, per_node * dp // world,
+                                        hosts).reshape(-1).tolist()
+                mesh = rank_mesh(grid, dp, 1, backend, dev,
+                                 hosts=[hosts[r] for r in grid])
+            else:
+                mesh = rank_mesh(range(world), dp, sp, backend, dev)
             out = fn(mesh, *args)
         finally:
             dist.destroy_process_group()
@@ -318,46 +427,89 @@ def _rank_main(call_path: str, rank: int, world: int, dp: int, sp: int,
         raise
 
 
+def _ranks_per_node(world: int, dp: int, sp: int, nodes: int) -> int:
+    """The ranks on each of ``nodes`` hosts of a ``world``-rank launch on the
+    (dp, sp, world / (dp sp)) mesh; raises unless each tp row fits inside a
+    host (the hybrid layout has no sp: ``sp`` must be 1 over more than one
+    host)."""
+    if nodes < 1 or world % nodes:
+        raise ValueError(f"{nodes} nodes must divide {world} ranks")
+    per = world // nodes
+    rank_grid(world, dp, sp)
+    if nodes == 1:
+        return per
+    if sp != 1:
+        raise ValueError("over several hosts the mesh is JAX's hybrid (dp, "
+                         f"tp) layout: sp must be 1, got {sp}")
+    tp = world // dp
+    if per % tp:
+        raise ValueError(f"tp={tp} must divide the {per} ranks of a node: a "
+                         "tp row may not cross hosts")
+    return per
+
+
 def launch(fn: Callable[..., Any], world: int, backend: str, device: str,
            args: Sequence = (), timeout: Optional[float] = 3600.0,
-           dp: int = 1, sp: int = 1) -> List[Any]:
+           dp: int = 1, sp: int = 1, nodes: int = 1, node_rank: int = 0,
+           master: Optional[Tuple[str, int]] = None) -> List[Any]:
     """Run ``fn(mesh, *args)`` in ``world`` rank processes, ``mesh`` each
     rank's :class:`RankMesh` on the (dp, sp, world / (dp sp)) mesh, and
     return their results in rank order.
 
     ``fn`` is a module-level function (the ranks are started with the
     ``spawn`` method and import it); what it returns is pickled, so it
-    should hold CPU tensors or plain values. Each call rendezvouses through
-    a ``FileStore`` in a fresh temporary directory, so concurrent launches
-    never share a port or a file; ``fn`` and ``args`` reach the ranks
-    through a file there, so that they start together (through the
-    spawn pipe the parent would wait on each rank in turn to import what
-    unpickling them needs). ``device`` is ``"cpu"`` or ``"cuda"``
-    (rank r on card r mod the card count). A rank that raises or dies, or a
-    run past ``timeout`` seconds, ends every rank and raises here."""
+    should hold CPU tensors or plain values. On one node each call
+    rendezvouses through a ``FileStore`` in a fresh temporary directory, so
+    concurrent launches never share a port or a file; ``fn`` and ``args``
+    reach the ranks through a file there, so that they start together
+    (through the spawn pipe the parent would wait on each rank in turn to
+    import what unpickling them needs). ``device`` is ``"cpu"`` or
+    ``"cuda"`` (a node's local rank r on card r mod the card count). A rank
+    that raises or dies, or a run past ``timeout`` seconds (None: no
+    limit), ends every rank and raises here. An interrupt (SIGINT) is
+    passed on to the ranks once, and the launch waits for them to end; a
+    second one ends them.
+
+    Over ``nodes`` hosts each host calls ``launch`` with the same
+    ``world``, ``dp``, ``fn`` and ``args``, its own ``node_rank`` and the
+    ``master`` (address, port) of a ``TCPStore``, which global rank 0 (on
+    node 0) serves. A call starts its node's ranks only: global rank =
+    node_rank x (world / nodes) + local index, and returns their results.
+    The mesh is JAX's ``make_hybrid_mesh(tp, dp_ici)`` (:func:`
+    hybrid_rank_grid`): tp = world / dp must divide the ranks of a node
+    (else it raises before any rank starts), dp_ici = ranks per node / tp,
+    sp = 1."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    rank_grid(world, dp, sp)
+    per = _ranks_per_node(world, dp, sp, nodes)
+    if not 0 <= node_rank < nodes:
+        raise ValueError(f"node_rank {node_rank} outside {nodes} nodes")
+    if nodes > 1 and master is None:
+        raise ValueError("a launch over several nodes needs the master's "
+                         "(address, port)")
+    ranks = range(node_rank * per, (node_rank + 1) * per)
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="k5_ranks_") as tmp:
         results = ctx.Queue()
         call_path = os.path.join(tmp, "call.pkl")
         with open(call_path, "wb") as f:
             pickle.dump((fn, tuple(args)), f)
-        procs = [ctx.Process(target=_rank_main,
-                             args=(call_path, r, world, dp, sp, backend,
-                                   device, os.path.join(tmp, "store"),
-                                   results))
-                 for r in range(world)]
-        for p in procs:
+        store = (("tcp", master[0], int(master[1])) if master is not None
+                 else ("file", os.path.join(tmp, "store")))
+        procs = {r: ctx.Process(target=_rank_main,
+                                args=(call_path, r, r - ranks[0], per, world,
+                                      dp, sp, nodes, backend, device, store,
+                                      timeout, results))
+                 for r in ranks}
+        for p in procs.values():
             p.start()
         deadline = None if timeout is None else time.monotonic() + timeout
-        done = {}
+        done, interrupted = {}, False
         try:
-            while len(done) < world:
+            while len(done) < len(procs):
                 # a rank's result is in the queue before its process exits,
                 # so one that exited with nothing left to read has died
-                dead = [r for r, p in enumerate(procs)
+                dead = [r for r, p in procs.items()
                         if r not in done and p.exitcode is not None]
                 try:
                     rank, ok, payload = results.get(timeout=1.0)
@@ -369,14 +521,22 @@ def launch(fn: Callable[..., Any], world: int, backend: str, device: str,
                         raise TimeoutError(f"ranks did not finish in {timeout}"
                                            " s") from None
                     continue
+                except KeyboardInterrupt:
+                    if interrupted:
+                        raise
+                    interrupted = True
+                    for p in procs.values():
+                        if p.is_alive():
+                            os.kill(p.pid, signal.SIGINT)
+                    continue
                 if not ok:
                     raise RuntimeError(f"rank {rank} failed:\n{payload}")
                 done[rank] = pickle.loads(payload)
-            for p in procs:
+            for p in procs.values():
                 p.join(timeout=60)
         finally:
-            for p in procs:
+            for p in procs.values():
                 if p.is_alive():
                     p.terminate()
                 p.join()
-    return [done[r] for r in range(world)]
+    return [done[r] for r in ranks]

@@ -48,6 +48,24 @@ def plan_dit_mesh(n_devices: int, num_heads: int = 28,
     return dp, per // tp, tp
 
 
+def plan_hybrid_mesh(tp: int, ranks_per_node: int,
+                     nodes: int) -> Tuple[int, int, int]:
+    """(dp, sp, tp) over ``nodes`` hosts of ``ranks_per_node`` ranks each, by
+    the JAX factory's multi-host rule (``get_T2V_pipeline(tp=)`` with more
+    than one process): ``tp`` is the width of each tp row and must divide a
+    host's ranks, the host's other ranks become dp (dp_ici = ranks per node
+    / tp), and dp spans the hosts: dp = nodes x dp_ici, no sp
+    (``make_hybrid_mesh``; the ranks' layout is ``ranks.hybrid_rank_grid``).
+    """
+    if tp < 1 or ranks_per_node < 1 or nodes < 1:
+        raise ValueError(f"tp={tp}, {ranks_per_node} ranks per node and "
+                         f"{nodes} nodes must be positive")
+    if ranks_per_node % tp:
+        raise ValueError(f"tp={tp} must divide the {ranks_per_node} ranks of "
+                         "a node: a tp row may not cross hosts")
+    return nodes * (ranks_per_node // tp), 1, tp
+
+
 def tp_width(plan: Tuple[int, int, int]) -> int:
     """The tp width of a (dp, sp, tp) plan: its tp."""
     return plan[2]

@@ -27,10 +27,12 @@ package's ``Kandinsky5T2VPipeline(mesh=)``): the DiT is the rank's tp
 share running its visual blocks on its 1/sp of the tokens (a full DiT is
 sharded here), each DiT call's batch is split over dp
 (the CFG pair and extra prompts; replicated where dp does not divide it),
-every rank runs the same Euler loop on rank 0's noise, and every rank
-decodes its share of the tiles (tiled by default, as the JAX package
-decodes on a mesh, its VAE's tiles over every device); rank 0 blends them,
-returns the frames and writes, the other ranks return None.
+every rank runs the same Euler loop on rank 0's noise and rank 0's seed,
+and every rank decodes its share of the tiles (tiled by default, as the
+JAX package decodes on a mesh, its VAE's tiles over every device of a host:
+over several hosts the tiles split over the ranks of each host,
+``RankMesh.local``); rank 0 blends them, returns the frames and writes, the
+other ranks return None.
 
 The text stage is the Qwen2.5-VL + CLIP embedder of ``text/embedder.py``
 (prompt expansion, then the encode of the captions and of the negative
@@ -43,10 +45,14 @@ device unless given) only for its stage (``utils/offload.py``).
 (the ``*_sft`` and ``*_nocfg`` YAMLs carry its ratios), and
 ``checkpoint_path=`` on a call makes the denoise resumable
 (``utils/resume.py``): chunks of 4 steps, the sampler's state saved after
-each, a rerun resuming where a killed one stopped. A call runs under
-``torch.no_grad()`` whatever thread makes it (grad mode is per thread).
+each (on a mesh by rank 0 alone, with the whole MagCache residual), a
+rerun resuming where a killed one stopped. :meth:`check_request` holds the
+checks a request must pass; a call runs them before anything else, so that
+on a mesh a bad request raises on every rank before any collective. A call
+runs under ``torch.no_grad()`` whatever thread makes it (grad mode is per
+thread).
 ``timings`` holds ``text_s`` (expansion and encode), ``denoise_s`` and
-``decode_s`` of the last request (and ``start_step`` with a
+``decode_s`` of the last request, its ``seed`` (and ``start_step`` with a
 ``checkpoint_path``; on a mesh the tp group's all-reduce, the sp group's
 gather and the dp group's gather seconds, calls and bytes, whether dp split
 the batch
@@ -138,8 +144,10 @@ class Kandinsky5T2VPipeline:
         self.conf = conf
         self.text_embedder = text_embedder
         if vae is not None and (int8_conv or mesh is not None):
+            # the tiles split over the ranks of this host, as the JAX
+            # factory builds the VAE's mesh from jax.local_devices()
             vae = vae.replace(int8_conv=int8_conv or vae.int8_conv,
-                              group=None if mesh is None else mesh.world)
+                              group=None if mesh is None else mesh.local)
         self.vae = vae
         self.mesh = mesh
         self.tp = dit.tp if dit is not None else None  # None for one rank
@@ -204,6 +212,39 @@ class Kandinsky5T2VPipeline:
     def expand_prompt(self, prompt: str) -> str:
         return self.text_embedder.expand_prompt(prompt)
 
+    def check_request(self, time_length: int = 5, width: int = 768,
+                      height: int = 512, num_steps: Optional[int] = None,
+                      noise=None, checkpoint_path: Optional[str] = None
+                      ) -> None:
+        """Raise ValueError for a request this pipeline does not take: a size
+        outside ``RESOLUTIONS``, a negative length, fewer than one step, or
+        both ``noise`` and ``checkpoint_path``. It touches no rank and no
+        device."""
+        if checkpoint_path is not None and noise is not None:
+            raise ValueError("a resumable request draws its noise from its "
+                             "seed: pass checkpoint_path or noise, not both")
+        if (height, width) not in RESOLUTIONS[self.resolution]:
+            raise ValueError(
+                f"Wrong height, width pair. Available (height, width) are: "
+                f"{RESOLUTIONS[self.resolution]}")
+        if time_length < 0:
+            raise ValueError(f"time_length must be 0 (an image) or more "
+                             f"seconds, got {time_length}")
+        if num_steps is not None and num_steps < 1:
+            raise ValueError(f"num_steps must be at least 1, got {num_steps}")
+
+    def agreed_seed(self, seed: Optional[int]) -> int:
+        """The request's seed: ``seed``, or a fresh draw when None; on a mesh
+        world rank 0's, broadcast to every rank (so that every rank seeds,
+        and fingerprints a resumable state, with one seed)."""
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        if self.mesh is not None:
+            world = self.mesh.world
+            seed = int(world.broadcast(torch.tensor(
+                [seed], dtype=torch.int64, device=world.wire)).item())
+        return seed
+
     def _encode(self, texts, type_of_content) -> dict:
         e = self.text_embedder.encode(texts, type_of_content)
         dev = self.device
@@ -232,23 +273,14 @@ class Kandinsky5T2VPipeline:
         """Generate (B, T, H, W, 3) uint8 frames; T = 1 for an image, else
         time_length * 24 // 4 + 1. ``noise`` (B, T', H/8, W/8, 16) replaces
         the seeded noise. ``checkpoint_path`` makes the denoise resumable
-        from that state file (seeded noise only). On a mesh rank 0 returns
-        the frames and the other ranks None."""
-        if checkpoint_path is not None and noise is not None:
-            raise ValueError("a resumable request draws its noise from its "
-                             "seed: pass checkpoint_path or noise, not both")
-        if checkpoint_path is not None and self.mesh is not None:
-            raise ValueError("resumable generation on a mesh is not ported "
-                             "yet (ROADMAP.md, queue 1, item 7d)")
+        from that state file (seeded noise only). On a mesh every rank makes
+        the call; rank 0 returns the frames and the other ranks None."""
+        self.check_request(time_length, width, height, num_steps, noise,
+                           checkpoint_path)
         num_steps = self.conf.model.num_steps if num_steps is None else num_steps
         guidance_weight = (self.conf.model.guidance_weight
                            if guidance_weight is None else guidance_weight)
-        if seed is None:
-            seed = int(np.random.randint(0, 2**31 - 1))
-        if (height, width) not in RESOLUTIONS[self.resolution]:
-            raise ValueError(
-                f"Wrong height, width pair. Available (height, width) are: "
-                f"{RESOLUTIONS[self.resolution]}")
+        seed = self.agreed_seed(seed)
         num_frames = 1 if time_length == 0 else time_length * 24 // 4 + 1
         type_of_content = "image" if time_length == 0 else "video"
 
@@ -286,14 +318,14 @@ class Kandinsky5T2VPipeline:
                     latents = resumable_generate(
                         self.dit, spec, latent_shape, cond, uncond, seed=seed,
                         checkpoint_path=checkpoint_path, magcache=magcache,
-                        progress=progress, report=resume)
+                        progress=progress, report=resume, mesh=self.mesh)
                 else:
                     latents = generate_latents(
                         self.dit, spec, latent_shape, cond, uncond, seed=seed,
                         noise=noise, magcache=magcache, on_step=on_step,
                         dp=self.dp)
                 finite = bool(torch.isfinite(latents).all())
-        self.timings = {**timer.report(), **expansion,
+        self.timings = {**timer.report(), **expansion, "seed": seed,
                         "steps": num_steps, "cfg": spec.use_cfg,
                         "magcache": magcache is not None,
                         "latents_finite": finite, **resume}

@@ -324,6 +324,46 @@ def zero_residual(model, spec: DenoiseSpec, noise_shape, dp=None):
                        device=next(model.parameters()).device)
 
 
+def whole_residual(residual, spec: DenoiseSpec, batch: int, dp=None):
+    """The whole (b_eff, S, D) MagCache residual, rows [cond x B, uncond x
+    B], from the rows of it this rank carries under ``dp``
+    (:func:`denoise_span`'s ``residual``, ``batch`` = B): gathered over dp
+    where dp splits the DiT calls (with sequential CFG each rank carries
+    [its cond rows, its uncond rows], put back in order), as it is where
+    every rank runs them whole. Every rank of the dp group calls it."""
+    dp = _dp(dp)
+    if residual is None or dp is None:
+        return residual
+    if spec.use_cfg and spec.sequential_cfg:
+        rows = local_rows(batch, dp)
+        if rows == batch:
+            return residual
+        parts = dp.all_gather(residual).split(2 * rows)
+        return torch.cat([p[:rows] for p in parts]
+                         + [p[rows:] for p in parts])
+    nb = 2 * batch if spec.use_cfg else batch
+    if local_rows(nb, dp) == nb:
+        return residual
+    return dp.all_gather(residual)
+
+
+def local_residual(residual, spec: DenoiseSpec, batch: int, dp=None):
+    """This dp rank's rows of the whole residual: the inverse of
+    :func:`whole_residual`, with no collective."""
+    dp = _dp(dp)
+    if residual is None or dp is None:
+        return residual
+    if spec.use_cfg and spec.sequential_cfg:
+        rows = local_rows(batch, dp)
+        if rows == batch:
+            return residual
+        mine = slice(dp.rank * rows, (dp.rank + 1) * rows)
+        return torch.cat([residual[:batch][mine], residual[batch:][mine]])
+    nb = 2 * batch if spec.use_cfg else batch
+    n = local_rows(nb, dp)
+    return residual if n == nb else residual[dp.rank * n:(dp.rank + 1) * n]
+
+
 def denoise(model, spec: DenoiseSpec, noise, cond: dict, uncond: dict,
             skip=None, on_step=None, dp=None):
     """The full Euler integration over :func:`timestep_grid`; ``skip`` is

@@ -1,4 +1,4 @@
-"""Serving daemon for text-to-video generation on one GPU.
+"""Serving daemon for text-to-video generation, on one GPU or a mesh.
 
 Counterpart of ``kandinsky5_tpu/serve.py``, stdlib only (``http.server``
 and ``threading``):
@@ -17,6 +17,21 @@ and ``threading``):
   * the newest ``MAX_TERMINAL_JOBS`` finished records are kept; older ones
     go with their result files.
 
+On a mesh (``--tp N``: N ranks, one process each, where the JAX server runs
+one controller) world rank 0 is the front end: it alone owns the HTTP
+server, the queue, the batch window, the job records, the result files and
+``/metrics``. The other ranks :func:`follow`: they receive each batch from
+rank 0 over the world group (the prompts, size, seed, steps and state path)
+and make the same pipeline call. Every rank runs the request's checks
+(``check_request``) before the call's first collective, so a bad request
+raises on every rank or on none, and the ranks all-reduce a failure flag
+before rank 0 marks the jobs ``done`` or ``error``. A failure inside the
+call (a rank that died, a fault past the checks) is not caught: rank 0's
+server stops and the launch ends with the error. Collectives run only on
+rank 0's worker thread and on the followers' main threads; an idle worker
+sends a heartbeat every ``HEARTBEAT_S`` seconds, so a follower never
+reaches its collective timeout while it waits and a dead one shows.
+
 API:
   POST /generate {"prompt": str, "time_length": int, "width": int,
                   "height": int, "seed": int?, "num_steps": int?}
@@ -24,12 +39,18 @@ API:
   GET  /status/<job_id>   -> {"state": queued|running|done|error, ...}
   GET  /result/<job_id>   -> the video or image bytes (404 until done)
   GET  /healthz           -> {"ok": true, "devices": N, "device": str}
+                             (N: the mesh's ranks, or the visible cards)
   GET  /metrics           -> {"jobs_done": N, "jobs_failed": N, ...}
 
 Run it on the card (or with ``--device cpu``)::
 
     python -m kandinsky5_tpu_torch.serve \\
         --config kandinsky5_tpu_torch/configs/config_5s_sft.yaml --magcache
+
+and over N ranks with ``--tp N`` (the JAX factory's mesh for N devices);
+over several hosts each host runs the command with ``--nnodes H
+--node-rank h --master-addr A --master-port P``, ``--tp`` then being the
+width of a tp row inside each host.
 """
 
 from __future__ import annotations
@@ -38,6 +59,7 @@ import hashlib
 import json
 import os
 import queue
+import signal
 import threading
 import time
 import uuid
@@ -49,6 +71,72 @@ import torch
 
 CONTENT_TYPES = {".mp4": "video/mp4", ".png": "image/png",
                  ".y4m": "video/x-yuv4mpeg"}
+#: seconds an idle mesh worker waits before it sends the followers a
+#: heartbeat
+HEARTBEAT_S = 60.0
+
+
+class RankFailure(RuntimeError):
+    """A pipeline call on a mesh failed past its checks: a peer may sit in
+    a collective that this rank will not join, so the server must stop."""
+
+
+def _mesh_batch(pipeline, msg: dict, save_path=None) -> dict:
+    """One batch on this rank of the pipeline's mesh (rank 0 and the
+    followers alike): the checks, the call, then the failure flag
+    all-reduced over the world. Returns the call's timings; raises the
+    checks' ValueError on every rank where any rank's checks failed, and
+    :class:`RankFailure` where the call itself raised."""
+    world = pipeline.mesh.world
+    kw = msg["kw"]
+    try:
+        pipeline.check_request(kw["time_length"], kw["width"], kw["height"],
+                               kw["num_steps"],
+                               checkpoint_path=kw.get("checkpoint_path"))
+        error = None
+    except ValueError as e:
+        error = e
+    if error is None:
+        try:
+            pipeline(msg["prompts"], save_path=save_path, progress=False,
+                     **kw)
+        except Exception as e:
+            raise RankFailure(f"rank {world.rank}: the pipeline call "
+                              f"failed: {type(e).__name__}: {e}") from e
+    flag = torch.tensor([int(error is not None)], dtype=torch.int32,
+                        device=world.wire)
+    try:
+        world.all_reduce(flag, op="max")
+    except Exception as e:
+        raise RankFailure(f"rank {world.rank}: the outcome was not agreed: "
+                          f"{type(e).__name__}: {e}") from e
+    if int(flag.item()):
+        raise error or ValueError("the request failed its checks on "
+                                  "another rank")
+    return dict(pipeline.timings)
+
+
+def follow(pipeline) -> list:
+    """The loop of a mesh rank other than 0: take each message rank 0's
+    server broadcasts over the world and answer it with the same pipeline
+    call, until the stop message. Returns one record a batch (``ok``, the
+    ``error`` or the call's ``timings``)."""
+    world = pipeline.mesh.world
+    if world.rank == 0:
+        raise ValueError("world rank 0 runs the server; the other ranks "
+                         "follow it")
+    records = []
+    while True:
+        msg = world.broadcast_object(None, src=0)
+        if msg["op"] == "stop":
+            return records
+        if msg["op"] != "batch":
+            continue  # a heartbeat
+        try:
+            records.append({"ok": True,
+                            "timings": _mesh_batch(pipeline, msg)})
+        except ValueError as e:  # the checks'; a RankFailure ends the rank
+            records.append({"ok": False, "error": f"{type(e).__name__}: {e}"})
 
 
 @dataclass
@@ -66,6 +154,8 @@ class Job:
     enqueued_at: float = field(default_factory=time.time)
     started_at: float = 0.0
     finished_at: float = 0.0
+    # the pipeline's timings of the job's batch
+    timings: dict = field(default_factory=dict)
 
     def public(self) -> dict:
         d = {"job_id": self.job_id, "state": self.state,
@@ -73,6 +163,8 @@ class Job:
                                - self.enqueued_at, 3)}
         if self.state == "done":
             d["generation_s"] = round(self.finished_at - self.started_at, 3)
+            if "start_step" in self.timings:
+                d["start_step"] = self.timings["start_step"]
         if self.error:
             d["error"] = self.error
         return d
@@ -98,13 +190,21 @@ class Job:
 
 
 class GenerationServer:
-    """Owns the pipeline, the job queue and the worker thread."""
+    """Owns the pipeline, the job queue and the worker thread. On a mesh
+    (the pipeline's ``mesh``) it runs on world rank 0 while the other ranks
+    :func:`follow`."""
 
     MAX_TERMINAL_JOBS = 1000
 
     def __init__(self, pipeline, out_dir: str = "./serve_out",
                  batch_window_s: float = 0.25, max_batch: int = 4,
                  checkpoint_dir: Optional[str] = None):
+        mesh = getattr(pipeline, "mesh", None)
+        if mesh is not None and mesh.rank != 0:
+            raise ValueError("world rank 0 runs the server; the other ranks "
+                             "follow it (serve.follow)")
+        self.world = mesh.world if mesh is not None else None
+        self.fatal: Optional[BaseException] = None
         self.pipeline = pipeline
         self.out_dir = out_dir
         self.batch_window_s = batch_window_s
@@ -139,8 +239,14 @@ class GenerationServer:
 
     def _take_batch(self) -> list:
         """One job, plus the compatible jobs that arrive within the window;
-        empty when the server is stopping."""
-        job = self.q.get()
+        empty when the server is stopping (or, on a mesh, after
+        ``HEARTBEAT_S`` idle seconds, once a heartbeat has gone out)."""
+        try:
+            job = self.q.get(timeout=None if self.world is None
+                             else HEARTBEAT_S)
+        except queue.Empty:
+            self.world.broadcast_object({"op": "idle"})
+            return []
         if job is None:
             return []
         batch = [job]
@@ -167,16 +273,25 @@ class GenerationServer:
                  for j in batch]
         ckpt = (os.path.join(self.checkpoint_dir, f"{lead.request_key()}.npz")
                 if self.checkpoint_dir and len(batch) == 1 else None)
-        self.pipeline(
-            [j.prompt for j in batch],
-            time_length=lead.time_length,
-            width=lead.width, height=lead.height,
-            seed=lead.seed, num_steps=lead.num_steps,
-            save_path=paths, progress=False,
-            **({"checkpoint_path": ckpt} if ckpt else {}),
-        )
+        kw = dict(time_length=lead.time_length, width=lead.width,
+                  height=lead.height, seed=lead.seed,
+                  num_steps=lead.num_steps,
+                  **({"checkpoint_path": ckpt} if ckpt else {}))
+        prompts = [j.prompt for j in batch]
+        if self.world is not None:
+            msg = {"op": "batch", "prompts": prompts, "kw": kw}
+            try:
+                self.world.broadcast_object(msg)
+            except Exception as e:
+                raise RankFailure(f"the batch did not reach the ranks: "
+                                  f"{type(e).__name__}: {e}") from e
+            _mesh_batch(self.pipeline, msg, save_path=paths)
+        else:
+            self.pipeline(prompts, save_path=paths, progress=False, **kw)
         # the pipeline reports where it wrote (a video may come out as .y4m)
         timings = getattr(self.pipeline, "timings", None) or {}
+        for j in batch:
+            j.timings = dict(timings)
         return list(timings.get("saved") or paths)
 
     def _run(self):
@@ -184,10 +299,21 @@ class GenerationServer:
         if device is not None and torch.device(device).type == "cuda":
             # the worker is a new thread: name its card explicitly
             torch.cuda.set_device(device)
-        while not self._stop.is_set():
-            batch = self._take_batch()
-            if not batch:
-                continue
+        try:
+            while not self._stop.is_set():
+                self._serve_one()
+            if self.world is not None:
+                self.world.broadcast_object({"op": "stop"})
+        except Exception as e:  # noqa: BLE001  re-raised by join()
+            # a rank failed (or a collective did): a peer may sit in a
+            # collective, so stop taking requests and let the rank's main
+            # thread end the launch (``join``)
+            self.fatal = e
+            self.stop()
+
+    def _serve_one(self):
+        batch = self._take_batch()
+        if batch:
             for j in batch:
                 j.state = "running"
                 j.started_at = time.time()
@@ -203,6 +329,11 @@ class GenerationServer:
                     if len(batch) > 1:
                         self.metrics["batched_jobs"] += len(batch)
                 self._evict_old_jobs()
+            except RankFailure:
+                for j in batch:
+                    j.state = "error"
+                    j.error = "a rank failed; the server stopped"
+                raise
             except Exception as e:  # noqa: BLE001  one bad job != dead server
                 for j in batch:
                     j.state = "error"
@@ -240,13 +371,29 @@ class GenerationServer:
         return server
 
     def stop(self):
-        """Stop taking requests and let the worker end after its batch. The
-        worker is not joined: wait for the jobs first."""
+        """Stop taking requests and let the worker end after its batch (on a
+        mesh it then tells the followers to stop). The worker is not
+        joined: wait for the jobs first, or :meth:`join`."""
         self._stop.set()
         self.q.put(None)
         if hasattr(self, "_http"):
             self._http.shutdown()
             self._http.server_close()
+
+    def join(self, timeout: Optional[float] = None):
+        """Wait for the worker to end; raise what ended it, where a rank
+        failed (:class:`RankFailure`)."""
+        self._worker.join(timeout)
+        if self.fatal is not None:
+            raise self.fatal
+
+    def wait(self, interrupted: threading.Event, poll: float = 0.2):
+        """Serve until ``interrupted`` is set (then stop and join) or the
+        worker ends on a rank's failure (then raise it)."""
+        while not interrupted.is_set() and self._worker.is_alive():
+            interrupted.wait(poll)
+        self.stop()
+        self.join()
 
     def _make_handler(self):
         outer = self
@@ -280,7 +427,9 @@ class GenerationServer:
                 if self.path == "/healthz":
                     device = getattr(outer.pipeline, "device", None)
                     return self._json(200, {
-                        "ok": True, "devices": torch.cuda.device_count(),
+                        "ok": True, "devices": (
+                            torch.cuda.device_count() if outer.world is None
+                            else outer.world.size),
                         "device": None if device is None else str(device)})
                 if self.path == "/metrics":
                     with outer._lock:
@@ -316,15 +465,52 @@ class GenerationServer:
         return Handler
 
 
+def _build(args, mesh=None):
+    from kandinsky5_tpu_torch.pipeline import get_T2V_pipeline
+
+    return get_T2V_pipeline(conf_path=args.config, magcache=args.magcache,
+                            offload=args.offload, tp=mesh,
+                            device=args.device)
+
+
+def serve_rank(mesh, args):
+    """One rank of ``--tp N``: builds the pipeline as the rank at ``mesh``;
+    world rank 0 serves HTTP until interrupted (SIGINT), the others
+    :func:`follow`. Returns the batches the rank answered. Module-level,
+    so that ``parallel.launch``'s ranks can import it."""
+    pipe = _build(args, mesh)
+    if mesh.rank != 0:
+        # rank 0 stops the followers once it has stopped
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        return len(follow(pipe))
+    interrupted = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: interrupted.set())
+    srv = GenerationServer(pipe, out_dir=args.out_dir,
+                           max_batch=args.max_batch,
+                           checkpoint_dir=args.checkpoint_dir)
+    http = srv.start(host=args.host, port=args.port)
+    print(f"serving on {args.host}:{http.server_address[1]} ({pipe.device}, "
+          f"{mesh.size} ranks on the (dp, sp, tp) = {mesh.shape} mesh)",
+          flush=True)
+    srv.wait(interrupted)
+    with srv._lock:
+        return srv.metrics["batches"]
+
+
 def main(argv=None):
     import argparse
+
+    from kandinsky5_tpu_torch.cli import add_node_args, launch_plan
 
     ap = argparse.ArgumentParser(
         description="Kandinsky-5 serving daemon (PyTorch port)")
     ap.add_argument("--config", required=True)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8700)
-    ap.add_argument("--tp", type=int, default=None)
+    ap.add_argument("--tp", type=int, default=None,
+                    help="device count: that many rank processes on the "
+                    "mesh the JAX factory plans for them; over several "
+                    "nodes, the width of each node's tp rows")
     ap.add_argument("--magcache", action="store_true")
     ap.add_argument("--offload", action="store_true")
     ap.add_argument("--out-dir", default="./serve_out")
@@ -333,15 +519,20 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    add_node_args(ap)
     args = ap.parse_args(argv)
-    if args.tp is not None and args.tp > 1:
-        raise SystemExit("serving under tensor parallelism is not ported yet "
-                         "(ROADMAP.md, queue 1, item 7d)")
+    plan = launch_plan(args)
+    if plan is not None:
+        from kandinsky5_tpu_torch.parallel import launch
 
-    from kandinsky5_tpu_torch.pipeline import get_T2V_pipeline
+        answered = launch(serve_rank, plan.pop("world"), plan.pop("backend"),
+                          plan.pop("device"), args=(args,), timeout=None,
+                          **plan)
+        print(f"stopped: this node's ranks answered {answered} batches",
+              flush=True)
+        return answered
 
-    pipe = get_T2V_pipeline(conf_path=args.config, magcache=args.magcache,
-                            offload=args.offload, device=args.device)
+    pipe = _build(args)
     srv = GenerationServer(pipe, out_dir=args.out_dir,
                            max_batch=args.max_batch,
                            checkpoint_dir=args.checkpoint_dir)
@@ -353,6 +544,7 @@ def main(argv=None):
             time.sleep(3600)
     except KeyboardInterrupt:
         srv.stop()
+    return None
 
 
 if __name__ == "__main__":

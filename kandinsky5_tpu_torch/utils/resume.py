@@ -14,6 +14,16 @@ The chunks do not change the numbers: ``denoise_span`` carries the latents
 and the residual across them exactly, so the chunked trajectory is
 bit-identical to one :func:`~kandinsky5_tpu_torch.sampling.generate_latents`
 call with the same seed.
+
+On a mesh (``mesh=``, every rank calling) the ranks first compare their
+fingerprints (they must agree, else every rank raises); world rank 0 alone
+reads and writes the file and broadcasts what it read (found or not, the
+step, the latents, the residual) over the world, so every rank resumes
+from one state or starts at step 0 together, on rank 0's noise as
+``generate_latents`` does. Under dp each rank carries only its rows of
+MagCache's residual: the file holds the whole residual, gathered over dp
+before each save, and each dp rank takes its rows back on resume. Under
+tp and sp every rank holds the whole latents and residual.
 """
 
 from __future__ import annotations
@@ -29,9 +39,11 @@ from kandinsky5_tpu_torch.config import MagCacheConfig
 from kandinsky5_tpu_torch.sampling import (
     DenoiseSpec,
     denoise_span,
+    local_residual,
     seeded_noise,
     skip_schedule,
     timestep_grid,
+    whole_residual,
     zero_residual,
 )
 
@@ -88,6 +100,17 @@ def load_state(path: str, fingerprint: str):
         return None
 
 
+def _agree(world, fingerprint: str) -> None:
+    """Raise on every rank of ``world`` unless all hold ``fingerprint``."""
+    mine = torch.frombuffer(bytearray(fingerprint.encode()),
+                            dtype=torch.uint8).to(world.wire)
+    every = world.all_gather(mine).cpu().reshape(world.size, -1)
+    if not bool((every == every[0]).all()):
+        raise ValueError("the ranks resume different requests: their "
+                         "fingerprints (spec, shape, seed, MagCache "
+                         "schedule, conditioning) differ")
+
+
 def resumable_generate(
     model,
     spec: DenoiseSpec,
@@ -100,6 +123,7 @@ def resumable_generate(
     chunk: int = 4,
     progress: bool = False,
     report: Optional[dict] = None,
+    mesh=None,
     _stop_after_chunks: Optional[int] = None,
 ) -> Optional[torch.Tensor]:
     """:func:`~kandinsky5_tpu_torch.sampling.generate_latents` in chunks of
@@ -108,28 +132,40 @@ def resumable_generate(
     ``_stop_after_chunks`` (a hook that stands in for a preemption) stopped
     the run early; the state file then holds what a rerun resumes from.
     ``report``, when given, receives ``start_step``: the step the run began
-    at (0, or where a saved state left off)."""
-    if model.tp is not None or model.sp is not None:
-        raise ValueError("resumable generation on a mesh is not ported yet "
-                         "(ROADMAP.md, queue 1, item 7d)")
+    at (0, or where a saved state left off). ``mesh`` is the rank's
+    :class:`~kandinsky5_tpu_torch.parallel.RankMesh` when the model is
+    sharded (see the module's docstring); every rank of it calls this with
+    the same request."""
+    if mesh is None and (model.tp is not None or model.sp is not None):
+        raise ValueError("a sharded model resumes on its mesh: pass mesh=")
+    world = mesh.world if mesh is not None and mesh.size > 1 else None
+    dp = None if mesh is None else mesh.dp
+    lead = world is None or world.rank == 0
     skip = skip_schedule(spec, magcache)
     fp = _fingerprint(spec, shape, seed, cond, uncond, skip)
     ts = timestep_grid(spec.num_steps, spec.scheduler_scale)
     dts = np.diff(ts)
     device = next(model.parameters()).device
+    if world is not None:
+        _agree(world, fp)
 
-    state = load_state(checkpoint_path, fp)
+    state = load_state(checkpoint_path, fp) if lead else None
+    if world is not None:
+        state = world.broadcast_object(state)
     if state is None:
         step = 0
         x = seeded_noise(model, shape, seed)
+        if world is not None:
+            x = world.broadcast(x)
         residual = (None if skip is None
-                    else zero_residual(model, spec, shape))
+                    else zero_residual(model, spec, shape, dp))
     else:
-        step, x_np, res_np = state
-        x = torch.from_numpy(x_np).to(device)
-        residual = (None if res_np is None else
-                    torch.from_numpy(res_np).to(device, model.dtype))
-        if progress:
+        step, x, res = state
+        x = torch.as_tensor(x).to(device)
+        residual = (None if res is None else local_residual(
+            torch.as_tensor(res).to(device, model.dtype), spec, shape[0],
+            dp))
+        if progress and lead:
             print(f"resuming denoise at step {step}/{spec.num_steps}",
                   flush=True)
     if report is not None:
@@ -141,16 +177,19 @@ def resumable_generate(
         x, residual = denoise_span(
             model, spec, x, ts[step:step + k], dts[step:step + k], cond,
             uncond, skip=None if skip is None else skip[step:step + k],
-            residual=residual)
+            residual=residual, dp=dp)
         step += k
-        save_state(checkpoint_path, step, x, residual, fp)
-        if progress:
-            print(f"denoise step {step}/{spec.num_steps}", flush=True)
+        whole = whole_residual(residual, spec, shape[0], dp)
+        if lead:
+            save_state(checkpoint_path, step, x, whole, fp)
+            if progress:
+                print(f"denoise step {step}/{spec.num_steps}", flush=True)
         chunks_done += 1
         if _stop_after_chunks is not None and chunks_done >= _stop_after_chunks:
             return None
-    try:
-        os.remove(checkpoint_path)
-    except OSError:
-        pass
+    if lead:
+        try:
+            os.remove(checkpoint_path)
+        except OSError:
+            pass
     return x

@@ -28,7 +28,9 @@ PIPE_DIT = DiTParams(in_visual_dim=16, out_visual_dim=16, in_text_dim=32,
                      axes_dims=(16, 24, 24), visual_cond=True)
 
 
-def tiny_mag_pipeline(magcache: bool = True) -> Kandinsky5T2VPipeline:
+def tiny_mag_pipeline(magcache: bool = True, tp=None
+                      ) -> Kandinsky5T2VPipeline:
+    """The pipeline; ``tp`` makes it one rank's of a mesh (a ``RankMesh``)."""
     dit = fast_init_dit_params(PIPE_DIT, device="cpu", dtype=torch.float32,
                                seed=0, scale=0.05)
     conf = Config(model=ModelConfig(dit_params=PIPE_DIT, num_steps=6,
@@ -39,4 +41,4 @@ def tiny_mag_pipeline(magcache: bool = True) -> Kandinsky5T2VPipeline:
                                           block_out_channels=(32, 32, 64, 64)),
                           dtype=torch.float32)
     return Kandinsky5T2VPipeline(dit, conf, StubEmbedder(32, 16), vae,
-                                 magcache=magcache)
+                                 magcache=magcache, tp=tp)
