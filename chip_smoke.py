@@ -215,9 +215,9 @@ Phases, each of which must pass (any failure exits nonzero):
                activation scale, a weight scale from the rank's slice, the
                bias added on every rank); the int8 forward (flash_int8 and
                W8A8, each rank quantizing its own slices) at full width and
-               47,616 tokens cut to INT8_BLOCKS (2 text, 8 visual) within
+               47,616 tokens cut to INT8_BLOCKS (2 text, 4 visual) within
                one device's own int8 error (its int8 forward against its
-               bf16 one) of one device's int8 forward, K5 10 launches a
+               bf16 one) of one device's int8 forward, K5 6 launches a
                rank and K1, K8, K2 none; the pipeline with
                ``int8_linear=True, attn_impl="flash_int8"`` answers phase
                4's image request (I8_IMAGE_STEPS, 4 of its 16 steps), K5 34
@@ -270,11 +270,12 @@ Phases, each of which must pass (any failure exits nonzero):
                to latents and frames bit-equal to the uninterrupted run,
                its state file removed. Then ``serve.GenerationServer`` over
                that pipeline on 127.0.0.1 (a free port): two unseeded image
-               requests within the batch window must run as one batch of
-               two; a seeded image request alone, bit-equal to the same
+               requests (SERVE_PAIR_STEPS steps) within the batch window
+               must run as one batch of two; a seeded image request alone, bit-equal to the same
                request made through the pipeline directly; a request at an
                unsupported size must end in error with the server still
-               answering, and a later request done; any other error fails
+               answering, and a later request (SERVE_PAIR_STEPS) done; any
+               other error fails
                the run; queued and generation seconds per job are printed.
                Last, the parity consumer (``tools/parity_check.run_ours``)
                on a dump of the direct request (its noise, its
@@ -319,7 +320,16 @@ Phases, each of which must pass (any failure exits nonzero):
                single-process step on the whole batch with the same t and
                noise, each rank's moments at most half the unsharded ones
                (plus any kept whole); control: a step without the
-               gradients' mean over dp;
+               gradients' mean over dp; (7c) training on the mesh, 2 gloo
+               ranks sharing the card: the cut sft DiT of (4) on the
+               loader's first batch, one step on (1, 1, 2) and one on
+               (1, 2, 1) (768 of the 1,536 tokens a rank): the loss, the
+               whole gradients (tp shares assembled) and the parameters'
+               update within TRAIN_BOUND of the single-process step at the
+               same t and noise; controls that must fail the gradient
+               bound: copy_to's backward all-reduce left out (tp), an exit
+               gather whose backward sums (sp); each mesh's s/step and its
+               all-reduce, all-gather and reduce-scatter seconds;
   8. loading — phase 4's 2B DiT and VAE, Qwen2.5-VL cut to 2 of its 28
                layers at full width and CLIP ViT-L/14 (seeded) written by
                the port's safetensors writer in the released layouts (the
@@ -3747,10 +3757,10 @@ def _sp_rank(mesh, cfg_kw, cut_kw, conf10_path, seed, refs_path, out_dir,
 
 
 # phase 5d: the int8 options on the (1, 2, 4) mesh, in 5c's launch.
-# The int8 forward's (text, visual) blocks: each of its 24 row-parallel
+# The int8 forward's (text, visual) blocks: each of its 12 row-parallel
 # products all-reduces 23,808 x 1,792 int32 (171 MB, twice bf16's bytes)
 # over gloo, so it is cut from (2, 32)
-INT8_BLOCKS = (2, 8)
+INT8_BLOCKS = (2, 4)
 # the W8A8 linears' rows (a rank's tokens) and widths (model, FF)
 I8_ROWS, I8_D, I8_FF = 23808, 1792, 7168
 I8_SEED = 9
@@ -4249,7 +4259,7 @@ def phase_int8_mesh(res, total: float, blocks: int):
     scale from the rank's slice, the bias on every rank) unequal; (2) the
     int8 forward (flash_int8 + W8A8, the rank-local quantization) at full
     width and 47,616 tokens, INT8_BLOCKS deep, within the one device's own
-    int8 error of its int8 forward, K5 2 + 8 launches a rank, K1, K8, K2
+    int8 error of its int8 forward, K5 2 + 4 launches a rank, K1, K8, K2
     none; (3) the int8 image request through the pipeline (I8_IMAGE_STEPS),
     exact K5 ``blocks`` (34) x I8_IMAGE_STEPS launches a rank with K1, K2,
     K8 none, the decode's launches summed over the ranks equal to the
@@ -4793,6 +4803,11 @@ CONF10_SFT = "config_10s_sft.yaml"
 SERVE_PROMPTS = ("a served image", "another served image")
 SERVE_SEEDED = ("a seeded served image", 7)
 SERVE_BAD_WIDTH = 1024
+# the unseeded pair's and the later request's steps: they show batching and
+# that the server goes on after an error, and are cut from the config's 50
+# so that the smoke keeps its time (the seeded request, which the direct
+# call and the parity consumer replay, keeps the config's steps)
+SERVE_PAIR_STEPS = 16
 # the resumable request stops after this many chunks of 4 steps
 RESUME_CHUNKS = 2
 
@@ -5082,7 +5097,8 @@ def phase_serving(dev, built, seconds10: int, out_dir: str):
     _kernels.reset_launches()
     try:
         health = _http(port, "/healthz")
-        pair = [_http(port, "/generate", dict(image, prompt=p))["job_id"]
+        pair = [_http(port, "/generate", dict(
+            image, prompt=p, num_steps=SERVE_PAIR_STEPS))["job_id"]
                 for p in SERVE_PROMPTS]
         st = _wait_jobs(port, pair)
         batched = _http(port, "/metrics")
@@ -5093,7 +5109,8 @@ def phase_serving(dev, built, seconds10: int, out_dir: str):
                                             prompt="too wide"))["job_id"]
         st.update(_wait_jobs(port, [bad]))
         later = _http(port, "/generate", dict(
-            image, prompt="a later served image"))["job_id"]
+            image, prompt="a later served image",
+            num_steps=SERVE_PAIR_STEPS))["job_id"]
         st.update(_wait_jobs(port, [later]))
         metrics = _http(port, "/metrics")
         served_png = _http(port, f"/result/{seeded}")
@@ -5934,6 +5951,226 @@ def phase_zero(conf_sft, shard_path):
     return line, _summed(r["launches"] for r in res)
 
 
+# phase 7c: training on the mesh. The t and noise of its steps; the grads'
+# control patches (the tp one keeps copy_to for the QK norms' weights)
+MESH_TRAIN_SEED = 17
+
+
+def _mesh_train_rank(mesh, cfg_kw, shard_path):
+    """One rank of phase 7c: phase 7b's cut sft DiT (seeded as ZERO_SEED)
+    on the loader's first batch, whole on both ranks, at one seeded t and
+    noise. First the single-process gradients and step on this rank (the
+    reference), then on the launch's (1, 1, 2) mesh and on a (1, 2, 1) mesh
+    cut from the same two ranks: the whole gradients
+    (``training.loss_and_gradients``), the same with the mesh's fault (tp:
+    ``copy_to`` left out before the column-parallel linears; sp: an exit
+    gather whose backward sums, as ``torch.distributed.nn``'s does), then
+    one timed ``train_step_on`` with the groups' collective counters. Each
+    comparison returns, per parameter, the squared difference and the
+    squared reference summed over the rank's share, so that the parent can
+    assemble the tp shares."""
+    from unittest import mock
+
+    import torch
+
+    from kandinsky5_tpu_torch import training
+    from kandinsky5_tpu_torch.config import DiTParams
+    from kandinsky5_tpu_torch.data import LatentShardLoader
+    from kandinsky5_tpu_torch.models import dit as dit_mod
+    from kandinsky5_tpu_torch.models import nn as nn_mod
+    from kandinsky5_tpu_torch.models.dit import fast_init_dit_params
+    from kandinsky5_tpu_torch.ops import _kernels
+    from kandinsky5_tpu_torch.parallel import ranks
+    from kandinsky5_tpu_torch.parallel.sharding import (
+        fast_init_dit_shard,
+        shard_tensor,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp_mesh = ranks.rank_mesh([0, 1], 1, 2, "gloo", mesh.device)
+    dev = mesh.device
+    cfg = DiTParams(**cfg_kw)
+    opt = training.make_optimizer(lr=TRAIN_LR)
+    loader = LatentShardLoader([shard_path], SHARD_BATCH, seed=0,
+                               dtype=torch.float32, device=dev)
+    first = list(loader.epoch(0))[0]
+    batch = [first[k] for k in ("latents", "text_embeds", "pooled_embed",
+                                "text_mask")]
+    g = torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED)
+    t = 1e-4 + (1.0 - 1e-4) * torch.rand(batch[0].shape[0], generator=g,
+                                         device=dev)
+    noise = torch.randn(batch[0].shape, generator=g, device=dev)
+
+    def grads(state):
+        _, gs = training.loss_and_gradients(state, cfg, *batch, t, noise,
+                                            attn_impl="dense")
+        names = [n for n, p in state.model.named_parameters()
+                 if p.requires_grad]
+        return dict(zip(names, gs))
+
+    def named(model):
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    _kernels.reset_launches()
+    single = fast_init_dit_params(cfg, device=dev, dtype=torch.float32,
+                                  seed=ZERO_SEED)
+    init = named(single)
+    state = training.init_train_state(single, opt)
+    want = grads(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, single_loss = training.train_step_on(state, cfg, opt, *batch, t,
+                                                noise, attn_impl="dense")
+    single_loss = single_loss.item()
+    single_s = time.perf_counter() - t0
+    want_update = {n: p.detach() - init[n]
+                   for n, p in single.named_parameters()}
+    del single, state, init
+
+    def sums(got, ref, tp):
+        out = {}
+        for n, x in got.items():
+            w = ref[n] if tp is None else shard_tensor(n, ref[n], tp.rank,
+                                                       tp.size)
+            out[n] = (float((x - w).double().square().sum()),
+                      float(w.double().square().sum()))
+        return out
+
+    def on_activations(x, group, _real=ranks.copy_to):
+        return _real(x, group) if isinstance(x, torch.nn.Parameter) else x
+
+    faults = {"tp": [(nn_mod, "copy_to", on_activations),
+                     (dit_mod, "copy_to", on_activations)],
+              "sp": [(dit_mod, "gather_whole", ranks.gather_along)]}
+    out = dict(single_loss=single_loss, single_step_s=single_s)
+    for name, m in (("tp", mesh), ("sp", sp_mesh)):
+        model = fast_init_dit_shard(cfg, m, dtype=torch.float32,
+                                    seed=ZERO_SEED)
+        init = named(model)
+        state = training.init_train_state(model, opt)
+        res = {"grad": sums(grads(state), want, model.tp)}
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in faults[name]:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            res["control"] = sums(grads(state), want, model.tp)
+        groups = {"tp": m.tp, "sp": m.sp}
+        for grp in groups.values():
+            if grp is not None:
+                grp.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = training.train_step_on(state, cfg, opt, *batch, t,
+                                             noise, attn_impl="dense")
+        res["loss"] = loss.item()
+        res["step_s"] = time.perf_counter() - t0
+        res["update"] = sums({n: p.detach() - init[n]
+                              for n, p in model.named_parameters()},
+                             want_update, model.tp)
+        res["collectives"] = {k: dict(grp.kinds) for k, grp in groups.items()
+                              if grp is not None and grp.size > 1}
+        res["tp_index"] = m.tp.rank
+        out[name] = res
+        del model, state, init
+        torch.cuda.empty_cache()
+    out["launches"] = dict(_kernels.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _assembled_rel(per_rank, key, tp: bool):
+    """(rel_l2 over every parameter, the worst parameter's rel_l2) of the
+    tp shares' sums assembled: a sharded parameter's sums added over the tp
+    ranks, a replicated one's taken once."""
+    from kandinsky5_tpu_torch.parallel.sharding import split_dim
+
+    total, worst = [0.0, 0.0], 0.0
+    for name in per_rank[0][key]:
+        parts = [r[key][name] for r in per_rank]
+        if not tp or split_dim(name) is None:
+            parts = parts[:1]
+        num, den = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        total[0] += num
+        total[1] += den
+        worst = max(worst, math.sqrt(num / den) if den else math.sqrt(num))
+    return math.sqrt(total[0] / total[1]), worst
+
+
+def phase_mesh_train(conf_sft, shard_path):
+    """7c: training on the mesh, 2 gloo ranks sharing the card: phase 7b's
+    sft DiT (full width, model_dim 1,792 and 28 heads, 2 text and 2 visual
+    blocks, fp32, dense) on the loader's first batch, one step on a (1, 1,
+    2) mesh and one on a (1, 2, 1) mesh (the 1,536 tokens of a 512 x 768
+    image, 768 a rank), each against the single-process step at the same t
+    and noise: the loss, the worst parameter's whole gradient (tp shares
+    assembled) and the parameters' update within TRAIN_BOUND; controls that
+    must fail the gradient bound: ``copy_to``'s backward all-reduce left out
+    (tp), an exit gather whose backward sums (sp). Prints each mesh's
+    s/step and its groups' all-reduce, all-gather and reduce-scatter
+    seconds."""
+    import dataclasses
+
+    from kandinsky5_tpu_torch.parallel import launch
+
+    cfg = dataclasses.replace(conf_sft.model.dit_params, num_text_blocks=2,
+                              num_visual_blocks=2)
+    t = time.perf_counter()
+    res = launch(_mesh_train_rank, 2, "gloo", "cuda",
+                 args=(dataclasses.asdict(cfg), shard_path), timeout=900)
+    launch_s = time.perf_counter() - t
+    line = dict(request="mesh training step", launch_s=launch_s,
+                single_loss=res[0]["single_loss"],
+                single_step_s=[r["single_step_s"] for r in res],
+                peak_gib=[r["peak_gib"] for r in res])
+    bad = []
+    for name, shape in (("tp", (1, 1, 2)), ("sp", (1, 2, 1))):
+        per = sorted((r[name] for r in res), key=lambda x: x["tp_index"])
+        tp = name == "tp"
+        grad_all, grad_worst = _assembled_rel(per, "grad", tp)
+        _, ctl_worst = _assembled_rel(per, "control", tp)
+        update, _ = _assembled_rel(per, "update", tp)
+        losses = [p["loss"] for p in per]
+        loss_rel = max(abs(v - line["single_loss"]) / abs(line["single_loss"])
+                       for v in losses)
+        kinds = {}
+        for p in per:
+            for grp, ks in p["collectives"].items():
+                for kind, (calls, secs) in ks.items():
+                    kinds.setdefault(f"{grp}_{kind}", []).append(
+                        (calls, secs))
+        line[name] = dict(mesh=shape, step_s=[p["step_s"] for p in per],
+                          loss_rel=loss_rel, grad_rel_l2=grad_all,
+                          grad_worst_rel_l2=grad_worst,
+                          update_rel_l2=update,
+                          control_grad_worst_rel_l2=ctl_worst,
+                          collectives=kinds)
+        fault = ("copy_to's backward all-reduce left out" if tp
+                 else "the exit gather's backward summing")
+        log(f"  {shape}: step {[round(p['step_s'], 3) for p in per]} s a "
+            f"rank (single process {line['single_step_s'][0]:.3f} s); "
+            + ", ".join(f"{k} {sum(s for _, s in v) / len(v):.3f} s in "
+                        f"{v[0][0]} calls" for k, v in kinds.items())
+            + f" a rank; loss rel {loss_rel:.3e}, gradients rel_l2 "
+            f"{grad_all:.3e} (worst parameter {grad_worst:.3e}), update "
+            f"rel_l2 {update:.3e} (bound {TRAIN_BOUND}); control ({fault}) "
+            f"worst gradient {ctl_worst:.3e} "
+            + ("fails the bound" if ctl_worst > TRAIN_BOUND else "PASSES"))
+        if max(loss_rel, grad_worst, update) > TRAIN_BOUND:
+            bad.append(f"{shape}: loss rel {loss_rel:.3e}, worst gradient "
+                       f"{grad_worst:.3e}, update {update:.3e}")
+        if ctl_worst <= TRAIN_BOUND:
+            bad.append(f"{shape}: the control passes ({ctl_worst:.3e})")
+        if len(set(losses)) != 1:
+            bad.append(f"{shape}: the ranks' losses differ: {losses}")
+    for rank, r in enumerate(res):
+        if any(r["launches"].values()):
+            bad.append(f"rank {rank} launched kernels: fp32 training on "
+                       "dense attention runs none")
+    if bad:
+        raise Failure("mesh training: " + "; ".join(bad))
+    return line, _summed(r["launches"] for r in res)
+
+
 def phase_train(dev, conf5, built, out_dir, results):
     """Phase 7 (see the module's docstring). Returns the launches by run,
     the report and the readings."""
@@ -5971,6 +6208,13 @@ def phase_train(dev, conf5, built, out_dir, results):
         conf_sft, os.path.join(out_dir, "shard0.npz"))
     line["phase_s"] = time.perf_counter() - t
     log(f"  7b {line['phase_s']:.1f} s")
+    report.append(line)
+    log("  7.8 (7c) training on the mesh: 2 ranks on (1, 1, 2) and (1, 2, 1)")
+    t = time.perf_counter()
+    line, launches["7c-mesh-train"] = phase_mesh_train(
+        conf_sft, os.path.join(out_dir, "shard0.npz"))
+    line["phase_s"] = time.perf_counter() - t
+    log(f"  7c {line['phase_s']:.1f} s")
     report.append(line)
     return launches, report, readings
 

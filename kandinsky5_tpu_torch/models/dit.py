@@ -35,6 +35,16 @@ computes what the JAX DiT computes under a ``(dp, sp, tp)`` mesh.
   64-token blocks on the NABLA path) runs the stack whole on every sp rank
   (replicated over sp), where the JAX package would pad NABLA's rows: every
   real shape splits (1,536, 47,616 and 93,696 tokens, by 2 and by 3).
+* autograd: :func:`dit_apply` trains on any (dp, sp, tp) mesh, as the JAX
+  ``train_step`` does under ``sharding_ctx``. Every collective above is
+  one of ``parallel/ranks.py``'s autograd functions (its docstring states
+  which tensors are replicated, which partial and where each is summed):
+  the tp inputs and the QK norms' weights through ``copy_to``, the
+  row-parallel sums through ``reduce_from``, K and V through
+  ``gather_along``, the stack's entry and exit through ``split_along`` and
+  ``gather_whole``. The visual blocks' parameter gradients come out
+  partial over sp; ``training.py`` sums them. NABLA stays inference only,
+  as the JAX trainer has no sparse path.
 
 * int8: W8A8 projections run under tp as ``models/nn.py`` says (a
   row-parallel layer's activation scale and int32 product reduced over
@@ -80,6 +90,7 @@ from kandinsky5_tpu_torch.models.nn import (
     linear,
     modulated_feed_forward,
     modulation,
+    qk_norm_weights,
     quantize_linear,
     qkv_proj,
     rms_norm,
@@ -95,6 +106,12 @@ from kandinsky5_tpu_torch.ops.attention import attention
 from kandinsky5_tpu_torch.ops.fractal import fractal_flatten, fractal_unflatten
 from kandinsky5_tpu_torch.ops.nabla import nabla_attention
 from kandinsky5_tpu_torch.ops.sparse import BLOCK
+from kandinsky5_tpu_torch.parallel.ranks import (
+    copy_to,
+    gather_along,
+    gather_whole,
+    split_along,
+)
 from kandinsky5_tpu_torch.utils import default_device
 
 
@@ -202,8 +219,9 @@ def _mod_params(mod_vec, n: int):
 def gather_kv(k, v, sp):
     """The whole sequence's K and V on every rank of ``sp``: each rank's
     (B, S / sp, H, D) shard all-gathered along the sequence, in rank
-    order."""
-    return sp.all_gather(k, dim=1), sp.all_gather(v, dim=1)
+    order (``gather_along``: under autograd the backward reduce-scatters
+    every rank's queries' gradient into each rank's keys)."""
+    return gather_along(k, sp, 1), gather_along(v, sp, 1)
 
 
 def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl,
@@ -213,7 +231,7 @@ def _self_attention(p, x, rope, num_heads, kv_mask, attn_impl,
     rows of the sequence (``sparse.sta`` its rows of the STA mask): K and V
     are all-gathered over ``sp`` and the local queries attend to them."""
     b, l, _ = x.shape
-    q, k, v = qkv_proj(p, x, num_heads)
+    q, k, v = qkv_proj(p, x, num_heads, tp)
     if rope is not None:
         cos, sin = rope
         q = apply_rotary(q, cos, sin)
@@ -238,14 +256,18 @@ def attend(q, k, v, kv_mask, attn_impl, sparse: Optional[SparseParams] = None,
 def _cross_attention(p, x, cond, num_heads, kv_mask, attn_impl, tp=None,
                      q_len: Optional[int] = None):
     """``q_len``: the query length the short-KV rule sees, the whole
-    sequence's under sp (JAX decides it on the global shapes)."""
+    sequence's under sp (JAX decides it on the global shapes). With ``tp``
+    the projections are the rank's heads: ``x`` and ``cond`` enter them
+    through ``copy_to`` over the group."""
     b, l, _ = x.shape
     bc, lc, _ = cond.shape
+    x, cond = copy_to(x, tp), copy_to(cond, tp)
     q = linear(p.to_query, x).reshape(b, l, num_heads, -1)
     k = linear(p.to_key, cond).reshape(bc, lc, num_heads, -1)
     v = linear(p.to_value, cond).reshape(bc, lc, num_heads, -1)
-    q = rms_norm(q, p.query_norm.weight).to(x.dtype)
-    k = rms_norm(k, p.key_norm.weight).to(x.dtype)
+    wq, wk = qk_norm_weights(p, tp)
+    q = rms_norm(q, wq).to(x.dtype)
+    k = rms_norm(k, wk).to(x.dtype)
     kw = {} if q_len is None else {"q_len": q_len}
     out = attention(q, k, v, kv_mask=kv_mask, impl=attn_impl, **kw)
     return row_parallel_linear(p.out_layer, out.reshape(b, l, -1), tp)
@@ -360,18 +382,20 @@ def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, r
     """The visual block stack as a Python loop. ``remat`` checkpoints each
     block (its activations are recomputed in the backward), as the JAX
     package remats every scanned block. Under the model's sp group each
-    rank runs the stack on its rows (:func:`sp_rows`) and the output is
-    all-gathered over sp at the exit."""
+    rank runs the stack on its rows (:func:`sp_rows`): they enter through
+    ``split_along`` (under autograd the backward all-gathers their
+    gradients), the text and the time embedding through ``copy_to`` over
+    sp (each rank's rows see them whole, so their gradients sum over sp),
+    and the output leaves through ``gather_whole`` (the epilogue and the
+    loss run whole on every rank, so the backward keeps the rank's rows).
+    The blocks' parameters then get partial gradients, summed over sp by
+    ``training.py``."""
     tp, sp = model.tp, model.sp
     rows = sp_rows(sp, visual.shape[1], sparse)
     if rows is not None:
-        if torch.is_grad_enabled():
-            raise ValueError(
-                "training under sequence parallelism is not ported yet: the "
-                "sequence gathers have no backward (ROADMAP.md, queue 1, "
-                "item 7e)")
         r0, r1 = rows
-        visual = visual[:, r0:r1]
+        visual = split_along(visual, sp, 1)
+        text, time_embed = copy_to(text, sp), copy_to(time_embed, sp)
         rope = rope_rows(rope, r0, r1)
         if sparse is not None:
             sparse = sparse._replace(sta=sta_rows(sparse.sta, r0, r1))
@@ -385,7 +409,7 @@ def dit_visual_blocks(model: DiffusionTransformer3D, visual, text, time_embed, r
         else:
             visual = visual_decoder_block(*args)
     if rows is not None:
-        visual = sp.all_gather(visual, dim=1)
+        visual = gather_whole(visual, sp, 1)
     return visual
 
 

@@ -21,7 +21,12 @@ Tensor parallelism (the JAX package under a ``(1, 1, tp)`` mesh): an
 rank's columns of Q/K/V and of the FF in layer and its rows of the out
 layers; :func:`row_parallel_linear` and :func:`feed_forward` sum the
 partial products over the group (a
-:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`). Under W8A8 a
+:class:`~kandinsky5_tpu_torch.parallel.TensorParallel`). The sums go
+through ``parallel.ranks.reduce_from`` and every column-parallel input,
+and the QK norms' replicated weights, through ``copy_to`` (Megatron's
+pair, which autograd sees: a trained share gets one device's gradient;
+under ``no_grad`` both are the plain in-place all-reduce and the
+identity). Under W8A8 a
 column-parallel layer runs as on one device; a row-parallel one takes each
 token's max over the group's shares of its input (an all-reduce max, so
 the activation scale is the whole row's), all-reduces its int32 partial
@@ -51,6 +56,7 @@ from kandinsky5_tpu_torch.ops.ff import (
     fused_ff,
     fused_ff_modulated,
 )
+from kandinsky5_tpu_torch.parallel.ranks import copy_to, reduce_from
 
 # torch.nn.LayerNorm default eps
 LAYERNORM_EPS = 1e-5
@@ -371,7 +377,7 @@ def sharded_fused_ff(x, w1, w2, tp):
     rank's share (then the caller runs the chain)."""
     if not ff_supported(x, w1, w2):
         return None
-    return tp.all_reduce(fused_ff(x, w1, w2))
+    return reduce_from(fused_ff(x, w1, w2), tp)
 
 
 def feed_forward(p, x, tp=None):
@@ -379,7 +385,9 @@ def feed_forward(p, x, tp=None):
     holds one rank's share and the result is summed over the group: K8 where
     :func:`sharded_fused_ff` takes it, else the chain on the share (W8A8
     layers always: the JAX package sends them to the chain, their params
-    having no ``weight``)."""
+    having no ``weight``). Under autograd ``x`` enters the rank's columns
+    through ``copy_to`` over ``tp``, so its gradient sums over the group."""
+    x = copy_to(x, tp)
     if tp is not None and not isinstance(p.in_layer, Int8Linear):
         y = sharded_fused_ff(x, p.in_layer.weight, p.out_layer.weight, tp)
         if y is not None:
@@ -392,14 +400,15 @@ def row_parallel_linear(layer, x, tp=None):
     """y = x W^T + b where the layer holds one rank's input columns of W:
     the partial product in the layer's dtype, its sum over ``tp``, then the
     bias, added once (on every rank before the sum it would count tp
-    times). A W8A8 layer runs ``_linear_i8`` over ``tp``. Without ``tp``,
-    :func:`linear`."""
+    times). The sum is ``reduce_from`` (under autograd its gradient reaches
+    each rank's partial product whole). A W8A8 layer runs ``_linear_i8``
+    over ``tp``. Without ``tp``, :func:`linear`."""
     if tp is None:
         return linear(layer, x)
     if isinstance(layer, Int8Linear):
         return _linear_i8(layer, x, tp)
     ct = torch.promote_types(x.dtype, layer.weight.dtype)
-    y = tp.all_reduce(F.linear(x.to(ct), layer.weight.to(ct)))
+    y = reduce_from(F.linear(x.to(ct), layer.weight.to(ct)), tp)
     if layer.bias is not None:
         y = y + layer.bias.to(ct)
     return y.to(x.dtype)
@@ -434,12 +443,23 @@ def modulated_feed_forward(p, x, scale, shift, gate, tp=None):
     return apply_gate_sum(x, out, gate)
 
 
-def qkv_proj(p, x, num_heads: int):
-    """Per-head Q/K/V with fp32 QK-RMSNorm; x (B, L, D) -> (B, L, H, hd)."""
+def qk_norm_weights(p, tp=None):
+    """The QK RMSNorms' weights of attention ``p``. They are replicated and,
+    under ``tp``, applied to the rank's heads alone, so under autograd they
+    enter through ``copy_to``: their gradient sums over the group."""
+    return copy_to(p.query_norm.weight, tp), copy_to(p.key_norm.weight, tp)
+
+
+def qkv_proj(p, x, num_heads: int, tp=None):
+    """Per-head Q/K/V with fp32 QK-RMSNorm; x (B, L, D) -> (B, L, H, hd).
+    With ``tp`` the projections are the rank's columns (its heads) and
+    ``x`` enters them through ``copy_to`` over the group."""
     b, l, _ = x.shape
+    x = copy_to(x, tp)
     q = linear(p.to_query, x).reshape(b, l, num_heads, -1)
     k = linear(p.to_key, x).reshape(b, l, num_heads, -1)
     v = linear(p.to_value, x).reshape(b, l, num_heads, -1)
-    q = rms_norm(q, p.query_norm.weight).to(x.dtype)
-    k = rms_norm(k, p.key_norm.weight).to(x.dtype)
+    wq, wk = qk_norm_weights(p, tp)
+    q = rms_norm(q, wq).to(x.dtype)
+    k = rms_norm(k, wk).to(x.dtype)
     return q, k, v

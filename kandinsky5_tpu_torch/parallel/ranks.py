@@ -25,6 +25,53 @@ The backend is the caller's explicit choice and nothing switches it:
 ``"nccl"`` for one GPU per rank, ``"gloo"`` for ranks that share one card
 (NCCL refuses two ranks on one GPU; gloo stages CUDA tensors through the
 host) or run on the CPU.
+
+Collectives that autograd sees. ``RankGroup.all_reduce`` and
+``all_gather`` work in place or on detached values, so the trainer's
+backward goes through five functions instead, each bound to a group
+(the JAX package gets the same transposes from GSPMD and ``shard_map``):
+
+==================== ==================== =============================
+function              forward              backward
+==================== ==================== =============================
+:func:`copy_to`       identity             all-reduce sum
+:func:`reduce_from`   all-reduce sum       identity
+:func:`gather_along`  all-gather on dim    reduce-scatter sum on dim
+:func:`gather_whole`  all-gather on dim    the rank's own slice
+:func:`split_along`   the rank's slice     all-gather on dim
+==================== ==================== =============================
+
+They serve one rule. Outside the DiT's visual block stack every tensor
+is replicated: each rank of a (dp index's) sp x tp group computes it
+whole, and its gradient on each rank is whole too, since the loss is
+computed whole on every rank. Inside the stack a rank holds its sp rows
+and its tp heads (``models/dit.py``):
+
+* tp: an activation is replicated over tp and enters each column-parallel
+  linear (Q/K/V, the cross-attention's cond, the FF's in layer) through
+  :func:`copy_to`, whose backward sums the rank's heads' share of its
+  gradient over tp; a replicated weight applied to the rank's heads alone
+  (the QK RMSNorms) enters the same way. A row-parallel product is partial
+  and :func:`reduce_from` sums it (its gradient is whole on every rank).
+* sp: the stack's input enters through :func:`split_along`; the text and
+  the time embedding, used whole by every rank's rows, through
+  :func:`copy_to` over sp; K and V through :func:`gather_along`, whose
+  reduce-scatter sums every rank's queries' gradient into each rank's
+  keys; the stack's output leaves through :func:`gather_whole`, whose
+  consumer (the out layer, the loss) is replicated, so each rank keeps its
+  rows' gradient and nothing is summed (``torch.distributed.nn``'s
+  all-gather sums there: sp times the gradient).
+* what stays partial: the visual blocks' parameters see only the rank's
+  rows, so their gradients are partial over sp; ``training.py`` sums them
+  over sp, then averages every gradient over dp.
+
+Each calls the group's counted, host-staged collectives, so ``calls``,
+``bytes`` and ``seconds`` count the backward's too. No group (None) is
+the identity, and so is a group of one under autograd. Where no gradient
+is needed (``torch.no_grad()``, or an input that does not require one)
+each calls exactly what inference called before they existed: the group's
+in-place ``all_reduce`` (the only method a group needs there), its
+``all_gather``, a view of the slice.
 """
 
 from __future__ import annotations
@@ -56,9 +103,11 @@ class RankGroup:
     or ``"gloo"``, no default), the rank's device (the card unless
     ``device="cpu"`` is given; with no card and no device it raises) and
     the global ranks of the members in group order (``ranks``; 0 to size -
-    1 when None). It counts its all-reduces and gathers (``calls``,
-    ``bytes``, and the bytes by dtype, ``dtype_bytes``) and the host seconds
-    they took (``seconds``); broadcasts are not counted. Under gloo a CUDA tensor is synchronized before and after
+    1 when None). It counts its all-reduces, gathers and reduce-scatters
+    (``calls``, ``bytes``, and the bytes by dtype, ``dtype_bytes``) and the
+    host seconds they took (``seconds``), and each kind's calls and seconds
+    apart (``kinds``: "all_reduce", "all_gather", "gather",
+    "reduce_scatter"); broadcasts are not counted. Under gloo a CUDA tensor is synchronized before and after
     the timed call, so the time is the collective's and not that of the
     work queued before it, and a gather stages it through the host, as
     gloo's own all-reduce does."""
@@ -84,15 +133,19 @@ class RankGroup:
 
     def reset_stats(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
-        self.dtype_bytes = {}
+        self.dtype_bytes, self.kinds = {}, {}
 
     def _sync(self, x) -> None:
         if x.is_cuda and self.backend == "gloo":
             torch.cuda.synchronize(x.device)
 
-    def _count(self, t0: float, x: torch.Tensor, parts: int = 1) -> None:
-        self.seconds += time.perf_counter() - t0
+    def _count(self, kind: str, t0: float, x: torch.Tensor,
+               parts: int = 1) -> None:
+        dt = time.perf_counter() - t0
+        self.seconds += dt
         self.calls += 1
+        calls, seconds = self.kinds.get(kind, (0, 0.0))
+        self.kinds[kind] = (calls + 1, seconds + dt)
         n = x.numel() * x.element_size() * parts
         self.bytes += n
         key = str(x.dtype).replace("torch.", "")
@@ -115,7 +168,7 @@ class RankGroup:
         t = time.perf_counter()
         dist.all_reduce(x, op=_OPS[op], group=self.group)
         self._sync(x)
-        self._count(t, x)
+        self._count("all_reduce", t, x)
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -128,7 +181,22 @@ class RankGroup:
         dist.all_gather(parts, src, group=self.group)
         out = torch.cat(parts, dim).to(x.device)
         self._sync(out)
-        self._count(t, src, self.size)
+        self._count("all_gather", t, src, self.size)
+        return out
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum of every rank's ``x`` (all of one shape), cut into
+        ``size`` equal parts along ``dim``: this rank's part, on ``x``'s
+        device (the transpose of :meth:`all_gather`)."""
+        self._sync(x)
+        t = time.perf_counter()
+        src = self._staged(x)
+        parts = [p.contiguous() for p in src.chunk(self.size, dim)]
+        out = torch.empty_like(parts[self.rank])
+        dist.reduce_scatter(out, parts, group=self.group)
+        out = out.to(x.device)
+        self._sync(out)
+        self._count("reduce_scatter", t, src)
         return out
 
     def gather(self, x: torch.Tensor, dst: int = 0) -> Optional[torch.Tensor]:
@@ -142,7 +210,7 @@ class RankGroup:
                  if self.rank == dst else None)
         dist.gather(src, parts, dst=self.ranks[dst], group=self.group)
         out = None if parts is None else torch.cat(parts).to(x.device)
-        self._count(t, src, self.size)
+        self._count("gather", t, src, self.size)
         return out
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -185,22 +253,142 @@ class RankGroup:
 
 class TensorParallel(RankGroup):
     """A tensor-parallel group: the ranks that hold one model's shares and
-    all-reduce its row-parallel products (``models/nn.py``)."""
+    sum its row-parallel products (``models/nn.py``, :func:`reduce_from`);
+    under autograd the column-parallel inputs and the QK norms' weights
+    enter through :func:`copy_to`, and the trainer sums the squares of the
+    shares' gradients over it for the global clip norm."""
 
 
 class SequenceParallel(RankGroup):
     """A sequence-parallel group: the ranks of one (dp, tp) index, each
     holding a contiguous 1/sp of the visual tokens through the DiT's visual
-    blocks; they all-gather each self-attention's K and V along the
-    sequence (``all_gather(x, dim=1)``) and the blocks' output once at the
-    stack's exit (``models/dit.py``)."""
+    blocks (:func:`split_along`); they all-gather each self-attention's K
+    and V along the sequence (:func:`gather_along`, a reduce-scatter in the
+    backward) and the blocks' output once at the stack's exit
+    (:func:`gather_whole`; ``models/dit.py``). The trainer sums the visual
+    blocks' gradients over it."""
 
 
 class DataParallel(RankGroup):
     """A data-parallel group: the ranks of one (sp, tp) index, each
     computing its block of the batch; the sampler all-gathers their
-    predictions, the trainer all-reduces their gradients (ZeRO-1: each keeps
-    a slice of the moments)."""
+    predictions, the trainer all-reduces their gradients as their mean
+    (ZeRO-1: each keeps a slice of the moments and all-gathers the updated
+    parameters)."""
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _contiguous_copy(x: torch.Tensor) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _own_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(_contiguous_copy(g)), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(_contiguous_copy(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, transpose):
+        ctx.group, ctx.dim, ctx.transpose = group, dim, transpose
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.transpose:
+            g = ctx.group.reduce_scatter(g, ctx.dim)
+        else:
+            g = _own_slice(g, ctx.group, ctx.dim)
+        return g, None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _contiguous_copy(_own_slice(x, group, dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, replicated over ``group``, entering work that each rank does
+    on its own share: the identity, whose backward sums the gradient over
+    the group."""
+    if group is None or not _needs_grad(x) or group.size == 1:
+        return x
+    return _Copy.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``group`` (in place where no
+    gradient is needed); the gradient passes to each rank's part as it
+    is."""
+    if group is None:
+        return x
+    if not _needs_grad(x):
+        return group.all_reduce(x)
+    return x if group.size == 1 else _Reduce.apply(x, group)
+
+
+def gather_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` for a consumer that
+    each rank runs on its own share (K and V for the rank's queries): the
+    backward reduce-scatters the gradient, summing every rank's share of
+    it into the rank's slice."""
+    if group is None:
+        return x
+    if not _needs_grad(x):
+        return group.all_gather(x, dim)
+    return x if group.size == 1 else _Gather.apply(x, group, dim, True)
+
+
+def gather_whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` for a consumer that
+    every rank runs whole (the stack's output, the loss): the backward
+    keeps the rank's slice of the gradient, which is already whole."""
+    if group is None:
+        return x
+    if not _needs_grad(x):
+        return group.all_gather(x, dim)
+    return x if group.size == 1 else _Gather.apply(x, group, dim, False)
+
+
+def split_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The rank's contiguous 1/size of a replicated ``x`` along ``dim`` (a
+    view where no gradient is needed): the backward all-gathers the
+    ranks' gradients, each whole for its slice."""
+    if group is None:
+        return x
+    if not _needs_grad(x):
+        return _own_slice(x, group, dim)
+    return x if group.size == 1 else _Split.apply(x, group, dim)
 
 
 class RankMesh(NamedTuple):

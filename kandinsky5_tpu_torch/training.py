@@ -22,15 +22,30 @@ training runs where the JAX package trains, on ``attn_impl="dense"`` with
 fp32 parameters (whose FFs the K2 gate refuses); ``"auto"`` reaches K1 and
 raises, on the CPU as on the card.
 
+The mesh: a step runs on any (dp, sp, tp) mesh, as the JAX ``train_step``
+does under ``sharding_ctx``. The model is the rank's share
+(``parallel/sharding.shard_dit``) and its forward runs the autograd-aware
+collectives of ``parallel/ranks.py``, whose docstring states where each
+gradient is replicated and where partial. Then, in one place
+(:func:`reduce_gradients`), the visual blocks' gradients, partial over sp,
+are summed over sp, and every gradient is averaged over dp. The clip takes
+the global norm (:func:`global_norm`): the squares of the tp shares'
+gradients summed over tp, a replicated gradient's counted once, which is
+optax's ``clip_by_global_norm`` over JAX's whole tree. The loss is the
+global mean: each sp and tp rank of a dp index computes it whole.
+
 ZeRO-1 over dp (:func:`shard_train_state`, the JAX package's placement of
 Adam's moments over the mesh's "dp" axis): each dp rank keeps the moments
 of its slice of every rank-local parameter, along the first dim that tp
 leaves whole and dp divides (a moment with no such dim stays whole on every
 rank). A step then computes the loss on the rank's rows of the global
-batch, all-reduces the gradients as their mean over dp, clips on the
-global norm, updates the rank's slices and all-gathers the updated
-parameters; its loss is the global mean. The JAX package lets GSPMD place
-the same collectives; here they are explicit.
+batch, puts the gradients together as above, clips, updates the rank's
+slices and all-gathers the updated parameters. The JAX package lets GSPMD
+place the same collectives; here they are explicit.
+
+A state file (:func:`save_train_state`) holds one (dp, tp) index's
+parameters and moments: the sp ranks of that index hold the same ones, so
+sp rank 0 alone writes it and every rank of the index reads it.
 """
 
 from __future__ import annotations
@@ -42,10 +57,12 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 from kandinsky5_tpu_torch.config import DiTParams
-from kandinsky5_tpu_torch.models.dit import DiffusionTransformer3D, dit_apply
-
-STATE_FILE = "train_state.pt"
-
+from kandinsky5_tpu_torch.models.dit import (
+    DiffusionTransformer3D,
+    dit_apply,
+    sp_rows,
+)
+from kandinsky5_tpu_torch.parallel.sharding import split_dim
 
 # the JAX package's AdamW constants
 B1, B2, EPS = 0.9, 0.95, 1e-8
@@ -74,13 +91,14 @@ class AdamW(NamedTuple):
 
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
-               grads: Sequence[torch.Tensor], state: dict, dp=None) -> dict:
+               grads: Sequence[torch.Tensor], state: dict,
+               norm: torch.Tensor, dp=None) -> dict:
         """One step: the parameters and moments change in place; returns
         the state with its count advanced. A ZeRO-1 state (``state["dims"]``,
         :func:`shard_train_state`) updates this dp rank's slice of each
         sharded parameter and all-gathers it over ``dp``; ``grads`` are the
-        whole (dp-averaged) gradients on every rank."""
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        whole (dp-averaged) gradients on every rank. ``norm`` is the clip's
+        global norm (:func:`global_norm`)."""
         clipped = bool(norm >= self.clip)
         count = state["count"] + 1
         bc1 = 1.0 - B1 ** count
@@ -114,12 +132,15 @@ def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.01,
 class TrainState(NamedTuple):
     """The model (its parameters), the optimizer's moments and the step;
     ``dp`` the data-parallel group of a ZeRO-1 state
-    (:func:`shard_train_state`), else None."""
+    (:func:`shard_train_state`), else None; ``tp`` and ``sp`` the model's
+    tensor- and sequence-parallel groups (None for one rank)."""
 
     model: DiffusionTransformer3D
     opt_state: dict
     step: int
     dp: Optional[object] = None
+    tp: Optional[object] = None
+    sp: Optional[object] = None
 
 
 def trained_params(model: torch.nn.Module) -> List[torch.Tensor]:
@@ -127,20 +148,49 @@ def trained_params(model: torch.nn.Module) -> List[torch.Tensor]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
-def _no_sp(model: DiffusionTransformer3D, mesh=None) -> None:
-    """Raise for a model, or a mesh, with sp > 1."""
-    if model.sp is not None or (mesh is not None and mesh.shape[1] > 1):
-        raise ValueError(
-            "training under sequence parallelism is not ported yet: the "
-            "sequence gathers have no backward (ROADMAP.md, queue 1, item "
-            "7e)")
+def _trained_names(model: torch.nn.Module) -> List[str]:
+    return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
 def init_train_state(model: DiffusionTransformer3D,
                      optimizer: AdamW) -> TrainState:
-    """A fresh state of ``model`` (which must not run over sp)."""
-    _no_sp(model)
-    return TrainState(model, optimizer.init(trained_params(model)), 0)
+    """A fresh state of ``model``, a whole model or a rank's share on any
+    mesh (its tp and sp groups are the model's)."""
+    return TrainState(model, optimizer.init(trained_params(model)), 0,
+                      tp=model.tp, sp=model.sp)
+
+
+def global_norm(grads: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None,
+                tp=None) -> torch.Tensor:
+    """The L2 norm of the whole model's gradients, optax's
+    ``global_norm`` over JAX's tree: with a tp group the squares of the
+    gradients of the tp shares (``sharded``: ``parallel/sharding.
+    split_dim`` not None) are summed over ``tp``, each replicated gradient
+    counted once. The gradients are whole over sp and dp by then
+    (:func:`reduce_gradients`)."""
+    if tp is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    own = [g.float().square().sum() for g, s in zip(grads, sharded) if s]
+    rep = [g.float().square().sum() for g, s in zip(grads, sharded)
+           if not s]
+    shares = tp.all_reduce(torch.stack(own).sum().reshape(1))
+    return torch.sqrt(torch.stack(rep).sum() + shares[0])
+
+
+def reduce_gradients(state: TrainState, grads: Sequence[torch.Tensor],
+                     stack_split: bool) -> None:
+    """The rank's gradients made whole, in place: with ``stack_split``
+    (the visual block stack ran on the rank's 1/sp of the tokens) the
+    visual blocks' parameters' gradients, partial over sp, are summed over
+    sp; then every gradient becomes its mean over dp. Every other gradient
+    is whole already (``parallel/ranks.py``)."""
+    if stack_split:
+        for name, g in zip(_trained_names(state.model), grads):
+            if name.startswith("visual_transformer_blocks."):
+                state.sp.all_reduce(g)
+    if state.dp is not None:
+        mean_over_dp(state.dp, grads)
 
 
 def flow_matching_loss(model: DiffusionTransformer3D, cfg: DiTParams, x0,
@@ -170,15 +220,15 @@ def mean_over_dp(dp, tensors: Sequence[torch.Tensor]) -> None:
         dp.all_reduce(x).div_(dp.size)
 
 
-def train_step_on(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
-                  text_embeds, pooled_embed, text_mask, t, noise,
-                  attn_impl: str = "auto"):
-    """One optimization step at the given t and noise: the loss, its
-    gradients, then the optimizer's update in place. Returns (the state
-    with its step advanced, the loss as a detached fp32 scalar). Under a
-    ZeRO-1 state the batch, t and noise are this dp rank's rows of the
-    global batch's (all ranks holding as many); the gradients are averaged
-    over dp before the update, and the loss returned is the global mean."""
+def loss_and_gradients(state: TrainState, cfg: DiTParams, x0, text_embeds,
+                       pooled_embed, text_mask, t, noise,
+                       attn_impl: str = "auto"):
+    """The loss and the gradients of the trained parameters at the given t
+    and noise, made whole on the mesh (:func:`reduce_gradients`): (the loss
+    as a detached fp32 scalar, the gradients in ``trained_params`` order).
+    Under a ZeRO-1 state the batch, t and noise are this dp rank's rows of
+    the global batch's (all ranks holding as many), the same on every sp
+    and tp rank of its dp index, and the loss is the global mean."""
     params = trained_params(state.model)
     with torch.enable_grad():
         loss = flow_matching_loss(state.model, cfg, x0, text_embeds,
@@ -188,11 +238,32 @@ def train_step_on(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     loss = loss.detach()
+    grid = [n // p for n, p in zip(x0.shape[1:4], cfg.patch_size)]
+    reduce_gradients(state, grads, sp_rows(
+        state.sp, grid[0] * grid[1] * grid[2]) is not None)
     if state.dp is not None:
-        mean_over_dp(state.dp, grads)
         loss = loss.clone()
         mean_over_dp(state.dp, [loss])
-    opt_state = optimizer.update(params, grads, state.opt_state, state.dp)
+    return loss, grads
+
+
+def train_step_on(state: TrainState, cfg: DiTParams, optimizer: AdamW, x0,
+                  text_embeds, pooled_embed, text_mask, t, noise,
+                  attn_impl: str = "auto"):
+    """One optimization step at the given t and noise: the loss and its
+    whole gradients (:func:`loss_and_gradients`), the global norm, then
+    the optimizer's update in place. Returns (the state with its step
+    advanced, the loss as a detached fp32 scalar, the global mean)."""
+    loss, grads = loss_and_gradients(state, cfg, x0, text_embeds,
+                                     pooled_embed, text_mask, t, noise,
+                                     attn_impl)
+    sharded = None
+    if state.tp is not None:
+        sharded = [split_dim(n) is not None
+                   for n in _trained_names(state.model)]
+    norm = global_norm(grads, sharded, state.tp)
+    opt_state = optimizer.update(trained_params(state.model), grads,
+                                 state.opt_state, norm, state.dp)
     return state._replace(opt_state=opt_state, step=state.step + 1), loss
 
 
@@ -238,10 +309,8 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
     model's parameter excluded); the parameters stay whole on every dp rank,
     in their tp shares. A dp group of one rank leaves the state as it is."""
     from kandinsky5_tpu_torch.parallel.ranks import as_mesh
-    from kandinsky5_tpu_torch.parallel.sharding import split_dim
 
     mesh = as_mesh(mesh)
-    _no_sp(state.model, mesh)
     dp = mesh.dp
     if dp.size == 1:
         return state
@@ -261,8 +330,8 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
         dims.append(dim)
         mu.append(m)
         nu.append(v)
-    return TrainState(model, dict(state.opt_state, mu=mu, nu=nu, dims=dims),
-                      state.step, dp)
+    return state._replace(opt_state=dict(state.opt_state, mu=mu, nu=nu,
+                                         dims=dims), dp=dp)
 
 
 def save_checkpoint(model: DiffusionTransformer3D, path: str) -> None:
@@ -274,30 +343,40 @@ def save_checkpoint(model: DiffusionTransformer3D, path: str) -> None:
 
 
 def _state_file(state: TrainState) -> str:
-    """The state's file name: one per dp rank under ZeRO-1 (each holds its
-    moment slices)."""
-    if state.dp is None:
-        return STATE_FILE
-    return f"train_state.dp{state.dp.rank}of{state.dp.size}.pt"
+    """The state's file name: one per (dp, tp) index, the dp rank's under
+    ZeRO-1 (each holds its moment slices) and the tp rank's under tp (each
+    holds its shares)."""
+    name = "train_state"
+    for kind, group in (("dp", state.dp), ("tp", state.tp)):
+        if group is not None:
+            name += f".{kind}{group.rank}of{group.size}"
+    return f"{name}.pt"
 
 
 def save_train_state(state: TrainState, ckpt_dir: str, step: int) -> str:
     """The whole training state (parameters, moments, step) with
-    ``torch.save`` under ``ckpt_dir/<step>/``, restartable mid-run; a ZeRO-1
-    state writes one file per dp rank. The port's own format, not the JAX
-    package's orbax checkpoint. Returns the file written."""
+    ``torch.save`` under ``ckpt_dir/<step>/``, restartable mid-run. On a
+    mesh each (dp, tp) index has a file of its own (its tp shares and
+    ZeRO-1 moment slices), which its sp rank 0 alone writes: every sp rank
+    of the index calls this, and returns once the file is written. The
+    port's own format, not the JAX package's orbax checkpoint. Returns the
+    file's path."""
     path = os.path.join(ckpt_dir, str(step), _state_file(state))
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"model": state.model.state_dict(),
-                "opt_state": state.opt_state, "step": state.step}, path)
+    if state.sp is None or state.sp.rank == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"model": state.model.state_dict(),
+                    "opt_state": state.opt_state, "step": state.step}, path)
+    if state.sp is not None:
+        path = state.sp.broadcast_object(path)
     return path
 
 
 def load_train_state(ckpt_dir: str, state_like: TrainState,
                      step: Optional[int] = None) -> TrainState:
     """Restore a :func:`save_train_state` checkpoint into ``state_like``'s
-    tensors (a state of the same architecture, on its devices and dtypes),
-    in place; ``step`` None takes the latest."""
+    tensors (a state of the same architecture, on its devices and dtypes,
+    on the same mesh), in place; ``step`` None takes the latest. Every rank
+    reads the file of its (dp, tp) index."""
     if step is None:
         steps = [int(d) for d in os.listdir(ckpt_dir) if re.fullmatch(r"\d+", d)]
         if not steps:

@@ -10,6 +10,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from kandinsky5_tpu_torch import training
 from kandinsky5_tpu_torch.checkpoint import dit_from_state_dict
 from kandinsky5_tpu_torch.config import DiTParams
 from kandinsky5_tpu_torch.models import dit as dit_mod
@@ -134,6 +135,23 @@ def attend_case(mesh, case, sparse: bool):
             "kept": [float(x) for x in kept]}
 
 
+def train_case(model, cases):
+    """One fp32 ``train_step_on`` of ``model`` (the tiny DiT, whole or a
+    rank's share) on the 48-token latent at t 0.5 and seeded noise: the
+    loss, the parameters and whether the state carries the model's sp
+    group."""
+    fwd = cases["dense48"]["fwd"]
+    x0 = _t(fwd["x"])
+    noise = torch.randn(x0.shape, generator=torch.Generator().manual_seed(11))
+    opt = training.make_optimizer(lr=1e-4)
+    state = training.init_train_state(model, opt)
+    state, loss = training.train_step_on(
+        state, model.cfg, opt, x0, _t(fwd["text"]), _t(fwd["pooled"]),
+        _t(fwd["mask"]), torch.tensor([0.5]), noise, attn_impl="dense")
+    return {"loss": loss.item(), "state_sp": state.sp is model.sp,
+            "params": {k: v.numpy() for k, v in model.state_dict().items()}}
+
+
 def run_a(mesh, cases):
     """Everything the test asks of the (1, 2, 2) mesh, in one launch: the
     dense denoise (with MagCache's skip schedule and the two controls), K1
@@ -163,6 +181,10 @@ def run_a(mesh, cases):
     if sub is not None:  # int8-QK attention (K5) on a (1, 2, 1) mesh
         model = shard_dit(int8_dit(cases["dits"]["tiny"][0]), sub)
         out["int8_121"] = _forward(model, cases["dense48"], "flash_int8")
+        sub.sp.reset_stats()
+        out["train_121"] = train_case(_dit(sub, *cases["dits"]["tiny"]),
+                                      cases)
+        out["train_121"]["sp_calls"] = sub.sp.calls
 
     nabla = cases["nabla"]
     model = _dit(mesh, *cases["dits"]["nabla"])

@@ -318,12 +318,16 @@ def test_sp_pipeline_matches_one_device(sp_ranks):
 
 
 def test_training_and_int8_refuse_sp(sp_ranks):
-    """Training under sp (no backward through the gathers) raises naming
-    ROADMAP's item 7e; int8-QK attention (K5's plain version) on a (1, 2,
-    1) mesh runs (its output is not the dense forward's) and matches the
-    port's one device within JAX's own mesh bound for it, 5e-3
-    (tests/test_tp_parity.py: each rank's Q scale is its queries', K's the
-    gathered keys'; measured 8.3e-4)."""
+    """Training under sp runs: a state of a rank's sp share carries its sp
+    group and ``shard_train_state`` takes an sp mesh, and one fp32 step on
+    (1, 2, 1) ranks (the 48-token latent split 24 a rank, K and V gathered
+    under autograd) gives the loss and every parameter of the port's step on
+    one device (rtol 2e-4, atol 2e-5; ``tests/test_torch_train_mesh.py``
+    holds training on the mesh against JAX). int8-QK attention (K5's plain
+    version) on a (1, 2, 1) mesh runs (its output is not the dense
+    forward's) and matches the port's one device within JAX's own mesh
+    bound for it, 5e-3 (tests/test_tp_parity.py: each rank's Q scale is its
+    queries', K's the gathered keys'; measured 8.3e-4)."""
     from kandinsky5_tpu_torch import training as tt
     from kandinsky5_tpu_torch.config import DiTParams
     from kandinsky5_tpu_torch.parallel import SequenceParallel
@@ -345,12 +349,19 @@ def test_training_and_int8_refuse_sp(sp_ranks):
                     RankGroup(None, 0, 2, "gloo", "cpu"), sp)
     local = shard_dit(model, mesh)
     assert local.sp is sp and model.sp is None and local.tp is None
-    with pytest.raises(ValueError, match="queue 1, item 7e"):
-        tt.init_train_state(local, tt.make_optimizer())
-    with pytest.raises(ValueError, match="queue 1, item 7e"):
-        tt.shard_train_state(tt.init_train_state(model, tt.make_optimizer()),
-                             mesh)
+    state = tt.init_train_state(local, tt.make_optimizer())
+    assert state.sp is sp and state.tp is None
+    assert tt.shard_train_state(state, mesh) is state
     got_a, _, _, work = sp_ranks
+    single = ranks_mod.train_case(
+        ranks_mod._dit(mesh._replace(sp=None), *work["dits"]["tiny"]), work)
+    for r in got_a[:2]:
+        train = r["train_121"]
+        assert train["state_sp"] and train["sp_calls"] > 5
+        np.testing.assert_allclose(train["loss"], single["loss"], rtol=1e-5)
+        for k, v in single["params"].items():
+            np.testing.assert_allclose(train["params"][k], v, rtol=RTOL,
+                                       atol=ATOL, err_msg=k)
     one = ranks_mod._forward(ranks_mod.int8_dit(work["dits"]["tiny"][0]),
                              work["dense48"], "flash_int8")
     dense = ranks_mod._forward(ranks_mod.int8_dit(work["dits"]["tiny"][0]),
